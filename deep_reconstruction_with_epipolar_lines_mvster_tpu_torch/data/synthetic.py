@@ -1,0 +1,130 @@
+"""Synthetic multi-view fixture: an analytically rendered textured plane.
+
+A numpy copy of the JAX package's ``data/synthetic.py`` scene, so that the
+port's tests and ``chip_smoke.py`` build the same inputs without importing
+that package. The sample dict follows the reference loader spec
+(``datasets/dtu_yao4.py:228-232``): ``imgs [V,H,W,3]``, ``proj_matrices
+{stage: [V,2,4,4]}``, ``depth {stage: [h,w]}``, ``depth_values [2]``,
+``mask {stage: [h,w]}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def _texture(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Smooth but feature-rich RGB texture over world (X, Y)."""
+    r = 0.5 + 0.5 * np.sin(0.37 * x) * np.cos(0.23 * y)
+    g = 0.5 + 0.5 * np.sin(0.11 * x + 1.3) * np.sin(0.31 * y + 0.7)
+    b = 0.5 + 0.25 * np.cos(0.19 * x * y / 50.0) + 0.25 * np.sin(0.41 * y)
+    return np.stack([r, g, b], axis=-1).astype(np.float32)
+
+
+def make_plane_scene(
+    V: int = 3,
+    H: int = 64,
+    W: int = 64,
+    *,
+    z0: float = 600.0,
+    gx: float = 0.15,
+    gy: float = -0.1,
+    baseline: float = 12.0,
+    depth_range: tuple = (425.0, 935.0),
+    num_stages: int = 4,
+    seed: int = 0,
+) -> Dict:
+    """Render the plane ``Z = z0 + gx·X + gy·Y`` (world == ref camera frame),
+    seen by V translated copies of the reference camera spaced ``baseline``
+    apart along x with a slight y jitter."""
+    rng = np.random.default_rng(seed)
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1]], dtype=np.float32)
+    n = np.array([-gx, -gy, 1.0], dtype=np.float64)
+
+    extrinsics = []
+    for v in range(V):
+        E = np.eye(4, dtype=np.float32)
+        if v > 0:
+            E[0, 3] = -baseline * v
+            E[1, 3] = float(rng.uniform(-0.2, 0.2) * baseline)
+        extrinsics.append(E)
+
+    imgs = []
+    view_depths = []
+    for v in range(V):
+        E = extrinsics[v].astype(np.float64)
+        R = E[:3, :3]
+        t = E[:3, 3]
+        C = -R.T @ t
+        xs, ys = np.meshgrid(np.arange(W), np.arange(H), indexing="xy")
+        pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1).astype(np.float64)
+        d_cam = pix @ np.linalg.inv(K).T.astype(np.float64)
+        d_world = d_cam @ R
+        s = (z0 - n @ C) / (d_world @ n)
+        P = C[None, None, :] + s[..., None] * d_world
+        imgs.append(_texture(P[..., 0], P[..., 1]))
+        view_depths.append((P @ R.T[:, 2] + t[2]).astype(np.float32))
+    imgs = np.stack(imgs).astype(np.float32)
+
+    def depth_at(h, w):
+        scale = np.array([w / W, h / H], dtype=np.float64)
+        Ks = K.astype(np.float64).copy()
+        Ks[0] *= scale[0]
+        Ks[1] *= scale[1]
+        xs, ys = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
+        pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1).astype(np.float64)
+        d_cam = pix @ np.linalg.inv(Ks).T
+        s = z0 / (d_cam @ n)
+        return (s * d_cam[..., 2]).astype(np.float32)
+
+    depth_ms, mask_ms, projs = {}, {}, {}
+    for st in range(num_stages):
+        scale = 2.0 ** (st - (num_stages - 1))  # stage4 = full res
+        h, w = int(H * scale), int(W * scale)
+        depth_ms[f"stage{st + 1}"] = depth_at(h, w)
+        mask_ms[f"stage{st + 1}"] = np.ones((h, w), dtype=np.float32)
+        stacks = np.zeros((V, 2, 4, 4), dtype=np.float32)
+        for v in range(V):
+            stacks[v, 0] = extrinsics[v]
+            Ks = K.copy()
+            Ks[:2] *= scale
+            stacks[v, 1, :3, :3] = Ks
+        projs[f"stage{st + 1}"] = stacks
+
+    return {
+        "imgs": imgs,
+        "proj_matrices": projs,
+        "depth": depth_ms,
+        "depth_values": np.array(depth_range, dtype=np.float32),
+        "mask": mask_ms,
+        "view_depths": np.stack(view_depths),
+        "intrinsics": K,
+        "extrinsics": np.stack(extrinsics),
+    }
+
+
+def batch_samples(samples) -> Dict:
+    """Stack sample dicts (nested dicts of arrays) along a new leading
+    batch axis."""
+    first = samples[0]
+    if isinstance(first, dict):
+        return {k: batch_samples([s[k] for s in samples]) for k in first}
+    return np.stack(samples)
+
+
+def batch_to_torch(batch: Dict, device) -> Dict:
+    """The model inputs of a stacked batch as tensors on ``device``:
+    ``imgs``, ``proj_matrices`` and ``depth_values``."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {
+        "imgs": t(batch["imgs"]),
+        "proj_matrices": {k: t(v) for k, v in batch["proj_matrices"].items()},
+        "depth_values": t(batch["depth_values"]),
+    }
