@@ -7,24 +7,37 @@
    all started together) and prints the build seconds and ptxas's register
    and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
-   flagship forward gives it, in float32 (TF32 off) and in bf16, and times
-   both with CUDA events.
+   flagship paths give it, in float32 (TF32 off) and in bf16, and times
+   both with CUDA events: K1 and K2 at the eval forward's shapes, K3 (the
+   warp backward) at the train step's, beside its library yardstick
+   ``aten.grid_sampler_2d_backward``.
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
    and BatchNorm statistics on plane-scene inputs: the launch counters are
    set to 0 just before one forward and read just after (K1 12 launches,
    K2 3), then three rounds of five forwards are timed.
-4. Checks the output: finite depth of the expected shape, and, on a small
-   input, the card's forward against the CPU's plain forward with the same
-   weights in float32.
+4. Checks the eval output: finite depth of the expected shape, and, on a
+   small input, the card's forward against the CPU's plain forward with the
+   same weights in float32.
+5. The top-down chain's ``autograd.Function`` (K2 forward, K2 re-deriving
+   ``u`` in the backward) against autograd through the plain chain, at the
+   train shape (30 images), in float32 and bf16.
+6. A small float32 train step on the card against the same step on the
+   CPU (B=2, V=3, 64x128): the loss, every parameter's gradient, and a
+   nonzero gradient for every parameter on the card.
+7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
+   Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
+   before one step and read just after (K3 16, K2 6, K1 0), then a warm-up
+   step and three rounds of three timed steps, and a profile of one step.
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
-one forward by kernel), a ``forward`` line, a ``kernels`` line. The last
-line is ``{"ok": true, "device": {...}}``; any failed check raises before
-it, with a non-zero exit. Without CUDA it exits non-zero and prints no
-result.
+one forward by kernel), a ``forward`` line, a ``chain_backward`` line, a
+``small_train_step`` line, a ``train`` line, a ``train_profile`` line and a
+``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
+failed check raises before it, with a non-zero exit. Without CUDA it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 B, V, H, W = 4, 4, 512, 640
+TRAIN_B, TRAIN_V = 6, 5             # the DTU recipe (scripts/train_dtu.sh)
 SEED = 0
+KERNELS = ("warp_cor", "topdown", "warp_bwd")
 
 
 def _dtu_model_config(dtype="bfloat16"):
@@ -55,6 +70,13 @@ def _dtu_model_config(dtype="bfloat16"):
         mono=True, attn_temp=2.0, dtype=dtype, pack_conv=True,
         warp_impl="mxu_v3", warp_band=12, fused_topdown=True,
     )
+
+
+def _dtu_loss_config():
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import LossConfig
+
+    return LossConfig(stage_lw=(1.0, 1.0, 1.0, 1.0), l1_lw=0.003, ot_lw=1.0, ot_iter=3,
+                      inverse_depth=True, mono=True)
 
 
 def _time_ms(fn, reps):
@@ -119,16 +141,51 @@ def _scene(b, v, h, w, device):
     return batch_to_torch(batch_samples(scenes), device)
 
 
+def _record(rows, kernel, path, shape, dtype, err, tol, per_run, run, run_ref, nbytes, ops,
+            peak, run_library=None):
+    """One ``kernel_shapes`` row: the kernel against its plain version, and
+    in bf16 (the paths' dtype) their times, the bound and the library
+    yardstick's time. Raises when the difference exceeds the tolerance."""
+    import torch
+
+    row = {
+        "kernel": kernel, "path": path, "shape": shape,
+        "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_diff": err, "tolerance": tol, "launches_per_run": per_run,
+    }
+    if dtype == torch.bfloat16:
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        row.update(
+            kernel_ms=_time_ms(run, 20), plain_ms=_time_ms(run_ref, 3),
+            library_ms=None if run_library is None else _time_ms(run_library, 20),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, ops=ops,
+        )
+    if err > tol:
+        raise AssertionError(f"{kernel} {shape} {dtype}: max|diff| {err} > {tol}")
+    rows.append(row)
+
+
+def _jittered_hypo(depth_values, D, h, w, gen):
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.hypothesis import (
+        init_inverse_range,
+    )
+
+    hypo = init_inverse_range(depth_values, D, h, w).float()
+    noise = torch.randn(hypo.shape, generator=gen, device=hypo.device)
+    return (hypo * (1 + 0.01 * noise)).contiguous()
+
+
 def check_kernels(dev, batch):
-    """Each kernel against its plain version at the forward's shapes, in
-    float32 and bf16; times in bf16 (the forward's dtype)."""
+    """K1 and K2 against their plain versions at the eval forward's shapes,
+    in float32 and bf16; times in bf16 (the forward's dtype)."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
         relative_projection,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.hypothesis import (
-        init_inverse_range,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
@@ -140,24 +197,6 @@ def check_kernels(dev, batch):
     cfg = _dtu_model_config()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-
-    def record(kernel, shape, dtype, err, tol, per_fwd, run, run_ref, nbytes, ops, peak):
-        row = {
-            "kernel": kernel, "shape": shape, "dtype": str(dtype).replace("torch.", ""),
-            "max_abs_diff": err, "tolerance": tol, "launches_per_forward": per_fwd,
-        }
-        if dtype == torch.bfloat16:
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-            row.update(
-                kernel_ms=_time_ms(run, 20), plain_ms=_time_ms(run_ref, 3),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops,
-            )
-        if err > tol:
-            raise AssertionError(f"{kernel} {shape} {dtype}: max|diff| {err} > {tol}")
-        rows.append(row)
-
     for dtype in (torch.float32, torch.bfloat16):
         # K1 at each stage: C and G of the stage, D hypotheses, 3 source views
         for s in range(4):
@@ -165,8 +204,7 @@ def check_kernels(dev, batch):
             C, G, D = cfg.fpn_out_channels[s], cfg.group_cor_dim[s], cfg.ndepths[s]
             projs = batch["proj_matrices"][f"stage{s + 1}"]
             rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
-            hypo = init_inverse_range(batch["depth_values"], D, h, w).float()
-            hypo = (hypo * (1 + 0.01 * torch.randn(hypo.shape, generator=gen, device=dev))).contiguous()
+            hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
             src = torch.randn((B, h, w, C), generator=gen, device=dev).to(dtype)
             ref = torch.randn((B, h, w, C), generator=gen, device=dev).to(dtype)
             args = (src, ref, rel, hypo, G)
@@ -174,10 +212,10 @@ def check_kernels(dev, batch):
             torch.cuda.synchronize()
             out_bytes = got.numel() * got.element_size()
             nbytes = sum(t.numel() * t.element_size() for t in args[:4]) + out_bytes
-            record("warp_cor", [B, D, h, w, C, G], dtype, _max_err(got, want),
-                   k1.TOLERANCE[dtype] * _scale(want), V - 1,
-                   lambda: k1.warp_cor(*args), lambda: k1.warp_cor_ref(*args),
-                   nbytes, B * D * h * w * (28 + 9 * C + G), FP32_FLOPS)
+            _record(rows, "warp_cor", "eval", [B, D, h, w, C, G], dtype, _max_err(got, want),
+                    k1.TOLERANCE[dtype] * _scale(want), V - 1,
+                    lambda: k1.warp_cor(*args), lambda: k1.warp_cor_ref(*args),
+                    nbytes, B * D * h * w * (28 + 9 * C + G), FP32_FLOPS)
         # K2 at each top-down level: (Cs, Co) = (32,32), (16,16), (8,8)
         N = B * V
         for lvl, (cs, co) in enumerate(((32, 32), (16, 16), (8, 8))):
@@ -199,10 +237,67 @@ def check_kernels(dev, batch):
             nbytes = (intra.numel() + skip.numel()) * esz + npix * (co + (64 if with_u else 0)) * esz \
                 + (wi.numel() + bi.numel() + wo.numel()) * 4
             ops = npix * (64 * (2 * cs + 7) + 2 * 9 * 64 * co)
-            record("topdown", [N, 2 * hh, 2 * wh, cs, co], dtype, err, tol, 1,
-                   lambda: k2.topdown_level(*args), lambda: k2.topdown_level_ref(*args),
-                   nbytes, ops, BF16_TENSOR_FLOPS)
+            _record(rows, "topdown", "eval", [N, 2 * hh, 2 * wh, cs, co], dtype, err, tol, 1,
+                    lambda: k2.topdown_level(*args), lambda: k2.topdown_level_ref(*args),
+                    nbytes, ops, BF16_TENSOR_FLOPS)
     return rows
+
+
+def check_warp_bwd(dev, batch):
+    """K3 against ``warp_bwd_ref`` at the train step's four stages (B=6,
+    the stage's C and D, 4 source views each), with g in float32 and bf16;
+    in bf16 the times of the kernel, the plain version and the library
+    yardstick ``aten.grid_sampler_2d_backward`` (bilinear, zeros,
+    align_corners, the D planes stacked as rows). The yardstick runs in
+    float32: grid_sampler takes its grid in the input's dtype, and a bf16
+    grid cannot hold a 640-pixel coordinate."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
+        relative_projection,
+        warp_coords,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        warp_bwd as k3,
+    )
+
+    cfg = _dtu_model_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows, library_diff = [], {}
+    Bt = TRAIN_B
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in range(4):
+            h, w = H >> (3 - s), W >> (3 - s)
+            C, D = cfg.fpn_out_channels[s], cfg.ndepths[s]
+            projs = batch["proj_matrices"][f"stage{s + 1}"]
+            rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+            hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
+            g = torch.randn((Bt, D, h, w, C), generator=gen, device=dev).to(dtype)
+            shape = (Bt, h, w, C)
+            got, want = k3.warp_bwd(g, rel, hypo, shape), k3.warp_bwd_ref(g, rel, hypo, shape)
+            torch.cuda.synchronize()
+            run_library = None
+            if dtype == torch.bfloat16:
+                xy = warp_coords(rel, hypo).reshape(Bt, D * h, w, 2)
+                grid = torch.stack([xy[..., 0] * (2.0 / (w - 1)) - 1.0,
+                                    xy[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
+                g_nchw = g.float().permute(0, 4, 1, 2, 3).reshape(Bt, C, D * h, w).contiguous()
+                src = torch.zeros((Bt, C, h, w), device=dev)
+
+                def run_library(g_nchw=g_nchw, src=src, grid=grid):
+                    return torch.ops.aten.grid_sampler_2d_backward(
+                        g_nchw, src, grid, 0, 0, True, [True, False])[0]
+
+                lib = run_library().permute(0, 2, 3, 1)
+                library_diff[f"stage{s + 1}"] = _max_err(lib, want)
+            nbytes = g.numel() * g.element_size() + hypo.numel() * 4 + rel.numel() * 4 \
+                + 2 * got.numel() * 4                       # dsrc zeroed, then written
+            _record(rows, "warp_bwd", "train", [Bt, D, h, w, C], dtype, _max_err(got, want),
+                    k3.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
+                    lambda g=g, rel=rel, hypo=hypo, shape=shape: k3.warp_bwd(g, rel, hypo, shape),
+                    lambda g=g, rel=rel, hypo=hypo, shape=shape: k3.warp_bwd_ref(g, rel, hypo, shape),
+                    nbytes, Bt * D * h * w * (28 + 8 * C), FP32_FLOPS, run_library)
+    return rows, library_diff
 
 
 def check_small_forward_against_cpu(dev):
@@ -230,17 +325,18 @@ def check_small_forward_against_cpu(dev):
     return worst
 
 
-def profile_forward(model, args):
-    """Device time of one forward by kernel, from ``torch.profiler``: the
-    total, the device's busy share of the forward's wall time, the share of
-    K1, K2 and the convolution library, and the ten largest kernels."""
+def profile_run(fn, shares):
+    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``:
+    the total, the device's busy share of the call's wall time, the share
+    of each ``shares`` entry (kernel names that contain one of its
+    substrings) and the ten largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(*args)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [
@@ -251,19 +347,220 @@ def profile_forward(model, args):
     ]
     total = sum(ms for _, ms, _ in kernels)
 
-    def share(pred):
-        return sum(ms for k, ms, _ in kernels if pred(k.lower())) / total if total else 0.0
+    def share(subs):
+        hit = sum(ms for k, ms, _ in kernels if any(c in k.lower() for c in subs))
+        return hit / total if total else 0.0
 
-    is_conv = ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "wgrad", "dgrad")
     return {
         "device_ms": total, "wall_ms": wall_ms,
         "device_busy_share": total / wall_ms if wall_ms else 0.0,
-        "share_warp_cor": share(lambda k: "warp_cor_kernel" in k),
-        "share_topdown": share(lambda k: "topdown_kernel" in k),
-        "share_conv_library": share(lambda k: any(c in k for c in is_conv)),
+        **{f"share_{name}": share(subs) for name, subs in shares.items()},
         "top": [{"kernel": k[:120], "ms": ms, "calls": n}
                 for k, ms, n in sorted(kernels, key=lambda x: -x[1])[:10]],
     }
+
+
+CONV_LIBRARY = ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "wgrad", "dgrad",
+                "sm90_", "cutlass")
+
+
+def check_chain_backward(dev):
+    """The top-down chain's ``autograd.Function`` against autograd through
+    the plain chain (``topdown_level_ref`` per level) at the train shape
+    (N = 6 x 5 images, intra 64x80 -> 512x640): outputs and the gradients
+    of intra, the skips, wi, bi and wo for random output gradients, in
+    float32 (TF32 off) and bf16, with the times of forward + backward.
+    Tolerance, relative to max(1, max|plain|): 1e-4 in float32 (sums in
+    another order); 3e-2 in bf16, where the Function keeps du, dprev and
+    dskip in bf16 (as the JAX package's backward does) while autograd of
+    the plain chain stays in float32 inside each level, so some six bf16
+    roundings (2^-8 each) may lie between the two."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        topdown as k2,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.topdown_chain import (
+        TopDownChain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    N = TRAIN_B * TRAIN_V
+    levels = ((32, 32), (16, 16), (8, 8))
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape, scale=1.0, dt=dtype):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+        intra = rnd(N, H >> 3, W >> 3, 64)
+        skips = [rnd(N, H >> (2 - i), W >> (2 - i), cs) for i, (cs, _) in enumerate(levels)]
+        weights = [(rnd(64, cs, 1, 1, scale=cs ** -0.5, dt=torch.float32),
+                    rnd(64, scale=0.1, dt=torch.float32),
+                    rnd(co, 64, 3, 3, scale=576 ** -0.5, dt=torch.float32))
+                   for cs, co in levels]
+        grads = [rnd(N, H >> (2 - i), W >> (2 - i), co) for i, (_, co) in enumerate(levels)]
+        leaves = [intra, *skips, *(x for lw in weights for x in lw)]
+
+        def run_function():
+            xs = [x.detach().requires_grad_() for x in leaves]
+            outs = TopDownChain.apply(*xs)
+            torch.autograd.backward(outs, grads)
+            return outs, [x.grad for x in xs]
+
+        def run_plain():
+            xs = [x.detach().requires_grad_() for x in leaves]
+            cur, outs = xs[0], []
+            for i in range(3):
+                o, cur = k2.topdown_level_ref(cur, xs[1 + i], *xs[4 + 3 * i: 7 + 3 * i],
+                                              with_u=True)
+                outs.append(o)
+            torch.autograd.backward(outs, grads)
+            return outs, [x.grad for x in xs]
+
+        got_o, got_g = run_function()
+        want_o, want_g = run_plain()
+        torch.cuda.synchronize()
+        names = ["intra", "skip2", "skip3", "skip4"] + [
+            f"{n}{lvl + 2}" for lvl in range(3) for n in ("wi", "bi", "wo")]
+        worst = {}
+        for name, a, b in zip(["o2", "o3", "o4"] + names, [*got_o, *got_g], [*want_o, *want_g]):
+            err, bound = _max_err(a, b), tol[dtype] * _scale(b)
+            if err > bound:
+                raise AssertionError(f"chain {dtype} {name}: max|diff| {err} > {bound}")
+            worst[name] = err / _scale(b)
+        entry = {"max_rel_diff": max(worst.values()), "worst": max(worst, key=worst.get),
+                 "tolerance": tol[dtype]}
+        if dtype == torch.bfloat16:
+            before = k2.launches
+            entry["function_fwd_bwd_ms"] = _time_ms(run_function, 3)
+            entry["k2_launches_per_fwd_bwd"] = (k2.launches - before) // 4
+            entry["plain_fwd_bwd_ms"] = _time_ms(run_plain, 3)
+        out[str(dtype).replace("torch.", "")] = entry
+    return out
+
+
+def _grad_gaps(want, got):
+    """Per parameter ``max|got - want| / max|want|``. The reg nets'
+    ``prob.bias`` are left out: their gradient is analytically zero (the
+    softmax over D ignores a constant added to every score)."""
+    return {n: ((got[n] - w).abs().max() / w.abs().max()).item()
+            for n, w in want.items() if not n.endswith("prob.bias")}
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def check_small_train_step_against_cpu(dev):
+    """One float32 train step (recipe loss, Adam) on the card against the
+    same step on the CPU's plain versions, same weights and batch (B=2,
+    V=3, 64x128). The gradient of this randomly initialised network is
+    chaotic in float32 (argmax near-ties pick the next stage's hypotheses):
+    moving every weight by one rounding (1e-7 relative) moves the median
+    tensor's gradient by ~1e-3 of its max on the CPU. So the card is held
+    to that noise floor, measured here with two such draws: the median and
+    the worst tensor within 3x the floor's (and at least 1e-4 and 1e-3);
+    the loss within 1e-4 relative; and a nonzero gradient on every
+    parameter on the card (the ``prob.bias`` only need one), the guard
+    against gradients that stop at a kernel."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = _dtu_model_config("float32")
+
+    def run(device, perturb_seed=None):
+        model = _make_model(cfg, "cpu", SEED + 4)
+        if perturb_seed is not None:
+            gen = torch.Generator().manual_seed(perturb_seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+        model.to(device)
+        step = make_train_step(model, _dtu_loss_config(), make_optimizer(model, 1e-4),
+                               lambda i: 1e-3)
+        loss = step(_scene(2, 3, 64, 128, device))["loss"].item()
+        return loss, {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    loss_cpu, g_cpu = run("cpu")
+    floors = [_grad_gaps(g_cpu, run("cpu", seed)[1]) for seed in (1, 2)]
+    floor_median = max(_median(list(f.values())) for f in floors)
+    floor_max = max(max(f.values()) for f in floors)
+    loss_gpu, g_gpu = run(dev)
+    if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
+        raise AssertionError(f"train loss card {loss_gpu} vs cpu {loss_cpu}")
+    for name, got in g_gpu.items():
+        if got is None or (not name.endswith("prob.bias") and got.abs().max().item() == 0.0):
+            raise AssertionError(f"{name}: no gradient on the card")
+    gaps = _grad_gaps(g_cpu, g_gpu)
+    median, worst = _median(list(gaps.values())), max(gaps.values())
+    if median > max(3 * floor_median, 1e-4) or worst > max(3 * floor_max, 1e-3):
+        raise AssertionError(f"card gradients: median gap {median}, worst {worst}; CPU "
+                             f"noise floor median {floor_median}, worst {floor_max}")
+    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "params": len(g_cpu),
+            "grad_median_rel_diff": median, "grad_max_rel_diff": worst,
+            "worst": max(gaps, key=gaps.get),
+            "cpu_floor_median": floor_median, "cpu_floor_max": floor_max}
+
+
+def drive_train(dev, batch, counters):
+    """The DTU train recipe at full width: counted step, warm-up, three
+    rounds of three timed steps, a profile of one step."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    model = MVS4Net(_dtu_model_config(), device=dev,
+                    generator=torch.Generator().manual_seed(SEED + 5))
+    step = make_train_step(model, _dtu_loss_config(), make_optimizer(model, 1e-4),
+                           lambda i: 1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
+    losses = [step(batch)["loss"].item()]            # the main path, counted
+    counts = {name: mod.launches for name, mod in counters.items()}
+    if counts != {"warp_cor": 0, "topdown": 6, "warp_bwd": 16}:
+        raise AssertionError(f"launches per train step {counts}, want K1 0, K2 6, K3 16")
+    for name, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{name}: gradient missing or not finite")
+    losses.append(step(batch)["loss"].item())        # warm-up
+    reps, rounds = 3, 3
+    round_ms, timed = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = [step(batch)["loss"] for _ in range(reps)]
+        end.record()
+        end.synchronize()
+        round_ms.append(start.elapsed_time(end) / reps)
+        timed += [x.item() for x in out]
+    losses += timed
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = sorted(round_ms)[rounds // 2]
+    prof = profile_run(lambda: step(batch), {
+        "warp_bwd": ("warp_bwd_kernel",), "topdown": ("topdown_kernel",),
+        "warp_cor": ("warp_cor_kernel",), "conv_library": CONV_LIBRARY})
+    train = {
+        "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
+        "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
+        "loss_per_step": losses, "launches_per_step": counts, "timed_steps": reps * rounds,
+        "peak_memory_gb": peak_gb,
+    }
+    return train, prof, counts
 
 
 def main() -> int:
@@ -277,9 +574,13 @@ def main() -> int:
         topdown as k2,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        warp_bwd as k3,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         warp_cor as k1,
     )
 
+    counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -292,9 +593,9 @@ def main() -> int:
                       "python": sys.version.split()[0]}))
 
     t0 = time.perf_counter()
-    built = _build.build(["warp_cor", "topdown"])
+    built = _build.build(KERNELS)
     build_s = time.perf_counter() - t0
-    for name in ("warp_cor", "topdown"):
+    for name in KERNELS:
         log = _build.library_path(name).with_suffix(".log").read_text()
         for line in log.splitlines():
             if "registers" in line:
@@ -303,21 +604,25 @@ def main() -> int:
                                 **{k: v[0] for k, v in built.items()}}}))
 
     batch = _scene(B, V, H, W, dev)
+    train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch)
-    print(json.dumps({"kernel_shapes": rows}))
+    k3_rows, library_diff = check_warp_bwd(dev, train_batch)
+    rows += k3_rows
+    print(json.dumps({"kernel_shapes": rows,
+                      "warp_bwd_library_max_abs_diff": library_diff}))
 
     model = _make_model(_dtu_model_config(), dev, SEED)
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     with torch.inference_mode():
         model(*args)                      # warm-up
         torch.cuda.synchronize()
-        k1.launches = 0
-        k2.launches = 0
+        for mod in counters.values():
+            mod.launches = 0
         out = model(*args)                # the main path, counted
         torch.cuda.synchronize()
-        counts = {"warp_cor": k1.launches, "topdown": k2.launches}
-        if counts != {"warp_cor": 12, "topdown": 3}:
-            raise AssertionError(f"launches per forward {counts}, want 12 and 3")
+        counts = {name: mod.launches for name, mod in counters.items()}
+        if counts != {"warp_cor": 12, "topdown": 3, "warp_bwd": 0}:
+            raise AssertionError(f"launches per forward {counts}, want K1 12, K2 3, K3 0")
         depth = out["stage4"]["depth"]
         conf = out["stage4"]["photometric_confidence"]
         if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
@@ -338,32 +643,12 @@ def main() -> int:
         if (k1.launches, k2.launches) != (12 * calls, 3 * calls):
             raise AssertionError(f"timed forwards launched {k1.launches}, {k2.launches}")
         torch.cuda.reset_peak_memory_stats()
-        profile = profile_forward(model, args)
+        profile = profile_run(lambda: model(*args), {
+            "warp_cor": ("warp_cor_kernel",), "topdown": ("topdown_kernel",),
+            "conv_library": CONV_LIBRARY})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"profile": profile}))
     small = check_small_forward_against_cpu(dev)
-
-    kernels = []
-    for name, route, src, replaces in (
-        ("warp_cor", "cuda", f"{PKG}/csrc/warp_cor.cu",
-         f"{JAX_PKG_OPS}/warp_fwd_v3.py:438"),
-        ("topdown", "cuda", f"{PKG}/csrc/topdown.cu",
-         f"{JAX_PKG_OPS}/topdown_fused.py:317"),
-    ):
-        mine = [r for r in rows if r["kernel"] == name]
-        timed = [r for r in mine if "kernel_ms" in r]
-        per_fwd = {k: sum(r[k] * r["launches_per_forward"] for r in timed)
-                   for k in ("kernel_ms", "plain_ms", "bound_ms", "bytes", "ops")}
-        by_ops = per_fwd["ops"] / (FP32_FLOPS if name == "warp_cor" else BF16_TENSOR_FLOPS) * 1e3
-        kernels.append({
-            "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[name],
-            "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
-            "ms": per_fwd["kernel_ms"], "plain_ms": per_fwd["plain_ms"],
-            "bound_ms": per_fwd["bound_ms"],
-            "bound_by": "operations" if by_ops > per_fwd["bytes"] / HBM_BYTES_PER_S * 1e3 else "bytes",
-            "library_ms": None,
-        })
     print(json.dumps({"forward": {
         "B": B, "V": V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_forward": fwd_ms, "depth_maps_per_s": B * 1e3 / fwd_ms,
@@ -373,6 +658,45 @@ def main() -> int:
         "peak_memory_gb": peak_gb,
         "small_input_vs_cpu_float32": small,
     }}))
+    del model, out, batch, args
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"chain_backward": check_chain_backward(dev)}))
+    torch.cuda.empty_cache()
+    print(json.dumps({"small_train_step": check_small_train_step_against_cpu(dev)}))
+    train, train_profile, train_counts = drive_train(dev, train_batch, counters)
+    print(json.dumps({"train": train}))
+    print(json.dumps({"train_profile": train_profile}))
+
+    kernels = []
+    for name, route, src, replaces, path in (
+        ("warp_cor", "cuda", f"{PKG}/csrc/warp_cor.cu",
+         f"{JAX_PKG_OPS}/warp_fwd_v3.py:438", "eval"),
+        ("topdown", "cuda", f"{PKG}/csrc/topdown.cu",
+         f"{JAX_PKG_OPS}/topdown_fused.py:317", "eval"),
+        ("warp_bwd", "cuda", f"{PKG}/csrc/warp_bwd.cu",
+         f"{JAX_PKG_OPS}/warp_xband_bwd.py:410", "train"),
+    ):
+        mine = [r for r in rows if r["kernel"] == name]
+        timed = [r for r in mine if "kernel_ms" in r]
+        # per run of the kernel's timed path: an eval forward or a train step
+        per_run = {k: sum(r[k] * r["launches_per_run"] for r in timed)
+                   for k in ("kernel_ms", "plain_ms", "bound_ms", "bytes", "ops")}
+        lib = [r["library_ms"] for r in timed]
+        peak = BF16_TENSOR_FLOPS if name == "topdown" else FP32_FLOPS
+        by_ops = per_run["ops"] / peak * 1e3
+        kernels.append({
+            "name": name, "route": route, "source": src, "replaces": replaces,
+            "launches": counts[name] + train_counts[name],
+            "launches_eval": counts[name], "launches_train": train_counts[name],
+            "timed_per": "eval forward" if path == "eval" else "train step",
+            "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
+            "ms": per_run["kernel_ms"], "plain_ms": per_run["plain_ms"],
+            "bound_ms": per_run["bound_ms"],
+            "bound_by": "operations" if by_ops > per_run["bytes"] / HBM_BYTES_PER_S * 1e3 else "bytes",
+            "library_ms": None if None in lib else sum(
+                r["library_ms"] * r["launches_per_run"] for r in timed),
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Typed configuration of the PyTorch port, and its device rule.
 
-``ModelConfig`` keeps the field names of the JAX package's ``ModelConfig``
-(``deep_reconstruction_with_epipolar_lines_mvster_tpu/config.py``), so that
-``ModelConfig(**dataclasses.asdict(jax_cfg))`` builds the same model here.
+``ModelConfig`` and ``LossConfig`` keep the field names of the JAX
+package's (``deep_reconstruction_with_epipolar_lines_mvster_tpu/config.py``),
+so that ``ModelConfig(**dataclasses.asdict(jax_cfg))`` builds the same
+model here.
 
 The TPU execution-layout fields below are accepted and ignored: they choose
 how the TPU lays out work, never the function the model computes. The port
@@ -12,6 +13,9 @@ and its plain PyTorch version.
   pack_conv, warp_impl, warp_band, warp_tile_rows, warp_tile_cols,
   warp_xband, fused_topdown, fused_topdown_chain, fuse_warp_cor,
   kernel_coords, cw_stage_features, fuse_attn, d_pack_mids, remat
+
+``remat`` (activation checkpointing) is among them: the DTU recipe trains
+with ``--no_remat``, and the port keeps every activation.
 """
 
 from __future__ import annotations
@@ -72,6 +76,21 @@ class ModelConfig:
     def fpn_out_channels(self) -> Tuple[int, ...]:
         b = self.fpn_base_channel
         return (8 * b, 4 * b, 2 * b, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """``mvs4net_loss`` weights (reference: models/MVS4Net.py:195-240): total
+    ``= sum_s stage_lw[s] * (l1_lw * L1_mono + ot_lw * OT)``."""
+
+    stage_lw: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    l1_lw: float = 0.0
+    ot_lw: float = 1.0
+    ot_iter: int = 3
+    ot_eps: float = 1.0
+    ot_continuous: bool = False
+    inverse_depth: bool = False
+    mono: bool = False
 
 
 def resolve_device(device=None) -> torch.device:

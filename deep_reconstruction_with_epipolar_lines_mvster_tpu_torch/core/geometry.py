@@ -180,6 +180,31 @@ def resize_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     return _resize_axis(x, x.dim() - 2, Wo)
 
 
+@functools.lru_cache(maxsize=64)
+def align_corners_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """The 1-D align-corners resize as an ``[n_out, n_in]`` float32 matrix
+    of :func:`align_corners_taps` (two taps per row)."""
+    i0, w0, w1 = align_corners_taps(n_out, n_in)
+    m = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    np.add.at(m, (rows, i0), w0)
+    np.add.at(m, (rows, np.minimum(i0 + 1, n_in - 1)), w1)
+    return m
+
+
+def resize_align_corners_adjoint(dy: torch.Tensor, in_hw) -> torch.Tensor:
+    """Adjoint of :func:`resize_align_corners` from ``in_hw``: ``dy [N, Ho,
+    Wo, C] -> [N, H, W, C]``, the transposed interpolation matrices applied
+    to both axes, in the dtype of ``dy``."""
+    N, Ho, Wo, C = dy.shape
+    H, W = in_hw
+    mh = torch.as_tensor(align_corners_matrix(Ho, H), device=dy.device).to(dy.dtype)
+    mw = torch.as_tensor(align_corners_matrix(Wo, W), device=dy.device).to(dy.dtype)
+    t = torch.matmul(dy.permute(0, 1, 3, 2), mw)             # [N, Ho, C, W]
+    t = torch.matmul(mh.t(), t.reshape(N, Ho, C * W))        # [N, H, C*W]
+    return t.reshape(N, H, C, W).permute(0, 1, 3, 2)
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest x2 upsample of ``[..., H, W, C]``: ``out[i] = in[i // 2]``."""
     return x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)

@@ -10,10 +10,11 @@
 //
 // The TPU kernel is a banded matmul because the TPU has no fast gather;
 // here the natural form is a direct gather. One thread per (b, d, y, x):
-//   1. coordinates in the order of core/geometry.warp_coords_xy,
-//      (m0*u + m1*v + m2)*d + m3, with the z == 0 -> 1e-9 guard; the _rn
-//      intrinsics stop nvcc from contracting into FMAs, so the
-//      coordinates are the plain PyTorch version's to the bit;
+//   1. coordinates and taps from common.cuh's plane_taps, shared with
+//      K3: the order of core/geometry.warp_coords_xy, (m0*u + m1*v +
+//      m2)*d + m3, with the z == 0 -> 1e-9 guard; the _rn intrinsics stop
+//      nvcc from contracting into FMAs, so the coordinates are the plain
+//      PyTorch version's to the bit;
 //   2. four NHWC taps, eight channels per 16-byte load for bf16;
 //   3. the product with ref, summed per group in float32 registers;
 //   4. G group means written in the source dtype.
@@ -42,12 +43,8 @@ namespace {
 
 using port::load8;
 using port::store1;
-
-// (m0*u + m1*v + m2)*d + m3 without contraction
-__device__ __forceinline__ float plane_row(const float* m, float u, float v, float d) {
-    const float s = __fadd_rn(__fadd_rn(__fmul_rn(m[0], u), __fmul_rn(m[1], v)), m[2]);
-    return __fadd_rn(__fmul_rn(s, d), m[3]);
-}
+using port::plane_taps;
+using port::Taps;
 
 template <typename T, int C, int G>
 __global__ void __launch_bounds__(256) warp_cor_kernel(
@@ -67,38 +64,19 @@ __global__ void __launch_bounds__(256) warp_cor_kernel(
     t /= H;
     const int b = (int)(t / D);
 
-    const float* m = rel + 16 * b;
-    const float u = (float)x, v = (float)y, dep = __ldg(hypo + idx);
-    const float xn = plane_row(m, u, v, dep);
-    const float yn = plane_row(m + 4, u, v, dep);
-    float z = plane_row(m + 8, u, v, dep);
-    if (z == 0.0f) z = 1e-9f;
-    const float px = __fdiv_rn(xn, z);
-    const float py = __fdiv_rn(yn, z);
-
     T* o = out + idx * G;
-    if (!(px > -2.0f && px < (float)Ws + 1.0f && py > -2.0f && py < (float)Hs + 1.0f)) {
+    Taps tp;
+    if (!plane_taps(rel + 16 * b, x, y, __ldg(hypo + idx), Hs, Ws, tp)) {
 #pragma unroll
         for (int g = 0; g < G; ++g) store1(o + g, 0.0f);
         return;
     }
-    const float fx0 = floorf(px), fy0 = floorf(py);
-    const int x0 = (int)fx0, y0 = (int)fy0;
-    const float lx = __fsub_rn(px, fx0), ly = __fsub_rn(py, fy0);
-    const float mx = __fsub_rn(1.0f, lx), my = __fsub_rn(1.0f, ly);
-    const bool vx0 = x0 >= 0 && x0 <= Ws - 1, vx1 = x0 + 1 >= 0 && x0 + 1 <= Ws - 1;
-    const bool vy0 = y0 >= 0 && y0 <= Hs - 1, vy1 = y0 + 1 >= 0 && y0 + 1 <= Hs - 1;
-    const float w00 = (vx0 && vy0) ? __fmul_rn(mx, my) : 0.0f;
-    const float w10 = (vx1 && vy0) ? __fmul_rn(lx, my) : 0.0f;
-    const float w01 = (vx0 && vy1) ? __fmul_rn(mx, ly) : 0.0f;
-    const float w11 = (vx1 && vy1) ? __fmul_rn(lx, ly) : 0.0f;
-    const int xa = min(max(x0, 0), Ws - 1), xb = min(max(x0 + 1, 0), Ws - 1);
-    const int ya = min(max(y0, 0), Hs - 1), yb = min(max(y0 + 1, 0), Hs - 1);
+    const float w00 = tp.w00, w10 = tp.w10, w01 = tp.w01, w11 = tp.w11;
     const T* img = src + (long long)b * Hs * Ws * C;
-    const T* p00 = img + ((long long)ya * Ws + xa) * C;
-    const T* p10 = img + ((long long)ya * Ws + xb) * C;
-    const T* p01 = img + ((long long)yb * Ws + xa) * C;
-    const T* p11 = img + ((long long)yb * Ws + xb) * C;
+    const T* p00 = img + ((long long)tp.ya * Ws + tp.xa) * C;
+    const T* p10 = img + ((long long)tp.ya * Ws + tp.xb) * C;
+    const T* p01 = img + ((long long)tp.yb * Ws + tp.xa) * C;
+    const T* p11 = img + ((long long)tp.yb * Ws + tp.xb) * C;
     const T* r = ref + (((long long)b * H + y) * W + x) * C;
 
     float acc[G];

@@ -116,8 +116,9 @@ def batch_samples(samples) -> Dict:
 
 
 def batch_to_torch(batch: Dict, device) -> Dict:
-    """The model inputs of a stacked batch as tensors on ``device``:
-    ``imgs``, ``proj_matrices`` and ``depth_values``."""
+    """A stacked batch as tensors on ``device``: the model inputs ``imgs``,
+    ``proj_matrices`` and ``depth_values``, and the train targets ``depth``
+    and ``mask`` per stage."""
     import torch
 
     def t(a):
@@ -127,4 +128,6 @@ def batch_to_torch(batch: Dict, device) -> Dict:
         "imgs": t(batch["imgs"]),
         "proj_matrices": {k: t(v) for k, v in batch["proj_matrices"].items()},
         "depth_values": t(batch["depth_values"]),
+        "depth": {k: t(v) for k, v in batch["depth"].items()},
+        "mask": {k: t(v) for k, v in batch["mask"].items()},
     }

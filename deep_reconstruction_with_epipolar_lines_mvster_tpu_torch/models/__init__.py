@@ -1,4 +1,4 @@
-"""Port models: the eval network and its blocks."""
+"""Port models: the network, its blocks and its losses."""
 
 from .mvs4net import MVS4Net
 

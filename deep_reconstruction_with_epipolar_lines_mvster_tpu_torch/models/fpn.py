@@ -3,15 +3,17 @@
 Counterpart of the JAX package's ``models/fpn.py`` ``FPN4`` and
 ``_TopDown``: stride-2 5x5 stem convs, then a 64-channel top-down pathway.
 The three top-down levels (``up2(intra) + inner(skip)``, then the 3x3
-``out`` conv) run through kernel K2 (``ops/kernels/topdown.py``); the stem
-and the ``out1`` 1x1 are plain convolutions.
+``out`` conv) run through kernel K2 (``ops/kernels/topdown.py``), by way of
+``ops/topdown_chain.py``: its ``autograd.Function`` when autograd records,
+K2 directly otherwise. The stem and the ``out1`` 1x1 are plain
+convolutions; in training the stem's BatchNorm takes statistics per view.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from ..ops.kernels.topdown import topdown_level
+from ..ops.topdown_chain import topdown_chain
 from .layers import ConvBnReLU, ConvWeight, conv2d_nhwc
 
 
@@ -45,24 +47,23 @@ class FPN4(nn.Module):
         self.out3 = ConvWeight((2 * b, final, 3, 3))
         self.out4 = ConvWeight((b, final, 3, 3))
 
-    def forward(self, x):
-        conv0 = self.conv0(x).contiguous()
-        conv1 = self.conv1(conv0).contiguous()
-        conv2 = self.conv2(conv1).contiguous()
-        intra = self.conv3(conv2).contiguous()
+    def forward(self, x, view_groups: int = 1):
+        """``x [B*V, H, W, 3]``, views folded ``b*V + v``; ``view_groups=V``
+        gives each view its own train-mode BatchNorm statistics."""
+        feats = []
+        for stem in (self.conv0, self.conv1, self.conv2, self.conv3):
+            for block in stem:
+                x = block(x, view_groups)
+            feats.append(x.contiguous())
+        conv0, conv1, conv2, intra = feats
         o1 = conv2d_nhwc(intra, self.out1.weight)
         levels = (
             (conv2, self.inner1, self.out2),
             (conv1, self.inner2, self.out3),
             (conv0, self.inner3, self.out4),
         )
-        outs = [o1]
-        for i, (skip, inner, out) in enumerate(levels):
-            if i < len(levels) - 1:
-                o, intra = topdown_level(
-                    intra, skip, inner.weight, inner.bias, out.weight, with_u=True
-                )
-            else:
-                o = topdown_level(intra, skip, inner.weight, inner.bias, out.weight)
-            outs.append(o)
-        return tuple(outs)
+        outs = topdown_chain(
+            intra, [skip for skip, _, _ in levels],
+            [(inner.weight, inner.bias, out.weight) for _, inner, out in levels],
+        )
+        return (o1, *outs)

@@ -1,4 +1,5 @@
-"""Building blocks, eval semantics, NHWC activations.
+"""Building blocks, NHWC activations; ``train()``/``eval()`` choose the
+BatchNorm branch.
 
 Counterpart of the JAX package's ``models/layers.py``. Activations are NHWC
 tensors as in the JAX package; each convolution hands ``F.conv2d`` an NCHW
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9   # flax momentum; torch's 0.1
 
 
 class ConvWeight(nn.Module):
@@ -53,9 +55,19 @@ def conv2d_nhwc(x, weight, bias=None, stride=1, padding=0):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the last axis with running statistics (eval), in
-    float32 and cast back: ``(x - mean) * rsqrt(var + eps) * weight + bias``.
-    Buffers and parameters are named as in ``nn.BatchNorm*d``."""
+    """BatchNorm over the last axis, in float32 and cast back, with the
+    torch ``_BatchNorm`` train semantics of the JAX package's
+    ``TorchBatchNorm``. Buffers and parameters are named as in
+    ``nn.BatchNorm*d``.
+
+    - eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``;
+    - train: batch statistics per contiguous view group of the folded batch
+      (fold index ``b*V + v``, so the group axis is the inner one of
+      ``reshape(N // G, G, ...)``), normalized with the biased variance; the
+      running statistics take the G sequential momentum updates of the
+      reference's per-view calls in closed form,
+      ``m^G r + (1-m) sum_v m^(G-1-v) s_v`` with flax momentum ``m = 0.9``
+      and the unbiased variance."""
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -66,14 +78,33 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x):
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x, groups: int = 1):
+        xf = x.float()
+        if not self.training:
+            y = (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            return (y * self.weight + self.bias).to(x.dtype)
+        G = groups
+        N, C = x.shape[0], x.shape[-1]
+        if N % G:
+            raise ValueError(f"batch {N} not divisible by view groups {G}")
+        xg = xf.reshape(N // G, G, -1, C)
+        var, mean = torch.var_mean(xg, dim=(0, 2), correction=0, keepdim=True)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        with torch.no_grad():
+            n = xg.shape[0] * xg.shape[2]
+            m = BN_MOMENTUM
+            w = m ** torch.arange(G - 1, -1, -1, dtype=torch.float32, device=x.device)
+            var_unb = var.reshape(G, C) * (n / max(n - 1, 1))
+            self.running_mean.mul_(m ** G).add_((1 - m) * (w[:, None] * mean.reshape(G, C)).sum(0))
+            self.running_var.mul_(m ** G).add_((1 - m) * (w[:, None] * var_unb).sum(0))
+            self.num_batches_tracked.add_(G)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
 class ConvBnReLU(nn.Module):
     """2-D conv (no bias) + BatchNorm + ReLU, symmetric ``k//2`` padding
-    (not XLA's SAME, which pads asymmetrically at stride 2)."""
+    (not XLA's SAME, which pads asymmetrically at stride 2). ``view_groups``:
+    train-mode BatchNorm statistics per view of the view-folded batch."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__()
@@ -81,10 +112,10 @@ class ConvBnReLU(nn.Module):
         self.bn = TorchBatchNorm(cout)
         self.stride = stride
 
-    def forward(self, x):
+    def forward(self, x, view_groups: int = 1):
         x = conv2d_nhwc(x, self.conv.weight, stride=self.stride,
                         padding=self.conv.weight.shape[-1] // 2)
-        return F.relu(self.bn(x))
+        return F.relu(self.bn(x, view_groups))
 
 
 class ConvBnReLU3D(nn.Module):

@@ -1,4 +1,4 @@
-"""MVS4Net, the 4-stage cascaded MVSTER network: eval forward.
+"""MVS4Net, the 4-stage cascaded MVSTER network: eval and train forward.
 
 Counterpart of the JAX package's ``models/mvs4net.py`` (reference
 ``models/MVS4Net.py:16-193``) for ``arch_mode="fpn"``, ``reg_mode="reg2d"``
@@ -11,7 +11,13 @@ Inputs (the reference sample spec, as tensors on the model's device):
   depth_values    [B, >=2]  (min..max)
 
 Output: {"stage{i}": {depth, photometric_confidence, hypo_depth,
-attn_weight, inverse_min_depth*, inverse_max_depth*, mono_feat*}}.
+attn_weight, inverse_min_depth*, inverse_max_depth*, mono_feat*,
+mono_depth* (train, stages 2-4)}}.
+
+``model.train()`` selects the train forward, as ``train=True`` does in the
+JAX package: train-mode BatchNorm (per view in the FPN stem), a zero
+photometric confidence, and with ``mono`` the mono depth decoder. The
+next stage's depth window comes from detached predictions either way.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..core.hypothesis import (
 )
 from .fpn import FPN4
 from .layers import ConvWeight
+from .mono import MonoDepthDecoder
 from .reg import Reg2D
 from .stagenet import run_stage
 
@@ -50,9 +57,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class MVS4Net(nn.Module):
-    """Eval-mode network. ``device`` defaults to the card and raises
-    without CUDA unless ``device="cpu"`` is given; weights are drawn from
-    ``generator`` (seed 0 when none is given)."""
+    """The network, in eval mode when built. ``device`` defaults to the
+    card and raises without CUDA unless ``device="cpu"`` is given; weights
+    are drawn from ``generator`` (seed 0 when none is given)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: torch.Generator | None = None):
@@ -66,6 +73,10 @@ class MVS4Net(nn.Module):
             Reg2D(in_ch[s], cfg.reg_channel, cfg.ndepths[s])
             for s in range(cfg.num_stages)
         )
+        if cfg.mono:
+            self.mono_depth_decoder = MonoDepthDecoder(
+                cfg.fpn_out_channels[: cfg.num_stages], cfg.mono_stg_itrpl
+            )
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
@@ -80,12 +91,12 @@ class MVS4Net(nn.Module):
         proj_matrices: Dict[str, torch.Tensor],
         depth_values: torch.Tensor,
     ) -> Dict[str, Dict[str, torch.Tensor]]:
-        if self.training:
-            raise NotImplementedError("the port runs the eval forward only")
         cfg = self.cfg
+        train = self.training
         B, V, H, W, _ = imgs.shape
         folded = imgs.to(cfg.torch_dtype).reshape(B * V, H, W, imgs.shape[-1])
-        feats = [p.reshape(B, V, *p.shape[1:]) for p in self.feature(folded)]
+        feats = [p.reshape(B, V, *p.shape[1:])
+                 for p in self.feature(folded, view_groups=V)]
         depth_interval = (depth_values[:, -1] - depth_values[:, 0]) / depth_values.shape[1]
 
         outputs: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -114,9 +125,21 @@ class MVS4Net(nn.Module):
                 attn_temp=cfg.attn_temp,
                 attn_fuse_d=cfg.attn_fuse_d,
                 inverse_depth=cfg.inverse_depth,
+                train=train,
             )
             if cfg.mono:
                 out["mono_feat"] = views[0]
             outputs[f"stage{s + 1}"] = out
-            prev = out
+            # next-stage windows come from detached predictions
+            # (reference MVS4Net.py:116-118)
+            prev = {k: out[k].detach() for k in
+                    ("depth", "inverse_min_depth", "inverse_max_depth") if k in out}
+
+        if cfg.mono and train:
+            mono_depths = self.mono_depth_decoder(
+                [outputs[f"stage{s + 1}"]["mono_feat"] for s in range(cfg.num_stages)],
+                depth_values[:, 0], depth_values[:, 1],
+            )
+            for i, md in enumerate(mono_depths):
+                outputs[f"stage{i + 2}"]["mono_depth"] = md
         return outputs

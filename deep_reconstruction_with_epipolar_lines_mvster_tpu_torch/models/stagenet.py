@@ -1,11 +1,11 @@
 """One cascade stage: aggregation -> regularization -> depth readout.
 
 Counterpart of the JAX package's ``models/stagenet.py`` (reference
-``stagenet.forward``, ``models/mvs4net_utils.py:1027-1162``), eval path:
+``stagenet.forward``, ``models/mvs4net_utils.py:1027-1162``):
 
 - winner-take-all depth at the argmax of the float32 scores;
-- the "OLI" photometric confidence ``max_D(score) / sum_D(score)`` on the
-  raw, pre-softmax scores;
+- in eval, the "OLI" photometric confidence ``max_D(score) / sum_D(score)``
+  on the raw, pre-softmax scores; in training a float32 zero scalar;
 - the next stage's inverse-depth window ``1/depth ± split_itv · itv`` with
   ``itv = 1/hypo[:, 2] - 1/hypo[:, 1]``.
 """
@@ -31,6 +31,7 @@ def run_stage(
     attn_temp: float,
     attn_fuse_d: bool,
     inverse_depth: bool,
+    train: bool = False,
 ) -> Dict[str, torch.Tensor]:
     B, D, H, W = depth_hypo.shape
     cost = epipolar_aggregate(
@@ -45,8 +46,11 @@ def run_stage(
         "depth": depth,
         "hypo_depth": depth_hypo,
         "attn_weight": torch.softmax(score, dim=1),
-        "photometric_confidence": torch.gather(score, 1, idx)[:, 0] / score.sum(dim=1),
     }
+    if train:
+        out["photometric_confidence"] = score.new_zeros(())
+    else:
+        out["photometric_confidence"] = torch.gather(score, 1, idx)[:, 0] / score.sum(dim=1)
     if inverse_depth:
         itv = 1.0 / depth_hypo[:, 2] - 1.0 / depth_hypo[:, 1]
         out["inverse_min_depth"] = 1.0 / depth + split_itv * itv

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -98,3 +100,19 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if autograd would record a kernel launch. A kernel launched on
+    raw pointers gives outputs with no ``grad_fn``, so gradients would stop
+    there without an error; a kernel is reached under autograd only through
+    its ``torch.autograd.Function`` (``ops/warp.py``,
+    ``ops/topdown_chain.py``), whose forward and backward run with grad
+    mode off."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what}: a CUDA kernel cannot be recorded by autograd; call it "
+            "through its autograd.Function or under torch.no_grad()"
+        )

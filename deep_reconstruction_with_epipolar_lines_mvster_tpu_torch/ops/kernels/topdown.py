@@ -2,7 +2,8 @@
 
 ``topdown_level`` launches the CUDA kernel on a CUDA tensor and uses the
 plain PyTorch version ``topdown_level_ref`` only for a tensor on the CPU.
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches. On a CUDA tensor it raises
+under autograd: the differentiable chain is ``ops/topdown_chain.py``.
 
 Weights come in the PyTorch layouts the port's modules hold: ``wi [Ci, Cs,
 1, 1]``, ``bi [Ci]``, ``wo [Co, Ci, 3, 3]``, with Ci = 64.
@@ -79,6 +80,7 @@ def topdown_level(intra, skip, wi, bi, wo, with_u: bool = False):
         return topdown_level_ref(intra, skip, wi, bi, wo, with_u)
     if intra.device.type != "cuda":
         raise ValueError(f"topdown_level: unsupported device {intra.device}")
+    _build.refuse_autograd("topdown_level", intra, skip, wi, bi, wo)
     N, Hh, Wh, Ci = intra.shape
     _, H, W, Cs = skip.shape
     Co = wo.shape[0]

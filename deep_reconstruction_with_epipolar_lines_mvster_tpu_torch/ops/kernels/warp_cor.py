@@ -3,7 +3,8 @@
 ``warp_cor`` launches the CUDA kernel on a CUDA tensor and uses the plain
 PyTorch version ``warp_cor_ref`` only for a tensor on the CPU. ``launches``
 counts the kernel's launches, so a run can show that its main path went
-through the kernel.
+through the kernel. It has no backward: on a CUDA tensor it raises under
+autograd, and the train path warps through ``ops/warp.py:WarpIK``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ _CHANNELS = (8, 16, 32, 64)
 _GROUPS = (1, 2, 4, 8)
 
 
-def _group_correlate(wf: torch.Tensor, ref: torch.Tensor, g: int) -> torch.Tensor:
+def group_correlate(wf: torch.Tensor, ref: torch.Tensor, g: int) -> torch.Tensor:
     """``[..., C] x [..., C] -> [..., G]``: per-group channel mean of the
     product."""
     C = wf.shape[-1]
@@ -41,7 +42,7 @@ def warp_cor_ref(src, ref, rel_proj, hypo, groups: int) -> torch.Tensor:
     ``ref [B,H,W,C]``, averaged over each of ``groups`` channel groups.
     Float32 arithmetic, result ``[B,D,H,W,G]`` in the dtype of ``src``."""
     warped = grid_sample_2d(src.float(), warp_coords(rel_proj, hypo))
-    return _group_correlate(warped, ref.float()[:, None], groups).to(src.dtype)
+    return group_correlate(warped, ref.float()[:, None], groups).to(src.dtype)
 
 
 def _lib():
@@ -61,6 +62,7 @@ def warp_cor(src, ref, rel_proj, hypo, groups: int) -> torch.Tensor:
         return warp_cor_ref(src, ref, rel_proj, hypo, groups)
     if src.device.type != "cuda":
         raise ValueError(f"warp_cor: unsupported device {src.device}")
+    _build.refuse_autograd("warp_cor", src, ref, rel_proj, hypo)
     B, Hs, Ws, C = src.shape
     _, D, H, W = hypo.shape
     for name, t in (("ref", ref), ("rel_proj", rel_proj), ("hypo", hypo)):

@@ -10,8 +10,13 @@ Counterpart of the JAX package's ``ops/warp_cor.py`` (reference
   out = acc / norm, folded to [B*D, H, W, G]
 
 Group correlation goes through kernel K1 (``ops/kernels/warp_cor.py``) at
-every stage. The attention accumulates in float32 and the volume returns in
-the features' dtype.
+every stage when autograd does not record. When it does (the train step),
+it is the JAX package's two-step train path instead: the warp through
+``ops/warp.py:WarpIK``, whose backward is kernel K3, then the group
+correlation in autograd-tracked PyTorch; K1 has no backward, as in JAX
+(``models/stagenet.py`` passes ``fuse_cor=... and not train``). The
+attention accumulates in float32 and the volume returns in the features'
+dtype.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from typing import Sequence
 import torch
 
 from ..core.geometry import grid_sample_2d, relative_projection, warp_coords
-from .kernels.warp_cor import warp_cor
+from .kernels.warp_cor import group_correlate, warp_cor
+from .warp import WarpIK
 
 
 def correlate_view(
@@ -35,11 +41,17 @@ def correlate_view(
     group_dim: int,
 ) -> torch.Tensor:
     """Warp one source view and correlate it with the reference:
-    ``[B, D, H, W, G]`` (group correlation, via K1) or the squared
-    difference ``[B, D, H, W, C]``."""
-    if group_cor:
+    ``[B, D, H, W, G]`` (group correlation) or the squared difference
+    ``[B, D, H, W, C]``. Under autograd the warp is ``WarpIK``; otherwise
+    group correlation is K1 and the squared difference the plain gather."""
+    if torch.is_grad_enabled() and (src_fea.requires_grad or ref_fea.requires_grad):
+        warped = WarpIK.apply(src_fea, rel_proj, depth_hypo)
+        if group_cor:
+            return group_correlate(warped, ref_fea[:, None], group_dim)
+    elif group_cor:
         return warp_cor(src_fea, ref_fea, rel_proj, depth_hypo, group_dim)
-    warped = grid_sample_2d(src_fea, warp_coords(rel_proj, depth_hypo))
+    else:
+        warped = grid_sample_2d(src_fea, warp_coords(rel_proj, depth_hypo))
     diff = ref_fea[:, None] - warped
     return diff * diff
 

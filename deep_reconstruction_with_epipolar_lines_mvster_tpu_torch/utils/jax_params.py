@@ -1,12 +1,16 @@
-"""The JAX package's ``variables`` -> the port's ``state_dict``.
+"""The JAX package's ``variables`` (and gradients) -> the port's names.
 
 Turns the flax ``{"params", "batch_stats"}`` tree of the JAX ``MVS4Net``
 (numpy arrays) into the reference torch ``state_dict`` that the port's
 modules are named after. The key and layout tables are a copy of the JAX
 package's ``utils/torch_port.py`` (its reference -> flax transplant), run in
 reverse and kept to what the port's model holds: FPN4 with BatchNorm, reg2d
-with ``ConvBnReLU3D`` mid blocks. The flax mono decoder, a train-only
-module, is left out.
+with ``ConvBnReLU3D`` mid blocks, and the mono depth decoder where the tree
+has one (flax creates it only in a train-mode init).
+
+Every transform is a permutation of the array, so the same table carries a
+flax-shaped gradient tree to the port's parameter names
+(``jax_grads_to_port``).
 
   flax Conv          [kh, kw, I, O]      -> [O, I, kh, kw]
   flax Conv 3-D      [kd, kh, kw, I, O]  -> [O, I, kd, kh, kw]
@@ -116,6 +120,16 @@ def _reg2d_entries(entries, flax_reg: str, torch_reg: str):
     entries.append(("params", f"{flax_reg}/Conv_0/bias", f"{torch_reg}.prob.bias", _vec))
 
 
+def _mono_entries(entries):
+    for i in range(3):
+        _conv_bn_relu(entries, f"MonoDepthDecoder_0/ConvBnReLU_{i}",
+                      f"mono_depth_decoder.convblocks.{i}")
+        entries.append(("params", f"MonoDepthDecoder_0/Conv_{i}/kernel",
+                        f"mono_depth_decoder.conv3x3.{i}.weight", _conv2d))
+        entries.append(("params", f"MonoDepthDecoder_0/Conv_{i}/bias",
+                        f"mono_depth_decoder.conv3x3.{i}.bias", _vec))
+
+
 # ------------------------------------------------------------------ public --
 
 
@@ -130,21 +144,27 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     return out
 
 
-def jax_variables_to_state_dict(variables, num_stages: int = 4) -> Dict[str, torch.Tensor]:
-    """Convert JAX ``MVS4Net`` variables (``{"params", "batch_stats"}``, numpy
-    or JAX arrays) into a ``state_dict`` for the port's ``MVS4Net``.
-
-    Raises ``ValueError`` listing every leaf of the JAX tree that no table
-    entry covers (the train-only mono decoder excepted), so a partial
-    conversion cannot pass silently."""
-    flat = {col: _flatten(variables[col]) for col in ("params", "batch_stats")}
+def _entries(flat_params, num_stages: int) -> list:
     feature = next(
-        p.split("/")[0] for p in flat["params"] if "FPN4" in p.split("/")[0]
+        p.split("/")[0] for p in flat_params if "FPN4" in p.split("/")[0]
     )
     entries: list = []
     _fpn4_entries(entries, feature)
     for s in range(num_stages):
         _reg2d_entries(entries, f"reg_stage{s + 1}", f"reg.{s}")
+    if any(p.startswith("MonoDepthDecoder_0/") for p in flat_params):
+        _mono_entries(entries)
+    return entries
+
+
+def jax_variables_to_state_dict(variables, num_stages: int = 4) -> Dict[str, torch.Tensor]:
+    """Convert JAX ``MVS4Net`` variables (``{"params", "batch_stats"}``, numpy
+    or JAX arrays) into a ``state_dict`` for the port's ``MVS4Net``.
+
+    Raises ``ValueError`` listing every leaf of the JAX tree that no table
+    entry covers, so a partial conversion cannot pass silently."""
+    flat = {col: _flatten(variables[col]) for col in ("params", "batch_stats")}
+    entries = _entries(flat["params"], num_stages)
 
     sd: Dict[str, torch.Tensor] = {}
     problems = []
@@ -161,8 +181,22 @@ def jax_variables_to_state_dict(variables, num_stages: int = 4) -> Dict[str, tor
             sd[torch_key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     for col in flat:
         for path in sorted(set(flat[col]) - used[col]):
-            if not path.startswith("MonoDepthDecoder"):
-                problems.append(f"flax leaf not covered: {col}:{path}")
+            problems.append(f"flax leaf not covered: {col}:{path}")
     if problems:
         raise ValueError("flax -> port conversion incomplete:\n  " + "\n  ".join(problems))
     return sd
+
+
+def jax_grads_to_port(grads, num_stages: int = 4) -> Dict[str, torch.Tensor]:
+    """A flax-shaped gradient tree (``jax.grad`` with respect to
+    ``variables["params"]``) -> ``{port parameter name: gradient}`` in the
+    port's layouts. Raises ``ValueError`` on a leaf no entry covers."""
+    flat = _flatten(grads)
+    out: Dict[str, torch.Tensor] = {}
+    for col, flax_path, torch_key, transform in _entries(flat, num_stages):
+        if col == "params" and flax_path in flat:
+            arr = transform(np.asarray(flat.pop(flax_path), dtype=np.float32))
+            out[torch_key] = torch.tensor(np.ascontiguousarray(arr))
+    if flat:
+        raise ValueError(f"flax gradient leaves not covered: {sorted(flat)}")
+    return out

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the train path through them: the chain backward against autograd of the
+plain chain, a small train step against the CPU's, and the rule that a
+kernel meets autograd only through its ``autograd.Function``.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither JAX nor the JAX package, so that it runs on a
@@ -14,18 +17,34 @@ import numpy as np
 import pytest
 import torch
 
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import (
+    LossConfig,
+    ModelConfig,
+)
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
     relative_projection,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
     batch_samples,
+    batch_to_torch,
     make_plane_scene,
 )
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     topdown as k2,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    warp_bwd as k3,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     warp_cor as k1,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.topdown_chain import (
+    TopDownChain,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+    make_optimizer,
+    make_train_step,
 )
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +132,136 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         k2.topdown_level(intra, skip, torch.zeros((64, 8, 1, 1), device=dev),
                          torch.zeros(64, device=dev), torch.zeros((8, 64, 3, 3), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,src_hw", [(8, None), (16, None), (32, None), (64, None), (8, (20, 28))])
+def test_warp_bwd_kernel_matches_plain(dev, dtype, C, src_hw):
+    """K3 against ``warp_bwd_ref`` on the card, with g in float32 and bf16
+    (tolerance: ``TOLERANCE`` of the kernel module, for the order of its
+    atomic float32 sums), on the four stages' widths and on a source
+    smaller than the reference, so that the sweep leaves the image."""
+    B, H, W, D = 2, 48, 64, 4
+    rng = np.random.default_rng(C)
+    batch = batch_samples([make_plane_scene(V=2, H=H, W=W, seed=i) for i in range(B)])
+    pr = torch.from_numpy(batch["proj_matrices"]["stage4"]).to(dev)
+    rel = relative_projection(pr[:, 1], pr[:, 0]).contiguous()
+    hs, ws = src_hw or (H, W)
+    inv = np.linspace(1 / 935.0, 1 / 425.0, D)[None, :, None, None]
+    inv = inv * (1 + 0.02 * rng.standard_normal((B, D, H, W)))
+    hypo = torch.from_numpy((1.0 / inv).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, D, H, W, C)).astype(np.float32)).to(dev, dtype)
+    before = k3.launches
+    got = k3.warp_bwd(g, rel, hypo, (B, hs, ws, C))
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, hs, ws, C)
+    _close(got, k3.warp_bwd_ref(g, rel, hypo, (B, hs, ws, C)), k3.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topdown_chain_function_matches_plain_autograd(dev, dtype):
+    """The chain ``autograd.Function`` (K2 forward, K2 re-deriving ``u`` in
+    the backward) against autograd through ``topdown_level_ref``: outputs
+    and the gradients of intra, the skips, wi, bi, wo. Relative to
+    max(1, max|plain|): 1e-4 in float32; 3e-2 in bf16, where the Function
+    keeps du, dprev and dskip in bf16 and the plain chain stays in float32
+    inside each level."""
+    rng = np.random.default_rng(10)
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev, dt)
+
+    levels = [(32, 32), (16, 16), (8, 8)]
+    leaves = [t(3, 8, 12, 64)]
+    leaves += [t(3, 16 << i, 24 << i, cs) for i, (cs, _) in enumerate(levels)]
+    for cs, co in levels:
+        leaves += [t(64, cs, 1, 1, scale=0.1, dt=torch.float32), t(64, scale=0.1, dt=torch.float32),
+                   t(co, 64, 3, 3, scale=0.05, dt=torch.float32)]
+    grads = [t(3, 16 << i, 24 << i, co) for i, (_, co) in enumerate(levels)]
+
+    xs = [x.clone().requires_grad_() for x in leaves]
+    before = k2.launches
+    outs = TopDownChain.apply(*xs)
+    torch.autograd.backward(outs, grads)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 6
+
+    ys = [x.clone().requires_grad_() for x in leaves]
+    cur, want = ys[0], []
+    for i in range(3):
+        o, cur = k2.topdown_level_ref(cur, ys[1 + i], *ys[4 + 3 * i: 7 + 3 * i], with_u=True)
+        want.append(o)
+    torch.autograd.backward(want, grads)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip([*outs, *(x.grad for x in xs)], [*want, *(y.grad for y in ys)]):
+        _close(a, b, tol)
+
+
+def test_small_train_step_matches_cpu(dev):
+    """One float32 train step (recipe loss, Adam) on the card against the
+    CPU's plain versions, same weights and batch (B=2, V=3, 64x128). The
+    gradient of a randomly initialised network is chaotic in float32
+    (argmax near-ties pick the next stage's hypotheses), so the card is
+    held to the CPU's own noise floor: the gradient gaps that moving every
+    weight by one rounding (1e-7 relative) opens on the CPU, median and
+    worst tensor, times 3 (and at least 1e-4 and 1e-3). The loss within
+    1e-4 relative; every parameter with a nonzero gradient on the card but
+    the reg nets' ``prob.bias``, whose gradient is analytically zero."""
+    cfg = ModelConfig(group_cor=True, group_cor_dim=(8, 8, 4, 4), inverse_depth=True,
+                      mono=True, attn_temp=2.0)
+    lcfg = LossConfig(stage_lw=(1.0, 1.0, 1.0, 1.0), l1_lw=0.003, ot_lw=1.0, ot_iter=3,
+                      inverse_depth=True, mono=True)
+    batch = batch_samples([make_plane_scene(V=3, H=64, W=128, seed=i) for i in range(2)])
+
+    def run(device, perturb_seed=None):
+        model = MVS4Net(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+        if perturb_seed is not None:
+            gen = torch.Generator().manual_seed(perturb_seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+        model.to(device)
+        step = make_train_step(model, lcfg, make_optimizer(model, 1e-4), lambda i: 1e-3)
+        loss = step(batch_to_torch(batch, device))["loss"].item()
+        return loss, {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    def gaps(want, got):
+        return [((got[n] - w).abs().max() / w.abs().max()).item()
+                for n, w in want.items() if not n.endswith("prob.bias")]
+
+    loss_cpu, g_cpu = run("cpu")
+    floors = [gaps(g_cpu, run("cpu", seed)[1]) for seed in (1, 2)]
+    loss_gpu, g_gpu = run(dev)
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for name, got in g_gpu.items():
+        assert name.endswith("prob.bias") or got.abs().max() > 0, name
+    card = gaps(g_cpu, g_gpu)
+    assert np.median(card) <= max(3 * max(np.median(f) for f in floors), 1e-4)
+    assert max(card) <= max(3 * max(max(f) for f in floors), 1e-3)
+
+
+def test_kernel_wrappers_raise_under_autograd(dev):
+    """A kernel launched on raw pointers would give an output without
+    ``grad_fn`` and stop gradients silently: under autograd each wrapper
+    raises on a CUDA tensor that requires grad, and launches under
+    ``no_grad``."""
+    src = torch.zeros((1, 8, 8, 8), device=dev, requires_grad=True)
+    hypo = torch.ones((1, 2, 8, 8), device=dev)
+    rel = torch.eye(4, device=dev)[None].contiguous()
+    with pytest.raises(RuntimeError, match="autograd"):
+        k1.warp_cor(src, src, rel, hypo, 4)
+    g = torch.zeros((1, 2, 8, 8, 8), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k3.warp_bwd(g, rel, hypo, (1, 8, 8, 8))
+    intra = torch.zeros((1, 4, 4, 64), device=dev)
+    skip = torch.zeros((1, 8, 8, 8), device=dev)
+    wi = torch.zeros((64, 8, 1, 1), device=dev, requires_grad=True)
+    bi, wo = torch.zeros(64, device=dev), torch.zeros((8, 64, 3, 3), device=dev)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k2.topdown_level(intra, skip, wi, bi, wo)
+    with torch.no_grad():
+        k1.warp_cor(src, src, rel, hypo, 4)
+        k3.warp_bwd(g, rel, hypo, (1, 8, 8, 8))
+        k2.topdown_level(intra, skip, wi, bi, wo)
+    torch.cuda.synchronize()

@@ -6,8 +6,9 @@ port's ``state_dict`` carried back by the JAX package's
 
 The JAX side runs ``warp_impl="gather"`` (exact sampling) with the fused
 top-down and packed convs off; its variables come from ``jax.eval_shape``
-of the init (the shapes only) filled with numpy values, which skips the
-slow op-by-op JAX init.
+of a train-mode init (the shapes only, with the mono decoder that the port
+holds under ``mono``) filled with numpy values, which skips the slow
+op-by-op JAX init.
 """
 
 from __future__ import annotations
@@ -58,11 +59,16 @@ def _jax_inputs(batch):
 
 
 def _variables(jnet, batch, seed=0):
-    """Seeded numpy variables in the shape of the JAX init: conv kernels
-    ~ N(0, 1/fan_in), BatchNorm scale and running variance in [0.5, 2],
-    biases and running means ~ N(0, 0.2)."""
-    shapes = jax.eval_shape(
-        lambda: jnet.init(jax.random.PRNGKey(0), *_jax_inputs(batch), train=False))
+    """Seeded numpy variables in the shape of the JAX train-mode init:
+    conv kernels ~ N(0, 1/fan_in), BatchNorm scale and running variance in
+    [0.5, 2], biases and running means ~ N(0, 0.2). The eval-mode init's
+    leaves are drawn first, then the mono decoder's (which only a
+    train-mode init creates), so the eval network's weights do not depend
+    on it."""
+    def shapes(train):
+        return jax.eval_shape(
+            lambda: jnet.init(jax.random.PRNGKey(0), *_jax_inputs(batch), train=train))
+
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -73,7 +79,11 @@ def _variables(jnet, batch, seed=0):
             return rng.uniform(0.5, 2.0, s.shape).astype(np.float32)
         return rng.normal(0.0, 0.2, s.shape).astype(np.float32)
 
-    return jax.tree_util.tree_map_with_path(fill, shapes)
+    vs = jax.tree_util.tree_map_with_path(fill, shapes(False))
+    train_only = {col: {k: v for k, v in tree.items() if k not in vs[col]}
+                  for col, tree in shapes(True).items()}
+    extra = jax.tree_util.tree_map_with_path(fill, train_only)
+    return {col: {**vs[col], **extra[col]} for col in vs}
 
 
 @pytest.fixture(scope="module")
@@ -150,16 +160,15 @@ def test_eval_forward_bf16_statistically_close(scene):
 
 def test_state_dict_round_trip_to_flax(scene):
     """The port's ``state_dict`` goes back through the JAX package's own
-    reference -> flax transplant and gives the JAX variables it came from.
-    The mono decoder is train-only and absent from an eval template, so the
-    transplant runs with ``mono=False``."""
+    reference -> flax transplant and gives the JAX variables it came from,
+    the mono decoder's included: a reference checkpoint with those keys
+    loads into the port, and the port's into the JAX package."""
     jcfg = _cfg("float32")
     jnet = JaxMVS4Net(jcfg)
     vs = _variables(jnet, scene, seed=1)
     port = MVS4Net(ModelConfig(**dataclasses.asdict(jcfg)), device="cpu")
     port.load_state_dict(jax_variables_to_state_dict(vs))
-    back = torch_state_dict_to_flax(
-        port.state_dict(), vs, dataclasses.replace(jcfg, mono=False))
+    back = torch_state_dict_to_flax(port.state_dict(), vs, jcfg)
     flat_back = dict(jax.tree_util.tree_leaves_with_path(back))
     flat_vs = dict(jax.tree_util.tree_leaves_with_path(vs))
     assert flat_back.keys() == flat_vs.keys()

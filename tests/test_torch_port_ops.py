@@ -254,7 +254,7 @@ def test_conv_blocks_match_flax(case):
     vs = _random_variables(jmod, jnp.asarray(x), train=False)
     tmod.load_state_dict({**conv_sd(vs), **_bn_sd(vs, "bn.")})
     want = jmod.apply(vs, jnp.asarray(x), train=False)
-    got = tmod(_t(x))
+    got = tmod.eval()(_t(x))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
@@ -270,13 +270,13 @@ def test_deconv_block_and_batchnorm_match_flax():
     k = vs["params"]["ConvTranspose_0"]["kernel"]
     tmod.load_state_dict({"0.weight": _t(jax_params._deconv3d_as_2d(k)), **_bn_sd(vs, "1.")})
     want = jmod.apply(vs, jnp.asarray(x), train=False)
-    got = tmod(_t(x))
+    got = tmod.eval()(_t(x))
     assert got.shape == (4, 10, 14, 8)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5, rtol=1e-5)
 
     jbn = jl.TorchBatchNorm(dtype=jnp.bfloat16)
     bvs = _random_variables(jbn, jnp.asarray(x), use_running_average=True, seed=6)
-    tbn = tl.TorchBatchNorm(16)
+    tbn = tl.TorchBatchNorm(16).eval()
     tbn.load_state_dict(_bn_sd({k: {"BatchNorm_0": v} for k, v in bvs.items()}, ""))
     xb = jnp.asarray(x, jnp.bfloat16)
     want = jbn.apply(bvs, xb, use_running_average=True)
@@ -295,7 +295,7 @@ def test_fpn4_matches_flax():
     vs = _random_variables(jmod, jnp.asarray(x), False, seed=8)
     sd = jax_params.jax_variables_to_state_dict(
         {col: {"FPN4_0": tree} for col, tree in vs.items()}, num_stages=0)
-    port = FPN4(8)
+    port = FPN4(8).eval()
     port.load_state_dict({k[len("feature."):]: v for k, v in sd.items()})
     want = jmod.apply(vs, jnp.asarray(x), False)
     got = port(_t(x))
@@ -330,9 +330,13 @@ def test_epipolar_aggregate_matches_jax(group_cor, attn_fuse_d):
 
 
 def _port_sources():
-    files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
-    return files
+    files = sorted((REPO / PORT).rglob("*.py"))
+    names = {str(f.relative_to(REPO / PORT)) for f in files}
+    # the train path's modules are among them
+    assert {"ops/warp.py", "ops/topdown_chain.py", "ops/kernels/warp_bwd.py",
+            "models/mono.py", "core/sinkhorn.py", "models/losses.py",
+            "train/metrics.py", "train/schedule.py", "train/step.py"} <= names
+    return files + [REPO / "chip_smoke.py"]
 
 
 def _forbidden(module: str) -> bool:
