@@ -22,10 +22,13 @@
    same weights in float32.
 5. The top-down chain's ``autograd.Function`` (K2 forward, K2 re-deriving
    ``u`` in the backward) against autograd through the plain chain, at the
-   train shape (30 images), in float32 and bf16.
+   train shape (30 images), in float32 and bf16 (``checks.py``).
 6. A small float32 train step on the card against the same step on the
-   CPU (B=2, V=3, 64x128): the loss, every parameter's gradient, and a
-   nonzero gradient for every parameter on the card.
+   CPU (B=2, V=3, 64x128; ``checks.check_train_step``): the card takes the
+   CPU's next-stage hypotheses and its gradients at the cost volumes and
+   mono depths, then the loss, the FPN outputs' gradients, every
+   parameter's gradient, and a nonzero gradient for every parameter on the
+   card are held to fixed limits.
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
    Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
    before one step and read just after (K3 16, K2 6, K1 0), then a warm-up
@@ -70,13 +73,6 @@ def _dtu_model_config(dtype="bfloat16"):
         mono=True, attn_temp=2.0, dtype=dtype, pack_conv=True,
         warp_impl="mxu_v3", warp_band=12, fused_topdown=True,
     )
-
-
-def _dtu_loss_config():
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import LossConfig
-
-    return LossConfig(stage_lw=(1.0, 1.0, 1.0, 1.0), l1_lw=0.003, ot_lw=1.0, ot_iter=3,
-                      inverse_depth=True, mono=True)
 
 
 def _time_ms(fn, reps):
@@ -290,8 +286,10 @@ def check_warp_bwd(dev, batch):
 
                 lib = run_library().permute(0, 2, 3, 1)
                 library_diff[f"stage{s + 1}"] = _max_err(lib, want)
+            # the function's bytes: g, hypo and rel read once, dsrc written
+            # once; the zeroing pass of the atomic design is not in the bound
             nbytes = g.numel() * g.element_size() + hypo.numel() * 4 + rel.numel() * 4 \
-                + 2 * got.numel() * 4                       # dsrc zeroed, then written
+                + got.numel() * 4
             _record(rows, "warp_bwd", "train", [Bt, D, h, w, C], dtype, _max_err(got, want),
                     k3.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
                     lambda g=g, rel=rel, hypo=hypo, shape=shape: k3.warp_bwd(g, rel, hypo, shape),
@@ -366,145 +364,30 @@ CONV_LIBRARY = ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "wgrad"
 
 def check_chain_backward(dev):
     """The top-down chain's ``autograd.Function`` against autograd through
-    the plain chain (``topdown_level_ref`` per level) at the train shape
-    (N = 6 x 5 images, intra 64x80 -> 512x640): outputs and the gradients
-    of intra, the skips, wi, bi and wo for random output gradients, in
-    float32 (TF32 off) and bf16, with the times of forward + backward.
-    Tolerance, relative to max(1, max|plain|): 1e-4 in float32 (sums in
-    another order); 3e-2 in bf16, where the Function keeps du, dprev and
-    dskip in bf16 (as the JAX package's backward does) while autograd of
-    the plain chain stays in float32 inside each level, so some six bf16
-    roundings (2^-8 each) may lie between the two."""
+    the plain chain (``checks.check_chain_backward``, tolerances there) at
+    the train shape (N = 6 x 5 images, intra 64x80 -> 512x640), in float32
+    (TF32 off) and bf16, with the bf16 times of forward + backward."""
     import torch
 
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
     )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.topdown_chain import (
-        TopDownChain,
-    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    N = TRAIN_B * TRAIN_V
-    levels = ((32, 32), (16, 16), (8, 8))
-    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        def rnd(*shape, scale=1.0, dt=dtype):
-            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
-
-        intra = rnd(N, H >> 3, W >> 3, 64)
-        skips = [rnd(N, H >> (2 - i), W >> (2 - i), cs) for i, (cs, _) in enumerate(levels)]
-        weights = [(rnd(64, cs, 1, 1, scale=cs ** -0.5, dt=torch.float32),
-                    rnd(64, scale=0.1, dt=torch.float32),
-                    rnd(co, 64, 3, 3, scale=576 ** -0.5, dt=torch.float32))
-                   for cs, co in levels]
-        grads = [rnd(N, H >> (2 - i), W >> (2 - i), co) for i, (_, co) in enumerate(levels)]
-        leaves = [intra, *skips, *(x for lw in weights for x in lw)]
-
-        def run_function():
-            xs = [x.detach().requires_grad_() for x in leaves]
-            outs = TopDownChain.apply(*xs)
-            torch.autograd.backward(outs, grads)
-            return outs, [x.grad for x in xs]
-
-        def run_plain():
-            xs = [x.detach().requires_grad_() for x in leaves]
-            cur, outs = xs[0], []
-            for i in range(3):
-                o, cur = k2.topdown_level_ref(cur, xs[1 + i], *xs[4 + 3 * i: 7 + 3 * i],
-                                              with_u=True)
-                outs.append(o)
-            torch.autograd.backward(outs, grads)
-            return outs, [x.grad for x in xs]
-
-        got_o, got_g = run_function()
-        want_o, want_g = run_plain()
-        torch.cuda.synchronize()
-        names = ["intra", "skip2", "skip3", "skip4"] + [
-            f"{n}{lvl + 2}" for lvl in range(3) for n in ("wi", "bi", "wo")]
-        worst = {}
-        for name, a, b in zip(["o2", "o3", "o4"] + names, [*got_o, *got_g], [*want_o, *want_g]):
-            err, bound = _max_err(a, b), tol[dtype] * _scale(b)
-            if err > bound:
-                raise AssertionError(f"chain {dtype} {name}: max|diff| {err} > {bound}")
-            worst[name] = err / _scale(b)
-        entry = {"max_rel_diff": max(worst.values()), "worst": max(worst, key=worst.get),
-                 "tolerance": tol[dtype]}
+        leaves, grads = checks.chain_inputs(TRAIN_B * TRAIN_V, H >> 3, W >> 3, dtype, dev, gen)
+        entry = checks.check_chain_backward(leaves, grads)
         if dtype == torch.bfloat16:
             before = k2.launches
-            entry["function_fwd_bwd_ms"] = _time_ms(run_function, 3)
+            entry["function_fwd_bwd_ms"] = _time_ms(
+                lambda: checks.chain_function_grads(leaves, grads), 3)
             entry["k2_launches_per_fwd_bwd"] = (k2.launches - before) // 4
-            entry["plain_fwd_bwd_ms"] = _time_ms(run_plain, 3)
+            entry["plain_fwd_bwd_ms"] = _time_ms(
+                lambda: checks.chain_plain_grads(leaves, grads), 3)
         out[str(dtype).replace("torch.", "")] = entry
     return out
-
-
-def _grad_gaps(want, got):
-    """Per parameter ``max|got - want| / max|want|``. The reg nets'
-    ``prob.bias`` are left out: their gradient is analytically zero (the
-    softmax over D ignores a constant added to every score)."""
-    return {n: ((got[n] - w).abs().max() / w.abs().max()).item()
-            for n, w in want.items() if not n.endswith("prob.bias")}
-
-
-def _median(xs):
-    return sorted(xs)[len(xs) // 2]
-
-
-def check_small_train_step_against_cpu(dev):
-    """One float32 train step (recipe loss, Adam) on the card against the
-    same step on the CPU's plain versions, same weights and batch (B=2,
-    V=3, 64x128). The gradient of this randomly initialised network is
-    chaotic in float32 (argmax near-ties pick the next stage's hypotheses):
-    moving every weight by one rounding (1e-7 relative) moves the median
-    tensor's gradient by ~1e-3 of its max on the CPU. So the card is held
-    to that noise floor, measured here with two such draws: the median and
-    the worst tensor within 3x the floor's (and at least 1e-4 and 1e-3);
-    the loss within 1e-4 relative; and a nonzero gradient on every
-    parameter on the card (the ``prob.bias`` only need one), the guard
-    against gradients that stop at a kernel."""
-    import torch
-
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
-        make_optimizer,
-        make_train_step,
-    )
-
-    cfg = _dtu_model_config("float32")
-
-    def run(device, perturb_seed=None):
-        model = _make_model(cfg, "cpu", SEED + 4)
-        if perturb_seed is not None:
-            gen = torch.Generator().manual_seed(perturb_seed)
-            with torch.no_grad():
-                for p in model.parameters():
-                    p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
-        model.to(device)
-        step = make_train_step(model, _dtu_loss_config(), make_optimizer(model, 1e-4),
-                               lambda i: 1e-3)
-        loss = step(_scene(2, 3, 64, 128, device))["loss"].item()
-        return loss, {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-
-    loss_cpu, g_cpu = run("cpu")
-    floors = [_grad_gaps(g_cpu, run("cpu", seed)[1]) for seed in (1, 2)]
-    floor_median = max(_median(list(f.values())) for f in floors)
-    floor_max = max(max(f.values()) for f in floors)
-    loss_gpu, g_gpu = run(dev)
-    if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
-        raise AssertionError(f"train loss card {loss_gpu} vs cpu {loss_cpu}")
-    for name, got in g_gpu.items():
-        if got is None or (not name.endswith("prob.bias") and got.abs().max().item() == 0.0):
-            raise AssertionError(f"{name}: no gradient on the card")
-    gaps = _grad_gaps(g_cpu, g_gpu)
-    median, worst = _median(list(gaps.values())), max(gaps.values())
-    if median > max(3 * floor_median, 1e-4) or worst > max(3 * floor_max, 1e-3):
-        raise AssertionError(f"card gradients: median gap {median}, worst {worst}; CPU "
-                             f"noise floor median {floor_median}, worst {floor_max}")
-    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "params": len(g_cpu),
-            "grad_median_rel_diff": median, "grad_max_rel_diff": worst,
-            "worst": max(gaps, key=gaps.get),
-            "cpu_floor_median": floor_median, "cpu_floor_max": floor_max}
 
 
 def drive_train(dev, batch, counters):
@@ -512,6 +395,7 @@ def drive_train(dev, batch, counters):
     rounds of three timed steps, a profile of one step."""
     import torch
 
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
         make_optimizer,
@@ -520,7 +404,7 @@ def drive_train(dev, batch, counters):
 
     model = MVS4Net(_dtu_model_config(), device=dev,
                     generator=torch.Generator().manual_seed(SEED + 5))
-    step = make_train_step(model, _dtu_loss_config(), make_optimizer(model, 1e-4),
+    step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
                            lambda i: 1e-3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -569,6 +453,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to measure", file=sys.stderr)
         return 1
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
@@ -663,7 +548,7 @@ def main() -> int:
 
     print(json.dumps({"chain_backward": check_chain_backward(dev)}))
     torch.cuda.empty_cache()
-    print(json.dumps({"small_train_step": check_small_train_step_against_cpu(dev)}))
+    print(json.dumps({"small_train_step": checks.check_train_step(dev)}))
     train, train_profile, train_counts = drive_train(dev, train_batch, counters)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))

@@ -25,15 +25,18 @@
 //   - scalar float32 atomicAdd into dsrc, zeroed by the wrapper.
 // The order of the float32 sum therefore changes from run to run.
 //
-// Bound on an H100: bytes. Each (b, d, y, x) reads its depth (4 B) and its
-// cotangent (2C B in bf16), and dsrc is zeroed and written once in float32
-// (8 B per element counting both passes); 6C FLOPs per pixel are far under
-// the card's FLOP/byte line. At the DTU recipe's stage 4 (B6 D4 512x640 C8,
-// bf16 g) that is ~283 MB per launch, 85 us at 3.35 TB/s. This first
-// version issues 4C scalar atomics per pixel, which the L2 serves one
-// sector at a time: it is bound by atomic throughput, not bytes. Vector
-// red.global.add (sm_90) or shared-memory tile accumulation is the next
-// step.
+// Bound on an H100: bytes. The function reads each (b, d, y, x)'s depth
+// (4 B) and cotangent (2C B in bf16) once and writes dsrc once in float32
+// (4 B per element); 6C FLOPs per pixel are far under the card's FLOP/byte
+// line. At the DTU recipe's stage 4 (B6 D4 512x640 C8, bf16 g) that is
+// ~220 MB per launch, 66 us at 3.35 TB/s. The atomic design adds a
+// zeroing pass of dsrc (another 4 B per element, ~63 MB at stage 4), a
+// cost of this design that the TPU kernel, which flushes its accumulator
+// once, does not pay; it is not part of the bound. This first version
+// issues 4C scalar atomics per pixel, which the L2 serves one sector at a
+// time: it is bound by atomic throughput, not bytes. Vector
+// red.global.add (sm_90) or shared-memory tile accumulation, which would
+// also drop the zeroing pass, is the next step.
 
 #include <stdint.h>
 

@@ -4,8 +4,8 @@ Counterpart of the JAX package's ``models/fpn.py`` ``FPN4`` and
 ``_TopDown``: stride-2 5x5 stem convs, then a 64-channel top-down pathway.
 The three top-down levels (``up2(intra) + inner(skip)``, then the 3x3
 ``out`` conv) run through kernel K2 (``ops/kernels/topdown.py``), by way of
-``ops/topdown_chain.py``: its ``autograd.Function`` when autograd records,
-K2 directly otherwise. The stem and the ``out1`` 1x1 are plain
+``ops/topdown_chain.py``: its ``autograd.Function`` in training, K2
+directly in eval. The stem and the ``out1`` 1x1 are plain
 convolutions; in training the stem's BatchNorm takes statistics per view.
 """
 
@@ -65,5 +65,6 @@ class FPN4(nn.Module):
         outs = topdown_chain(
             intra, [skip for skip, _, _ in levels],
             [(inner.weight, inner.bias, out.weight) for _, inner, out in levels],
+            train=self.training,
         )
         return (o1, *outs)

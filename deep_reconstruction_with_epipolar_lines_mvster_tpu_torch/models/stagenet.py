@@ -37,7 +37,7 @@ def run_stage(
     cost = epipolar_aggregate(
         features, proj_stacks, depth_hypo,
         group_cor=group_cor, group_dim=group_dim,
-        attn_temp=attn_temp, attn_fuse_d=attn_fuse_d,
+        attn_temp=attn_temp, attn_fuse_d=attn_fuse_d, train=train,
     )
     score = regnet(cost).float().reshape(B, D, H, W)
     idx = score.argmax(dim=1, keepdim=True)

@@ -15,8 +15,8 @@ once per level and saves only ``(intra, skips, weights)``. Its backward:
   4. ``dprev``, the adjoint of the align-corners upsample;
   5. ``dskip, dwi, dbi`` of the 1x1 and the bias.
 
-``topdown_chain`` takes the Function when autograd records, and otherwise
-calls K2 directly with nothing saved (the eval forward).
+``topdown_chain`` takes the Function in training, and in eval calls K2
+directly with nothing saved.
 """
 
 from __future__ import annotations
@@ -101,10 +101,11 @@ def topdown_chain(
     intra: torch.Tensor,
     skips: Sequence[torch.Tensor],
     weights: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    *,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """The top-down outputs ``(o2, o3, o4)``: through ``TopDownChain`` when
-    autograd records, else K2 directly."""
-    tensors = (intra, *skips, *(w for lw in weights for w in lw))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return TopDownChain.apply(*tensors)
+    """The top-down outputs ``(o2, o3, o4)``: through ``TopDownChain`` with
+    ``train``, else K2 directly."""
+    if train:
+        return TopDownChain.apply(intra, *skips, *(w for lw in weights for w in lw))
     return _forward(intra, skips, weights)

@@ -9,9 +9,9 @@ Counterpart of the JAX package's ``ops/warp_cor.py`` (reference
       acc   += w_v * cor_v ;  norm += w_v               (norm seeded 1e-8)
   out = acc / norm, folded to [B*D, H, W, G]
 
-Group correlation goes through kernel K1 (``ops/kernels/warp_cor.py``) at
-every stage when autograd does not record. When it does (the train step),
-it is the JAX package's two-step train path instead: the warp through
+In eval, group correlation goes through kernel K1
+(``ops/kernels/warp_cor.py``) at every stage. With ``train`` it is the JAX
+package's two-step train path instead: the warp through
 ``ops/warp.py:WarpIK``, whose backward is kernel K3, then the group
 correlation in autograd-tracked PyTorch; K1 has no backward, as in JAX
 (``models/stagenet.py`` passes ``fuse_cor=... and not train``). The
@@ -39,12 +39,13 @@ def correlate_view(
     *,
     group_cor: bool,
     group_dim: int,
+    train: bool = False,
 ) -> torch.Tensor:
     """Warp one source view and correlate it with the reference:
     ``[B, D, H, W, G]`` (group correlation) or the squared difference
-    ``[B, D, H, W, C]``. Under autograd the warp is ``WarpIK``; otherwise
+    ``[B, D, H, W, C]``. With ``train`` the warp is ``WarpIK``; otherwise
     group correlation is K1 and the squared difference the plain gather."""
-    if torch.is_grad_enabled() and (src_fea.requires_grad or ref_fea.requires_grad):
+    if train:
         warped = WarpIK.apply(src_fea, rel_proj, depth_hypo)
         if group_cor:
             return group_correlate(warped, ref_fea[:, None], group_dim)
@@ -65,13 +66,15 @@ def epipolar_aggregate(
     group_dim: int,
     attn_temp: float,
     attn_fuse_d: bool = True,
+    train: bool = False,
 ) -> torch.Tensor:
     """Cross-view attention-weighted cost volume, folded ``[B*D, H, W, G]``
     (G = C without group correlation), in the features' dtype.
 
     ``attn_fuse_d``: weights ``softmax_D(sum_G cor / attn_temp) / sqrt(C)``;
     otherwise each pixel's weight is the max over D of ``softmax_D(sum_G
-    cor)``, broadcast over D."""
+    cor)``, broadcast over D. ``train`` picks the train path's warp
+    (``correlate_view``)."""
     ref_fea = features[0].contiguous()
     B, H, W, C = ref_fea.shape
     D = depth_hypo.shape[1]
@@ -83,7 +86,7 @@ def epipolar_aggregate(
         rel = relative_projection(proj_stacks[:, v], ref_stack).float().contiguous()
         cor = correlate_view(
             features[v].contiguous(), ref_fea, rel, hypo,
-            group_cor=group_cor, group_dim=group_dim,
+            group_cor=group_cor, group_dim=group_dim, train=train,
         ).float()                                       # [B, D, H, W, G]
         cor_sum = cor.sum(dim=-1)
         if attn_fuse_d:

@@ -156,7 +156,7 @@ def test_warp_bwd_ref_and_train_correlation_match_jax_vjp(C, G, src_hw):
         jnp.asarray(src), jnp.asarray(ref))
     want_src, want_ref = vjp(jnp.asarray(gc))
     ts, tr = _t(src).requires_grad_(), _t(ref).requires_grad_()
-    out = correlate_view(ts, tr, _t(rel), _t(hypo), group_cor=True, group_dim=G)
+    out = correlate_view(ts, tr, _t(rel), _t(hypo), group_cor=True, group_dim=G, train=True)
     assert type(out.grad_fn).__name__ != "WarpIKBackward"      # correlation after the warp
     out.backward(_t(gc))
     _close(ts.grad, want_src, 1e-5, "dsrc")
@@ -271,7 +271,7 @@ def test_topdown_chain_grads_match_jax_fused_chain():
     t_skips = [_t(s).requires_grad_() for s in skips]
     t_weights = [(_t(wi.transpose(3, 2, 0, 1)).requires_grad_(), _t(bi).requires_grad_(),
                   _t(wo.transpose(3, 2, 0, 1)).requires_grad_()) for wi, bi, wo in weights]
-    outs = topdown_chain(t_intra, t_skips, t_weights)
+    outs = topdown_chain(t_intra, t_skips, t_weights, train=True)
     assert type(outs[0].grad_fn).__name__ == "TopDownChainBackward"
     torch.autograd.backward(outs, [_t(g) for g in gs])
 
@@ -599,7 +599,10 @@ def test_train_forward_routes_kernels_through_their_functions(one_step):
     """A train-mode forward records the top-down chain once through
     ``TopDownChain`` and every source view's warp through ``WarpIK`` (4
     stages x 2 source views): the kernels' wrappers never meet autograd.
-    Under ``no_grad`` the eval forward records nothing."""
+    The route follows ``train()``/``eval()``, not grad mode, as the JAX
+    package's follows its ``train`` flag: an eval forward with grad enabled
+    takes neither Function (on the card its kernels then refuse autograd),
+    and under ``no_grad`` records nothing."""
     port, b = one_step["port"], one_step["tbatch"]
     port.train()
     out = port(b["imgs"], b["proj_matrices"], b["depth_values"])
@@ -608,6 +611,9 @@ def test_train_forward_routes_kernels_through_their_functions(one_step):
     assert names.count("TopDownChainBackward") == 1
     assert names.count("WarpIKBackward") == 4 * (STEP_V - 1)
     port.eval()
+    out = port(b["imgs"], b["proj_matrices"], b["depth_values"])
+    names = _graph_names(out["stage4"]["attn_weight"])
+    assert "TopDownChainBackward" not in names and "WarpIKBackward" not in names
     with torch.no_grad():
         out = port(b["imgs"], b["proj_matrices"], b["depth_values"])
     assert out["stage4"]["depth"].grad_fn is None
