@@ -3,20 +3,22 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per source,
-   all started together) and prints the build seconds and ptxas's register
-   and shared-memory report.
+1. Builds the port's five CUDA kernels from ``csrc/`` (one ``nvcc`` per
+   source, all started together) and prints the build seconds and ptxas's
+   register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
    flagship paths give it, in float32 (TF32 off) and in bf16, and times
-   both with CUDA events: K1 and K2 at the eval forward's shapes, K3 (the
-   warp backward) at the train step's, beside its library yardstick
-   ``aten.grid_sampler_2d_backward``.
+   both with CUDA events: K1 (warp + group correlation), K2 (FPN top-down
+   level) and K5 (attention accumulation) at the eval forward's shapes, K3
+   (warp backward) and K4 (warp forward) at the train step's, beside their
+   library yardsticks ``aten.grid_sampler_2d_backward`` and
+   ``F.grid_sample``.
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
    and BatchNorm statistics on plane-scene inputs: the launch counters are
    set to 0 just before one forward and read just after (K1 12 launches,
-   K2 3), then three rounds of five forwards are timed.
+   K2 3, K5 4), then three rounds of five forwards are timed.
 4. Checks the eval output: finite depth of the expected shape, and, on a
    small input, the card's forward against the CPU's plain forward with the
    same weights in float32.
@@ -31,14 +33,22 @@
    card are held to fixed limits.
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
    Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
-   before one step and read just after (K3 16, K2 6, K1 0), then a warm-up
+   before one step and read just after (K4 16, K3 16, K2 6), then a warm-up
    step and three rounds of three timed steps, and a profile of one step.
+8. Drives the eval pipeline of the eval CLI at full width
+   (``checks.run_pipeline``: the scripts/eval_dtu.sh model in float32, B=1,
+   a 4-view 512x640 plane scene with 192 hypotheses): the depth maps of
+   every reference view, each view filtered against its 3 sources, the
+   fused PLY written under ``chiprun_out/``; the counters are set to 0 just
+   before the run and read just after (per view K1 12, K2 3, K5 4), and a
+   profile of one more run. Then the same pipeline at 64x128 on the card
+   against the CPU (``checks.check_pipeline``).
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
 one forward by kernel), a ``forward`` line, a ``chain_backward`` line, a
-``small_train_step`` line, a ``train`` line, a ``train_profile`` line and a
-``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
+``small_train_step`` line, a ``train`` line, a ``train_profile`` line, a
+``pipeline_profile`` line, a ``pipeline`` line and a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
 non-zero and prints no result.
 """
@@ -46,6 +56,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,7 +73,19 @@ FP32_FLOPS = 67e12
 B, V, H, W = 4, 4, 512, 640
 TRAIN_B, TRAIN_V = 6, 5             # the DTU recipe (scripts/train_dtu.sh)
 SEED = 0
-KERNELS = ("warp_cor", "topdown", "warp_bwd")
+KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse")
+# launches of each kernel on each path: an eval forward (B4 V4), a train
+# step (B6 V5) and one reference view of the eval pipeline (V4)
+EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4}
+TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0}
+PIPELINE_LAUNCHES_PER_VIEW = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0,
+                              "attn_fuse": 4}
+PIPELINE_V = 4
+# the weight seed of the pipeline phase: with random weights the fused cloud's
+# size depends on the draw, and some seeds give an empty cloud; seed 4 gives
+# a cloud of thousands of points at 512x640 (the `pipeline` line prints it)
+PIPELINE_SEED = 4
+PIPELINE_PLY = "chiprun_out/pipeline_fused.ply"
 
 
 def _dtu_model_config(dtype="bfloat16"):
@@ -96,34 +119,6 @@ def _max_err(got, want):
 
 def _scale(want):
     return max(1.0, want.float().abs().max().item())
-
-
-def _randomize_batchnorm(model, gen):
-    import torch
-
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
-        TorchBatchNorm,
-    )
-
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, TorchBatchNorm):
-                c = m.weight.shape[0]
-                m.weight.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
-                m.bias.copy_(torch.randn(c, generator=gen) * 0.2)
-                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
-                m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
-
-
-def _make_model(cfg, device, seed):
-    import torch
-
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
-
-    gen = torch.Generator().manual_seed(seed)
-    model = MVS4Net(cfg, device="cpu", generator=gen)
-    _randomize_batchnorm(model, gen)
-    return model.to(device)
 
 
 def _scene(b, v, h, w, device):
@@ -176,12 +171,15 @@ def _jittered_hypo(depth_values, D, h, w, gen):
 
 
 def check_kernels(dev, batch):
-    """K1 and K2 against their plain versions at the eval forward's shapes,
-    in float32 and bf16; times in bf16 (the forward's dtype)."""
+    """K1, K2 and K5 against their plain versions at the eval forward's
+    shapes, in float32 and bf16; times in bf16 (the forward's dtype)."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
         relative_projection,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        attn_fuse as k5,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
@@ -212,6 +210,21 @@ def check_kernels(dev, batch):
                     k1.TOLERANCE[dtype] * _scale(want), V - 1,
                     lambda: k1.warp_cor(*args), lambda: k1.warp_cor_ref(*args),
                     nbytes, B * D * h * w * (28 + 9 * C + G), FP32_FLOPS)
+            # K5 at each stage: the V-1 volumes of the stage's (D, G), the
+            # 1/sqrt(C) of its features; one launch per forward
+            cors = (torch.randn((V - 1, B, D, h, w, G), generator=gen, device=dev) * 0.5).to(dtype)
+            args5 = (cors, cfg.attn_temp, C)
+            got, want = k5.attn_fuse(*args5), k5.attn_fuse_ref(*args5)
+            torch.cuda.synchronize()
+            # the volumes read once and the fused volume written once; per
+            # (view, pixel, d) G adds for the group sum, ~8 for the softmax
+            # and the weights, 2G for the accumulation; G divides at the end
+            nbytes = (cors.numel() + got.numel()) * cors.element_size()
+            ops = (V - 1) * B * D * h * w * (3 * G + 8) + B * D * h * w * G
+            _record(rows, "attn_fuse", "eval", [V - 1, B, D, h, w, G], dtype, _max_err(got, want),
+                    k5.TOLERANCE[dtype] * _scale(want), 1,
+                    lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
+                    nbytes, ops, FP32_FLOPS)
         # K2 at each top-down level: (Cs, Co) = (32,32), (16,16), (8,8)
         N = B * V
         for lvl, (cs, co) in enumerate(((32, 32), (16, 16), (8, 8))):
@@ -298,15 +311,76 @@ def check_warp_bwd(dev, batch):
     return rows, library_diff
 
 
+def check_warp_fwd(dev, batch):
+    """K4 against ``warp_fwd_ref`` at the train step's four stages (B=6,
+    the stage's C and D, 4 source views each), in float32 and bf16; in bf16
+    the times of the kernel, the plain version and the library yardstick
+    ``F.grid_sample`` (bilinear, zeros, align_corners; the source permuted
+    to NCHW and the grid normalised beforehand, the D planes stacked as
+    rows). The yardstick runs in float32, as K3's does: grid_sample takes
+    its grid in the input's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
+        relative_projection,
+        warp_coords,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        warp_fwd as k4,
+    )
+
+    cfg = _dtu_model_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows, library_diff = [], {}
+    Bt = TRAIN_B
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in range(4):
+            h, w = H >> (3 - s), W >> (3 - s)
+            C, D = cfg.fpn_out_channels[s], cfg.ndepths[s]
+            projs = batch["proj_matrices"][f"stage{s + 1}"]
+            rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+            hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
+            src = torch.randn((Bt, h, w, C), generator=gen, device=dev).to(dtype)
+            got, want = k4.warp_fwd(src, rel, hypo), k4.warp_fwd_ref(src, rel, hypo)
+            torch.cuda.synchronize()
+            run_library = None
+            if dtype == torch.bfloat16:
+                xy = warp_coords(rel, hypo).reshape(Bt, D * h, w, 2)
+                grid = torch.stack([xy[..., 0] * (2.0 / (w - 1)) - 1.0,
+                                    xy[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
+                nchw = src.float().permute(0, 3, 1, 2).contiguous()
+
+                def run_library(nchw=nchw, grid=grid):
+                    return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=True)
+
+                lib = run_library().reshape(Bt, C, D, h, w).permute(0, 2, 3, 4, 1)
+                library_diff[f"stage{s + 1}"] = _max_err(lib, want)
+            # the source, hypotheses and projection read once, the warped
+            # volume written once; per output element 4 products and 3 sums,
+            # per pixel the coordinates (~28 operations, as K1's)
+            nbytes = src.numel() * src.element_size() + hypo.numel() * 4 + rel.numel() * 4 \
+                + got.numel() * got.element_size()
+            _record(rows, "warp_fwd", "train", [Bt, D, h, w, C], dtype, _max_err(got, want),
+                    k4.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
+                    lambda a=(src, rel, hypo): k4.warp_fwd(*a),
+                    lambda a=(src, rel, hypo): k4.warp_fwd_ref(*a),
+                    nbytes, Bt * D * h * w * (28 + 7 * C), FP32_FLOPS, run_library)
+    return rows, library_diff
+
+
 def check_small_forward_against_cpu(dev):
     """The card's float32 forward against the CPU's plain forward, same
     weights, on a 64x128 scene: attention within 1e-3 and depth equal at
     >= 99% of pixels per stage (argmax near-ties may flip)."""
     import torch
 
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+
     cfg = _dtu_model_config("float32")
-    cpu_model = _make_model(cfg, "cpu", SEED + 1)
-    gpu_model = _make_model(cfg, dev, SEED + 1)
+    cpu_model = checks.seeded_model(cfg, SEED + 1, "cpu")
+    gpu_model = checks.seeded_model(cfg, SEED + 1, dev)
     b_cpu, b_gpu = _scene(1, 3, 64, 128, "cpu"), _scene(1, 3, 64, 128, dev)
     with torch.inference_mode():
         want = cpu_model(b_cpu["imgs"], b_cpu["proj_matrices"], b_cpu["depth_values"])
@@ -412,8 +486,8 @@ def drive_train(dev, batch, counters):
         mod.launches = 0
     losses = [step(batch)["loss"].item()]            # the main path, counted
     counts = {name: mod.launches for name, mod in counters.items()}
-    if counts != {"warp_cor": 0, "topdown": 6, "warp_bwd": 16}:
-        raise AssertionError(f"launches per train step {counts}, want K1 0, K2 6, K3 16")
+    if counts != TRAIN_LAUNCHES:
+        raise AssertionError(f"launches per train step {counts}, want {TRAIN_LAUNCHES}")
     for name, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise AssertionError(f"{name}: gradient missing or not finite")
@@ -436,8 +510,7 @@ def drive_train(dev, batch, counters):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = sorted(round_ms)[rounds // 2]
     prof = profile_run(lambda: step(batch), {
-        "warp_bwd": ("warp_bwd_kernel",), "topdown": ("topdown_kernel",),
-        "warp_cor": ("warp_cor_kernel",), "conv_library": CONV_LIBRARY})
+        **{name: (f"{name}_kernel",) for name in KERNELS}, "conv_library": CONV_LIBRARY})
     train = {
         "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
@@ -447,6 +520,60 @@ def drive_train(dev, batch, counters):
     return train, prof, counts
 
 
+def drive_pipeline(dev, counters):
+    """The eval CLI's path at full width (``checks.run_pipeline``): the
+    scripts/eval_dtu.sh model in float32 (weights and BatchNorm statistics
+    from ``PIPELINE_SEED``), B=1, a SyntheticEvalDataset of 4 views at
+    512x640 with 192 hypotheses; depth maps of every reference view, each
+    filtered against its 3 sources (photomask 0.3, geomask 2, condmask 1.0 /
+    0.01), the fused PLY written to ``PIPELINE_PLY``. One warm-up run, then the counted run.
+    Then the same pipeline at 64x128 on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
+        SyntheticEvalDataset,
+    )
+
+    model = checks.seeded_model(checks.eval_dtu_config(), PIPELINE_SEED, dev)
+    ds = SyntheticEvalDataset(V=PIPELINE_V, H=H, W=W)
+    checks.run_pipeline(model, ds, dev)              # warm-up
+    os.makedirs(os.path.dirname(PIPELINE_PLY), exist_ok=True)
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    run = checks.run_pipeline(model, ds, dev, ply_path=PIPELINE_PLY)   # counted
+    counts = {name: mod.launches for name, mod in counters.items()}
+    per_view = {name: n / len(ds) for name, n in counts.items()}
+    if per_view != PIPELINE_LAUNCHES_PER_VIEW:
+        raise AssertionError(f"pipeline launches per view {per_view}, "
+                             f"want {PIPELINE_LAUNCHES_PER_VIEW}")
+    n_points = len(run["points"])
+    if n_points == 0 or not np.isfinite(run["points"]).all():
+        raise AssertionError(f"fused cloud of {n_points} points, or not finite")
+    if os.path.getsize(PIPELINE_PLY) < 15 * n_points:
+        raise AssertionError(f"{PIPELINE_PLY}: {os.path.getsize(PIPELINE_PLY)} bytes")
+    for v, d in run["depths"].items():
+        if d.shape != (H, W) or not np.isfinite(d).all():
+            raise AssertionError(f"view {v}: depth {d.shape} not finite/shaped")
+    prof = profile_run(lambda: checks.run_pipeline(model, ds, dev), {
+        **{name: (f"{name}_kernel",) for name in KERNELS}, "conv_library": CONV_LIBRARY})
+    print(json.dumps({"pipeline_profile": prof}))
+    return {
+        "B": 1, "V": PIPELINE_V, "H": H, "W": W, "dtype": "float32", "hypotheses": 192,
+        "ms_per_view_forward": float(np.median(run["forward_s"])) * 1e3,
+        "ms_per_view_forward_all": [x * 1e3 for x in run["forward_s"]],
+        "ms_per_view_filter": float(np.median(run["filter_s"])) * 1e3,
+        "ms_per_view_filter_all": [x * 1e3 for x in run["filter_s"]],
+        "launches_per_view": per_view, "fused_points": n_points,
+        "points_per_view": run["point_counts"],
+        "final_mask_share": float(np.mean([m.mean() for m in run["final_masks"].values()])),
+        "ply": PIPELINE_PLY, "ply_bytes": os.path.getsize(PIPELINE_PLY),
+        "small_vs_cpu_float32": checks.check_pipeline(dev),
+    }, counts
+
+
 def main() -> int:
     import torch
 
@@ -454,7 +581,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to measure", file=sys.stderr)
         return 1
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import setup_device
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        attn_fuse as k5,
+    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
     )
@@ -464,11 +595,14 @@ def main() -> int:
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         warp_cor as k1,
     )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        warp_fwd as k4,
+    )
 
-    counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3}
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
+    counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3, "warp_fwd": k4, "attn_fuse": k5}
+    # the eval CLI's device setup (TF32 off), so that every phase runs at
+    # the precision a user of the port gets
+    dev = setup_device()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -491,12 +625,14 @@ def main() -> int:
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch)
-    k3_rows, library_diff = check_warp_bwd(dev, train_batch)
-    rows += k3_rows
+    k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
+    k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
+    rows += k3_rows + k4_rows
     print(json.dumps({"kernel_shapes": rows,
-                      "warp_bwd_library_max_abs_diff": library_diff}))
+                      "warp_bwd_library_max_abs_diff": bwd_library_diff,
+                      "warp_fwd_library_max_abs_diff": fwd_library_diff}))
 
-    model = _make_model(_dtu_model_config(), dev, SEED)
+    model = checks.seeded_model(_dtu_model_config(), SEED, dev)
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     with torch.inference_mode():
         model(*args)                      # warm-up
@@ -506,8 +642,8 @@ def main() -> int:
         out = model(*args)                # the main path, counted
         torch.cuda.synchronize()
         counts = {name: mod.launches for name, mod in counters.items()}
-        if counts != {"warp_cor": 12, "topdown": 3, "warp_bwd": 0}:
-            raise AssertionError(f"launches per forward {counts}, want K1 12, K2 3, K3 0")
+        if counts != EVAL_LAUNCHES:
+            raise AssertionError(f"launches per forward {counts}, want {EVAL_LAUNCHES}")
         depth = out["stage4"]["depth"]
         conf = out["stage4"]["photometric_confidence"]
         if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
@@ -520,17 +656,17 @@ def main() -> int:
         # three rounds of five timed forwards: the median round is the
         # reading, the three show the spread within this call
         reps, rounds = 5, 3
-        k1.launches = 0
-        k2.launches = 0
+        for mod in counters.values():
+            mod.launches = 0
         round_ms = [_time_ms(lambda: model(*args), reps) for _ in range(rounds)]
         fwd_ms = sorted(round_ms)[rounds // 2]
         calls = rounds * (reps + 1)
-        if (k1.launches, k2.launches) != (12 * calls, 3 * calls):
-            raise AssertionError(f"timed forwards launched {k1.launches}, {k2.launches}")
+        timed_counts = {name: mod.launches for name, mod in counters.items()}
+        if timed_counts != {name: n * calls for name, n in EVAL_LAUNCHES.items()}:
+            raise AssertionError(f"timed forwards launched {timed_counts}")
         torch.cuda.reset_peak_memory_stats()
         profile = profile_run(lambda: model(*args), {
-            "warp_cor": ("warp_cor_kernel",), "topdown": ("topdown_kernel",),
-            "conv_library": CONV_LIBRARY})
+            **{name: (f"{name}_kernel",) for name in KERNELS}, "conv_library": CONV_LIBRARY})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"profile": profile}))
     small = check_small_forward_against_cpu(dev)
@@ -552,15 +688,22 @@ def main() -> int:
     train, train_profile, train_counts = drive_train(dev, train_batch, counters)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))
+    del train_batch
+    torch.cuda.empty_cache()
+    pipeline, pipeline_counts = drive_pipeline(dev, counters)
+    print(json.dumps({"pipeline": pipeline}))
 
     kernels = []
-    for name, route, src, replaces, path in (
-        ("warp_cor", "cuda", f"{PKG}/csrc/warp_cor.cu",
-         f"{JAX_PKG_OPS}/warp_fwd_v3.py:438", "eval"),
-        ("topdown", "cuda", f"{PKG}/csrc/topdown.cu",
-         f"{JAX_PKG_OPS}/topdown_fused.py:317", "eval"),
-        ("warp_bwd", "cuda", f"{PKG}/csrc/warp_bwd.cu",
-         f"{JAX_PKG_OPS}/warp_xband_bwd.py:410", "train"),
+    for name, src, replaces, also_serves, path in (
+        ("warp_cor", "csrc/warp_cor.cu", "warp_fwd_v3.py:438",
+         ["warp_fwd_v3.py:522 (with ref, via warp_mxu.warp_cor_v3)"], "eval"),
+        ("topdown", "csrc/topdown.cu", "topdown_fused.py:317",
+         ["topdown_fused.py:727 (topdown_fused_level mode v2)"], "eval"),
+        ("warp_bwd", "csrc/warp_bwd.cu", "warp_xband_bwd.py:410",
+         ["warp_xband_bwd.py:467 (modes v1-v4)"], "train"),
+        ("warp_fwd", "csrc/warp_fwd.cu", "warp_fwd_v3.py:522 (no ref, via warp_mxu._warp_v3)",
+         ["warp_xband_kernel.py:111", "warp_kernel.py:83"], "train"),
+        ("attn_fuse", "csrc/attn_fuse.cu", "attn_fuse.py:98", [], "eval"),
     ):
         mine = [r for r in rows if r["kernel"] == name]
         timed = [r for r in mine if "kernel_ms" in r]
@@ -571,9 +714,12 @@ def main() -> int:
         peak = BF16_TENSOR_FLOPS if name == "topdown" else FP32_FLOPS
         by_ops = per_run["ops"] / peak * 1e3
         kernels.append({
-            "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[name] + train_counts[name],
+            "name": name, "route": "cuda", "source": f"{PKG}/{src}",
+            "replaces": f"{JAX_PKG_OPS}/{replaces}",
+            "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
+            "launches": counts[name] + train_counts[name] + pipeline_counts[name],
             "launches_eval": counts[name], "launches_train": train_counts[name],
+            "launches_pipeline": pipeline_counts[name],
             "timed_per": "eval forward" if path == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
             "ms": per_run["kernel_ms"], "plain_ms": per_run["plain_ms"],

@@ -1,4 +1,4 @@
-"""Checks of the train path through the kernels against the plain versions.
+"""Checks of the port's paths through the kernels against the plain versions.
 
 ``chip_smoke.py`` and the card tests (``tests/test_torch_port_cuda.py``)
 both call these, so that each tolerance is stated once. Every check raises
@@ -9,6 +9,9 @@ both call these, so that each tolerance is stated once. Every check raises
   the plain chain.
 - ``check_train_step``: one float32 train step on a device against the
   same step on the CPU, where every kernel wrapper takes its plain version.
+- ``check_pipeline``: the eval pipeline (depth maps of every view, the
+  consistency filter, the fused point cloud; ``run_pipeline``) on a device
+  against the same pipeline on the CPU.
 
 Why the train-step comparison pins two things. The float32 gradient of
 this network is ill-conditioned in two places, on any device: moving every
@@ -36,12 +39,15 @@ limit that a lost, doubled or sign-flipped gradient breaks.
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, Optional
 from unittest import mock
 
+import numpy as np
 import torch
 
-from .config import LossConfig, ModelConfig
+from .config import LossConfig, ModelConfig, setup_device
+from .eval.fusion import FusionConfig
 from .ops.kernels.topdown import topdown_level_ref
 from .ops.topdown_chain import TopDownChain
 
@@ -277,7 +283,9 @@ def compare_train_step(cpu: Dict, dev: Dict, what: str = "device") -> Dict[str, 
 def check_train_step(device, seed: int = 3) -> Dict[str, object]:
     """One float32 train step of ``small_step_model(seed)`` on
     ``small_step_batch`` on ``device``, pinned to the same step on the CPU
-    and held to it by ``compare_train_step``."""
+    and held to it by ``compare_train_step``; ``device`` is set up by
+    ``config.setup_device`` (TF32 off)."""
+    device = setup_device(device)
     cpu = train_step_grads(small_step_model(seed), small_step_batch("cpu"))
     dev = train_step_grads(small_step_model(seed).to(device), small_step_batch(device),
                            pin=cpu["seen"])
@@ -302,6 +310,131 @@ def rounding_noise(seed: int, perturb: float, perturb_seed: int) -> Dict[str, ob
                 for a, b in zip(cpu["seen"]["cuts"][:4], run["seen"]["cuts"][:4])]
         row[name] = {g: max(v.values()) for g, v in train_step_gaps(cpu, run).items()}
     return row
+
+
+# ----------------------------------------------------- the eval pipeline --
+
+# the filter settings of scripts/eval_dtu.sh
+EVAL_DTU_FUSION = FusionConfig(photomask=0.3, geomask=2, condmask_pixel=1.0,
+                               condmask_depth=0.01)
+
+# device against CPU, float32: argmax near-ties may flip a pixel's depth and
+# with it the masks and points around it, never more than a percent of them
+PIPELINE_DEPTH_AGREEMENT = 0.99
+PIPELINE_MASK_AGREEMENT = 0.99
+PIPELINE_POINTS_RTOL = 0.01
+
+# the card-against-CPU pipeline: its weight seed, view count and size
+PIPELINE_CHECK_SEED = 7
+PIPELINE_CHECK_VIEWS = 4
+PIPELINE_CHECK_HW = (64, 128)
+
+
+def eval_dtu_config(dtype: str = "float32") -> ModelConfig:
+    """The model of scripts/eval_dtu.sh: group correlation (8,8,4,4),
+    ndepths 8,8,4,4, inverse depth, attn_temp 2, no mono."""
+    return ModelConfig(group_cor=True, group_cor_dim=(8, 8, 4, 4), ndepths=(8, 8, 4, 4),
+                       depth_inter_r=(0.5, 0.5, 0.5, 1.0), inverse_depth=True, attn_temp=2.0,
+                       dtype=dtype)
+
+
+def seeded_model(cfg: ModelConfig, seed: int, device):
+    """``MVS4Net(cfg)`` with weights drawn from ``seed`` and its BatchNorm
+    affine parameters and running statistics drawn away from identity (as
+    a trained network's are), built on the CPU and moved to ``device``."""
+    from .models import MVS4Net
+    from .models.layers import TorchBatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    model = MVS4Net(cfg, device="cpu", generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TorchBatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+    return model.to(device)
+
+
+def run_pipeline(model, dataset, device, cfg: FusionConfig = EVAL_DTU_FUSION,
+                 nview_filter: int = 4, ply_path: Optional[str] = None) -> Dict[str, object]:
+    """The eval CLI's path without its image files: the depth maps of every
+    reference view of ``dataset`` (``eval/depthgen.run_forward``, one view
+    per batch), then the filter's work for each view (``eval/scene_filter.
+    fuse_view``, as ``filter_scene`` runs it) against the first
+    ``nview_filter - 1`` source views of its entry in ``dataset.pairs``, all
+    on ``device``; with ``ply_path`` the cloud is written there
+    (``write_ply``). Returns the per-view depths, final masks and point
+    counts, the fused points, and the host seconds per view of the forward
+    and of the filter (each ending in results on the host)."""
+    from .data.loader import collate
+    from .eval.depthgen import make_eval_forward, run_forward
+    from .eval.ply import write_ply
+    from .eval.scene_filter import fuse_view
+
+    forward = make_eval_forward(model)
+    depths, confs, cams, images, fwd_s = {}, {}, {}, {}, []
+    for i, (v, _) in enumerate(dataset.pairs):
+        sample = dataset[i]
+        out, seconds, _ = run_forward(forward, collate([sample]), device)
+        fwd_s.append(seconds)
+        depths[v], confs[v] = out["depth"][0], out["confidence"][0]
+        ref_cam = sample["proj_matrices"]["stage4"][0]
+        cams[v] = (ref_cam[1, :3, :3], ref_cam[0])
+        images[v] = sample["imgs"][0]
+    masks, counts, xyzs, rgbs, filt_s = {}, {}, [], [], []
+    for v, srcs in dataset.pairs:
+        t0 = time.perf_counter()
+        res = fuse_view(v, srcs[: nview_filter - 1], depths, confs, cams, images, cfg,
+                        device=device)
+        filt_s.append(time.perf_counter() - t0)
+        masks[v], counts[v] = res["final_mask"], len(res["xyz"])
+        xyzs.append(res["xyz"])
+        rgbs.append(res["rgb"])
+    points = np.concatenate(xyzs)
+    if ply_path is not None:
+        write_ply(ply_path, points, np.concatenate(rgbs))
+    return {"depths": depths, "final_masks": masks, "point_counts": counts, "points": points,
+            "forward_s": fwd_s, "filter_s": filt_s}
+
+
+def compare_pipelines(cpu: Dict, dev: Dict, what: str = "device") -> Dict[str, object]:
+    """Hold run ``dev`` of ``run_pipeline`` to run ``cpu``: per view, the
+    depth equal (rtol 1e-5) at ``PIPELINE_DEPTH_AGREEMENT`` of the pixels
+    and the final mask at ``PIPELINE_MASK_AGREEMENT``; the fused point count
+    within ``PIPELINE_POINTS_RTOL``."""
+    worst_depth = worst_mask = 1.0
+    for v, want in cpu["depths"].items():
+        same = np.isclose(dev["depths"][v], want, rtol=1e-5, atol=0).mean()
+        agree = (dev["final_masks"][v] == cpu["final_masks"][v]).mean()
+        worst_depth, worst_mask = min(worst_depth, same), min(worst_mask, agree)
+        if same < PIPELINE_DEPTH_AGREEMENT or agree < PIPELINE_MASK_AGREEMENT:
+            raise AssertionError(f"pipeline view {v} on {what}: depth agreement {same}, "
+                                 f"final-mask agreement {agree}")
+    n_cpu, n_dev = len(cpu["points"]), len(dev["points"])
+    if abs(n_dev - n_cpu) > PIPELINE_POINTS_RTOL * n_cpu:
+        raise AssertionError(f"pipeline on {what}: {n_dev} fused points, cpu {n_cpu}")
+    return {"depth_agreement_min": float(worst_depth), "final_mask_agreement_min":
+            float(worst_mask), "points_device": n_dev, "points_cpu": n_cpu}
+
+
+def check_pipeline(device) -> Dict[str, object]:
+    """``run_pipeline`` of the scripts/eval_dtu.sh model (float32, weights
+    from ``PIPELINE_CHECK_SEED``) on a ``SyntheticEvalDataset`` of
+    ``PIPELINE_CHECK_VIEWS`` views at ``PIPELINE_CHECK_HW``, on ``device``
+    (set up as the eval CLI sets it up, ``config.setup_device``) against the
+    CPU, held by ``compare_pipelines``."""
+    from .data.synthetic import SyntheticEvalDataset
+
+    device = setup_device(device)
+    ds = SyntheticEvalDataset(V=PIPELINE_CHECK_VIEWS, H=PIPELINE_CHECK_HW[0],
+                              W=PIPELINE_CHECK_HW[1])
+    cfg = eval_dtu_config()
+    cpu = run_pipeline(seeded_model(cfg, PIPELINE_CHECK_SEED, "cpu"), ds, "cpu")
+    dev = run_pipeline(seeded_model(cfg, PIPELINE_CHECK_SEED, device), ds, device)
+    return compare_pipelines(cpu, dev, str(device))
 
 
 def main() -> None:

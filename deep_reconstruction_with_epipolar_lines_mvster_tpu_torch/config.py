@@ -16,6 +16,25 @@ and its plain PyTorch version.
 
 ``remat`` (activation checkpointing) is among them: the DTU recipe trains
 with ``--no_remat``, and the port keeps every activation.
+
+What the functions these flags name run as on the card, whatever the flags
+say (on the CPU, each kernel's plain PyTorch version):
+
+- ``fused_topdown`` / ``fused_topdown_chain``: the FPN top-down levels are
+  kernel K2 (``csrc/topdown.cu``), in training also in the chain's
+  backward;
+- ``fuse_warp_cor`` / ``kernel_coords`` / ``warp_impl``: the eval warp +
+  group correlation is K1 (``csrc/warp_cor.cu``, coordinates in-kernel);
+  the plain warp forward, of the train path and of the eval
+  squared-difference branch, is K4 (``csrc/warp_fwd.cu``); the warp's
+  backward is K3 (``csrc/warp_bwd.cu``); every one an exact gather, so
+  ``warp_band``, ``warp_xband`` and the tile sizes bound nothing;
+- ``fuse_attn``: the eval attention accumulation with ``attn_fuse_d`` and
+  group correlation is K5 (``csrc/attn_fuse.cu``); the train path and the
+  ``attn_fuse_d=False`` form stay PyTorch, as the JAX kernel covers
+  neither;
+- ``pack_conv``, ``cw_stage_features``, ``d_pack_mids``: layouts only; the
+  convolutions are cuDNN's.
 """
 
 from __future__ import annotations
@@ -102,4 +121,17 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU"
         )
+    return dev
+
+
+def setup_device(device=None) -> torch.device:
+    """What an entry point calls before it builds a model: the device of
+    ``resolve_device(device)`` and the port's precision policy, which turns
+    TF32 off for cuDNN convolutions and for matmuls (PyTorch lets cuDNN
+    convolutions run in TF32 by default), so that a float32 configuration
+    computes in float32 on the card as on the CPU. bf16 work is not
+    affected. The flags are process-wide."""
+    dev = resolve_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return dev

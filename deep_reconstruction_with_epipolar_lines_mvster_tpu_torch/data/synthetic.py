@@ -106,6 +106,45 @@ def make_plane_scene(
     }
 
 
+class SyntheticEvalDataset:
+    """Eval-style dataset over the plane scene: one sample per reference view
+    (each view takes a turn as ref), mirroring the unified eval loader's
+    sample spec incl. the ``filename`` routing template and 192 uniform
+    depth hypotheses (dataloader_eval.py:275,304-307). ``pairs`` lists
+    ``(ref_view, src_views)`` per sample, as a pair file does: the other
+    views in order."""
+
+    NDEPTHS = 192
+
+    def __init__(self, V: int = 3, H: int = 64, W: int = 64, scan: str = "scan1",
+                 **scene_kwargs):
+        self.scene = make_plane_scene(V=V, H=H, W=W, **scene_kwargs)
+        self.V = V
+        self.scan = scan
+        self.pairs = [(v, [s for s in range(V) if s != v]) for v in range(V)]
+
+    def __len__(self):
+        return self.V
+
+    def __getitem__(self, idx: int) -> Dict:
+        sc = self.scene
+        ref, srcs = self.pairs[idx]
+        order = [ref] + srcs
+        imgs = sc["imgs"][order]
+        projs = {k: v[order] for k, v in sc["proj_matrices"].items()}
+        dmin, dmax = sc["depth_values"]
+        itv = (dmax - dmin) / self.NDEPTHS
+        depth_values = np.arange(
+            dmin, itv * (self.NDEPTHS - 0.5) + dmin, itv, dtype=np.float32
+        )
+        return {
+            "imgs": imgs.astype(np.float32),
+            "proj_matrices": projs,
+            "depth_values": depth_values,
+            "filename": self.scan + "/{}/" + f"{idx:0>8}" + "{}",
+        }
+
+
 def batch_samples(samples) -> Dict:
     """Stack sample dicts (nested dicts of arrays) along a new leading
     batch axis."""

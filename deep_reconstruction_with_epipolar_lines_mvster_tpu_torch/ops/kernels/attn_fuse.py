@@ -1,0 +1,99 @@
+"""K5: the cross-view attention accumulation of the eval forward
+(``csrc/attn_fuse.cu``).
+
+``attn_fuse`` launches the CUDA kernel on a CUDA tensor and uses the plain
+PyTorch version ``attn_fuse_ref`` only for a tensor on the CPU. ``launches``
+counts the kernel's launches. It has no backward, as the JAX kernel has no
+VJP: the train path keeps the autograd-tracked PyTorch attention
+(``ops/warp_cor.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+
+launches = 0
+
+# Kernel against plain version, relative to max(1, max|plain|): the same
+# float32 operations in the same order, except the group sum (the plain
+# version's reduction may pair its terms differently) and the exponential
+# (CUDA's expf against PyTorch's), each a few float32 ulps that the
+# normalised weights carry into the output; in bf16 both round one float32
+# result, which may then land one bf16 ulp (2^-7 relative at most) apart.
+TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+# the (D, G) that the register kernel is instantiated for (csrc/attn_fuse.cu
+# in_registers); any other takes the workspace kernel
+_REGISTER_DEPTHS = (2, 4, 8)
+_REGISTER_GROUPS = (1, 2, 4, 8)
+
+
+def attn_fuse_ref(cors, attn_temp: float, channels: int) -> torch.Tensor:
+    """Plain PyTorch version: ``cors [S,B,D,H,W,G]`` (one group-correlation
+    volume per source view) -> ``[B,D,H,W,G]`` in their dtype, float32
+    arithmetic: per view ``w = softmax_D(sum_G cor / attn_temp) /
+    sqrt(channels)``, then ``sum_v w·cor / (1e-8 + sum_v w)``."""
+    acc = 0.0
+    norm = 1e-8
+    for cor in cors:
+        cor = cor.float()
+        w = torch.softmax(cor.sum(dim=-1) / attn_temp, dim=1) / math.sqrt(channels)
+        w = w.unsqueeze(-1)
+        acc = acc + w * cor
+        norm = norm + w
+    return (acc / norm).to(cors.dtype)
+
+
+def _lib():
+    lib = _build.load("attn_fuse")
+    fn = lib.attn_fuse_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
+    """``cors [S,B,D,H,W,G]`` f32/bf16 -> ``[B,D,H,W,G]`` in the same dtype,
+    float32 inside, for any D and G. Same function as JAX
+    ``attn_fuse_native`` (on its native ``[B,D,T,TR,G,W]`` layout) and as
+    the XLA chain of ``epipolar_aggregate(attn_fuse_d=True)``. The stages'
+    (D, G) run in registers; any other (D, G) through a float32 workspace
+    allocated here (``csrc/attn_fuse.cu``), with the same result."""
+    if cors.device.type == "cpu":
+        return attn_fuse_ref(cors, attn_temp, channels)
+    if cors.device.type != "cuda":
+        raise ValueError(f"attn_fuse: unsupported device {cors.device}")
+    _build.refuse_autograd("attn_fuse", cors)
+    if cors.dim() != 6:
+        raise ValueError(f"attn_fuse: cors {tuple(cors.shape)} is not [S,B,D,H,W,G]")
+    S, B, D, H, W, G = cors.shape
+    if not cors.is_contiguous():
+        raise ValueError("attn_fuse: cors is not contiguous")
+    if cors.dtype not in _DTYPES:
+        raise ValueError(f"attn_fuse: dtype {cors.dtype} not supported")
+    if min(S, B, D, G) < 1:
+        raise ValueError(f"attn_fuse: S={S}, B={B}, D={D}, G={G} not supported")
+    if H * W >= 2 ** 31 or cors.data_ptr() % 16:
+        raise ValueError("attn_fuse: plane too large or cors not 16-byte aligned")
+    out = torch.empty((B, D, H, W, G), dtype=cors.dtype, device=cors.device)
+    acc = norm = None
+    if D not in _REGISTER_DEPTHS or G not in _REGISTER_GROUPS:
+        acc = torch.empty((B, D, H, W, G), dtype=torch.float32, device=cors.device)
+        norm = torch.empty((B, D, H, W), dtype=torch.float32, device=cors.device)
+    status = _lib()(
+        cors.data_ptr(), out.data_ptr(), None if acc is None else acc.data_ptr(),
+        None if norm is None else norm.data_ptr(), S, B, D, H * W, G,
+        float(attn_temp), math.sqrt(channels), int(cors.dtype == torch.bfloat16),
+        torch.cuda.current_stream(cors.device).cuda_stream,
+    )
+    _build.check(status, "attn_fuse")
+    global launches
+    launches += 1
+    return out

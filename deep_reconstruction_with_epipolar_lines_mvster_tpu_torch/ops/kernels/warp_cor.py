@@ -53,13 +53,16 @@ def _lib():
     return fn
 
 
-def warp_cor(src, ref, rel_proj, hypo, groups: int) -> torch.Tensor:
+def warp_cor(src, ref, rel_proj, hypo, groups: int, out=None) -> torch.Tensor:
     """``(src [B,Hs,Ws,C], ref [B,H,W,C], rel_proj [B,4,4] f32,
     hypo [B,D,H,W] f32, groups) -> [B,D,H,W,G]`` in the dtype of ``src``,
     float32 accumulation. Same function as JAX
-    ``correlate_view(impl="gather", group_cor=True)``."""
+    ``correlate_view(impl="gather", group_cor=True)``. ``out``, a contiguous
+    ``[B,D,H,W,G]`` tensor of that dtype (a view's slot of a larger buffer),
+    receives the result in place of a new tensor."""
     if src.device.type == "cpu":
-        return warp_cor_ref(src, ref, rel_proj, hypo, groups)
+        got = warp_cor_ref(src, ref, rel_proj, hypo, groups)
+        return got if out is None else out.copy_(got)
     if src.device.type != "cuda":
         raise ValueError(f"warp_cor: unsupported device {src.device}")
     _build.refuse_autograd("warp_cor", src, ref, rel_proj, hypo)
@@ -85,7 +88,12 @@ def warp_cor(src, ref, rel_proj, hypo, groups: int) -> torch.Tensor:
         raise ValueError(f"warp_cor: C={C}, groups={groups} not supported")
     if src.data_ptr() % 16 or ref.data_ptr() % 16:
         raise ValueError("warp_cor: src and ref must be 16-byte aligned")
-    out = torch.empty((B, D, H, W, groups), dtype=src.dtype, device=src.device)
+    if out is None:
+        out = torch.empty((B, D, H, W, groups), dtype=src.dtype, device=src.device)
+    elif (tuple(out.shape) != (B, D, H, W, groups) or out.dtype != src.dtype
+          or out.device != src.device or not out.is_contiguous()):
+        raise ValueError(f"warp_cor: out {tuple(out.shape)} {out.dtype} is not a "
+                         f"contiguous [B,D,H,W,G] {src.dtype} tensor on {src.device}")
     status = _lib()(
         src.data_ptr(), ref.data_ptr(), rel_proj.data_ptr(), hypo.data_ptr(),
         out.data_ptr(), B, D, H, W, Hs, Ws, C, groups,

@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``ops/warp_mxu.py:_warp_hybrid_ik``
 (``homo_warp_mxu(..., hybrid=True)`` with the in-kernel-coordinates
 backward): ``WarpIK.apply(src, rel_proj, hypo) -> [B, D, H, W, C]``.
 
-- Forward: the exact bilinear gather (``core.geometry.grid_sample_2d`` at
-  ``warp_coords``) under ``no_grad``. The JAX forward is an XLA scan, not a
-  Pallas kernel, so plain PyTorch is its counterpart.
+- Forward: ``K4(src, rel_proj, hypo)`` (``ops/kernels/warp_fwd.py``), the
+  exact bilinear gather in float32, run with grad mode off as every
+  Function's forward is.
 - Saved for backward: only ``(src, rel_proj, hypo)``, as the JAX
   ``_warp_hybrid_ik_fwd`` saves; the coordinates are recomputed.
 - Backward: ``dsrc = K3(g, rel_proj, hypo)`` (``ops/kernels/warp_bwd.py``),
@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.geometry import grid_sample_2d, warp_coords
 from .kernels.warp_bwd import warp_bwd
+from .kernels.warp_fwd import warp_fwd
 
 
 class WarpIK(torch.autograd.Function):
@@ -28,7 +28,7 @@ class WarpIK(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, rel_proj, hypo):
         ctx.save_for_backward(src, rel_proj, hypo)
-        return grid_sample_2d(src, warp_coords(rel_proj, hypo))
+        return warp_fwd(src, rel_proj, hypo)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the train path through them: the chain backward against autograd of the
-plain chain, a small train step against the CPU's, and the rule that a
-kernel meets autograd only through its ``autograd.Function``.
+and the paths through them: the chain backward against autograd of the
+plain chain, a small train step and the eval pipeline against the CPU's,
+and the rule that a kernel meets autograd only through its
+``autograd.Function``.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither JAX nor the JAX package, so that it runs on a
@@ -18,12 +19,17 @@ import pytest
 import torch
 
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli import test as cli
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import setup_device
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
     relative_projection,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
     batch_samples,
     make_plane_scene,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    attn_fuse as k5,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     topdown as k2,
@@ -34,6 +40,12 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     warp_cor as k1,
 )
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    warp_fwd as k4,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.warp_cor import (
+    epipolar_aggregate,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,9 +54,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    return setup_device("cuda")
 
 
 def _close(got, want, tol):
@@ -120,6 +130,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         k2.topdown_level(intra, skip, torch.zeros((64, 8, 1, 1), device=dev),
                          torch.zeros(64, device=dev), torch.zeros((8, 64, 3, 3), device=dev))
+    with pytest.raises(ValueError, match="not supported"):
+        k4.warp_fwd(src, rel, hypo)                               # C = 12
+    with pytest.raises(ValueError, match="not supported"):
+        k5.attn_fuse(torch.zeros((3, 1, 3, 8, 8, 4), device=dev, dtype=torch.float16), 2.0, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.warp_cor(torch.zeros((1, 8, 8, 8), device=dev), torch.zeros((1, 8, 8, 8), device=dev),
+                    rel, hypo, 4, out=torch.zeros((1, 2, 8, 4, 8), device=dev).transpose(3, 4))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -148,6 +165,101 @@ def test_warp_bwd_kernel_matches_plain(dev, dtype, C, src_hw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,src_hw", [(8, None), (16, None), (32, None), (64, None), (8, (20, 28))])
+def test_warp_fwd_kernel_matches_plain(dev, dtype, C, src_hw):
+    """K4 against ``warp_fwd_ref`` on the card (tolerance: ``TOLERANCE`` of
+    the kernel module), on the four stages' widths and on a source smaller
+    than the reference, so that the sweep leaves the image."""
+    B, H, W, D = 2, 48, 64, 4
+    rng = np.random.default_rng(C + 1)
+    batch = batch_samples([make_plane_scene(V=2, H=H, W=W, seed=i) for i in range(B)])
+    pr = torch.from_numpy(batch["proj_matrices"]["stage4"]).to(dev)
+    rel = relative_projection(pr[:, 1], pr[:, 0]).contiguous()
+    hs, ws = src_hw or (H, W)
+    inv = np.linspace(1 / 935.0, 1 / 425.0, D)[None, :, None, None]
+    inv = inv * (1 + 0.02 * rng.standard_normal((B, D, H, W)))
+    hypo = torch.from_numpy((1.0 / inv).astype(np.float32)).to(dev)
+    src = torch.from_numpy(rng.standard_normal((B, hs, ws, C)).astype(np.float32)).to(dev, dtype)
+    before = k4.launches
+    got = k4.warp_fwd(src, rel, hypo)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, D, H, W, C)
+    _close(got, k4.warp_fwd_ref(src, rel, hypo), k4.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,G", [(3, 8, 8), (3, 4, 4), (2, 2, 1), (1, 4, 2),
+                                   (3, 16, 8), (2, 3, 4), (1, 32, 2), (2, 4, 16)])
+def test_attn_fuse_kernel_matches_plain(dev, dtype, S, D, G):
+    """K5 against ``attn_fuse_ref`` on the card (tolerance: ``TOLERANCE`` of
+    the kernel module), on the flagship stages' (D, G) at three source views,
+    on other view counts, depths and groups of the register kernel, and on
+    (D, G) that take the workspace kernel (D 16, 3 and 32, G 16)."""
+    rng = np.random.default_rng(S * 100 + D * 10 + G)
+    cors = torch.from_numpy((rng.standard_normal((S, 2, D, 24, 40, G)) * 0.7)
+                            .astype(np.float32)).to(dev, dtype)
+    before = k5.launches
+    got = k5.attn_fuse(cors, 2.0, 16)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, D, 24, 40, G)
+    _close(got, k5.attn_fuse_ref(cors, 2.0, 16), k5.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("D,G", [(16, 8), (16, 4), (3, 4)])
+def test_eval_aggregate_at_any_depth_matches_cpu(dev, D, G):
+    """The eval aggregation (K1 into one buffer, then K5) at depths outside
+    K5's register instantiations (an ``--ndepths`` of 16, an odd D) on the
+    card against the same call on the CPU (plain versions), float32: within
+    1e-4 of max(1, max|plain|), K1 and K5 each within 1e-5 of theirs and the
+    weights' exponentials carrying K1's differences into the sums."""
+    B, H, W, C, V = 2, 24, 40, 16, 3
+    rng = np.random.default_rng(D * 10 + G)
+    batch = batch_samples([make_plane_scene(V=V, H=H, W=W, seed=i) for i in range(B)])
+    projs = torch.from_numpy(batch["proj_matrices"]["stage4"])
+    inv = np.linspace(1 / 935.0, 1 / 425.0, D)[None, :, None, None]
+    inv = inv * (1 + 0.02 * rng.standard_normal((B, D, H, W)))
+    hypo = torch.from_numpy((1.0 / inv).astype(np.float32))
+    feats = [torch.from_numpy((rng.standard_normal((B, H, W, C)) * 0.5).astype(np.float32))
+             for _ in range(V)]
+    kw = dict(group_cor=True, group_dim=G, attn_temp=2.0)
+    before = (k1.launches, k5.launches)
+    with torch.inference_mode():
+        got = epipolar_aggregate([f.to(dev) for f in feats], projs.to(dev), hypo.to(dev), **kw)
+        torch.cuda.synchronize()
+    assert (k1.launches - before[0], k5.launches - before[1]) == (V - 1, 1)
+    assert got.shape == (B * D, H, W, G)
+    _close(got.cpu(), epipolar_aggregate(feats, projs, hypo, **kw), 1e-4)
+
+
+def test_eval_cli_sets_up_the_card_in_float32(dev):
+    """The eval CLI on the card (``cli.test.main`` with its default
+    ``--device``) turns TF32 off for cuDNN convolutions and matmuls before
+    it builds anything, so that a float32 configuration runs in float32:
+    the precision at which ``chip_smoke.py`` and these tests check the
+    path. The flags are process-wide and left off, as the fixture sets
+    them."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cli.main(["--interval_scale", "1"])
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_eval_pipeline_matches_cpu(dev):
+    """The eval pipeline (depth maps of 4 views at 64x128, the consistency
+    filter, the fused cloud) on the card against the CPU, by
+    ``checks.check_pipeline``: depth equal at >= 99% of each view's pixels,
+    final masks agreeing at >= 99%, point counts within 1%. Each view's
+    forward launches K1 12, K2 3 and K5 4 times."""
+    before = (k1.launches, k2.launches, k5.launches)
+    checks.check_pipeline(dev)
+    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2]) == (
+        48, 12, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_topdown_chain_function_matches_plain_autograd(dev, dtype):
     """The chain ``autograd.Function`` (K2 forward, K2 re-deriving ``u`` in
     the backward) against autograd through ``topdown_level_ref``: outputs
@@ -171,9 +283,10 @@ def test_small_train_step_matches_cpu(dev):
     the loss within 1e-4 relative, a nonzero gradient on every parameter,
     the FPN outputs' and the kernel-fed parameters' gradients each within
     1e-3 of their max, the stem and Reg2D weights within 0.5."""
-    before = (k2.launches, k3.launches)
+    before = (k2.launches, k3.launches, k4.launches)
     checks.check_train_step(dev)
     assert k2.launches - before[0] == 6 and k3.launches - before[1] == 8
+    assert k4.launches - before[2] == 8
 
 
 def test_kernel_wrappers_raise_under_autograd(dev):
@@ -195,8 +308,15 @@ def test_kernel_wrappers_raise_under_autograd(dev):
     bi, wo = torch.zeros(64, device=dev), torch.zeros((8, 64, 3, 3), device=dev)
     with pytest.raises(RuntimeError, match="autograd"):
         k2.topdown_level(intra, skip, wi, bi, wo)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k4.warp_fwd(src, rel, hypo)
+    cors = torch.zeros((2, 1, 2, 8, 8, 4), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k5.attn_fuse(cors, 2.0, 8)
     with torch.no_grad():
         k1.warp_cor(src, src, rel, hypo, 4)
         k3.warp_bwd(g, rel, hypo, (1, 8, 8, 8))
         k2.topdown_level(intra, skip, wi, bi, wo)
+        k4.warp_fwd(src, rel, hypo)
+        k5.attn_fuse(cors, 2.0, 8)
     torch.cuda.synchronize()
