@@ -3,22 +3,24 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's five CUDA kernels from ``csrc/`` (one ``nvcc`` per
+1. Builds the port's six CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints the build seconds and ptxas's
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
    flagship paths give it, in float32 (TF32 off) and in bf16, and times
    both with CUDA events: K1 (warp + group correlation), K2 (FPN top-down
-   level) and K5 (attention accumulation) at the eval forward's shapes, K3
-   (warp backward) and K4 (warp forward) at the train step's, beside their
-   library yardsticks ``aten.grid_sampler_2d_backward`` and
-   ``F.grid_sample``.
+   level), K5 (attention accumulation) and K6 (3x3 conv + folded BatchNorm
+   + ReLU, beside ``F.conv2d`` + ``relu_`` on the folded weights and the
+   unfused conv + BatchNorm + ReLU it replaces; also at two wider stem
+   layers off its route) at the eval forward's shapes, K3 (warp backward)
+   and K4 (warp forward) at the train step's, beside their library
+   yardsticks ``aten.grid_sampler_2d_backward`` and ``F.grid_sample``.
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
    and BatchNorm statistics on plane-scene inputs: the launch counters are
    set to 0 just before one forward and read just after (K1 12 launches,
-   K2 3, K5 4), then three rounds of five forwards are timed.
+   K2 3, K5 4, K6 8), then three rounds of five forwards are timed.
 4. Checks the eval output: finite depth of the expected shape, and, on a
    small input, the card's forward against the CPU's plain forward with the
    same weights in float32.
@@ -33,22 +35,32 @@
    card are held to fixed limits.
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
    Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
-   before one step and read just after (K4 16, K3 16, K2 6), then a warm-up
-   step and three rounds of three timed steps, and a profile of one step.
+   before one step and read just after (K4 16, K3 16, K2 6, K6 0), then a
+   warm-up step and three rounds of three timed steps, and a profile of one
+   step.
 8. Drives the eval pipeline of the eval CLI at full width
    (``checks.run_pipeline``: the scripts/eval_dtu.sh model in float32, B=1,
    a 4-view 512x640 plane scene with 192 hypotheses): the depth maps of
    every reference view, each view filtered against its 3 sources, the
    fused PLY written under ``chiprun_out/``; the counters are set to 0 just
-   before the run and read just after (per view K1 12, K2 3, K5 4), and a
-   profile of one more run. Then the same pipeline at 64x128 on the card
-   against the CPU (``checks.check_pipeline``).
+   before the run and read just after (per view K1 12, K2 3, K5 4, K6 8),
+   and a profile of one more run. Then the same pipeline at 64x128 on the
+   card against the CPU (``checks.check_pipeline``).
+9. Drives the train CLI (``cli.train.main`` in this process) at full width
+   with scripts/train_dtu.sh's model, loss and optimizer flags on 12
+   synthetic 512x640 scenes of 5 views, B=6, logdir ``chiprun_out/
+   train_cli``: one epoch (2 steps, 2 validation batches, ``model_00.ckpt``),
+   ``--resume --epochs 2`` (continues at epoch 2, step 2), ``--mode test``
+   and ``--mode profile`` (a Chrome trace); the counters are set to 0 before
+   each part and read after it (per train step K4 16, K3 16, K2 6, K6 0; per
+   validation batch K1 16, K2 3, K5 4, K6 8).
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
 one forward by kernel), a ``forward`` line, a ``chain_backward`` line, a
 ``small_train_step`` line, a ``train`` line, a ``train_profile`` line, a
-``pipeline_profile`` line, a ``pipeline`` line and a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
+``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line and a
+``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
 non-zero and prints no result.
 """
@@ -73,19 +85,54 @@ FP32_FLOPS = 67e12
 B, V, H, W = 4, 4, 512, 640
 TRAIN_B, TRAIN_V = 6, 5             # the DTU recipe (scripts/train_dtu.sh)
 SEED = 0
-KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse")
 # launches of each kernel on each path: an eval forward (B4 V4), a train
-# step (B6 V5) and one reference view of the eval pipeline (V4)
-EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4}
-TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0}
+# step (B6 V5), one reference view of the eval pipeline (V4) and one
+# validation batch of the train CLI (B6 V5)
+EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
+                 "band_conv": 8}
+TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0,
+                  "band_conv": 0}
 PIPELINE_LAUNCHES_PER_VIEW = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0,
-                              "attn_fuse": 4}
+                              "attn_fuse": 4, "band_conv": 8}
+VAL_LAUNCHES = {"warp_cor": 16, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
+                "band_conv": 8}
 PIPELINE_V = 4
 # the weight seed of the pipeline phase: with random weights the fused cloud's
 # size depends on the draw, and some seeds give an empty cloud; seed 4 gives
 # a cloud of thousands of points at 512x640 (the `pipeline` line prints it)
 PIPELINE_SEED = 4
 PIPELINE_PLY = "chiprun_out/pipeline_fused.ply"
+TRAIN_CLI_LOGDIR = "chiprun_out/train_cli"
+# the train CLI phase: scripts/train_dtu.sh's model, loss and optimizer flags
+# on 12 synthetic 512x640 plane scenes of 5 views, B6: 2 steps and 2
+# validation batches an epoch
+TRAIN_CLI_FLAGS = [
+    "--bf16", "--mono", "--l1ce_lw", "0.003,1", "--wd", "1e-4", "--lr", "1e-3",
+    "--group_cor", "--group_cor_dim", "8,8,4,4", "--ndepths", "8,8,4,4",
+    "--depth_inter_r", "0.5,0.5,0.5,1", "--inverse_depth", "--attn_temp", "2", "--rt",
+    "--seed", "0", "--dataset", "synthetic", "--trainpath", f"synthetic://{H}x{W}/12",
+    "--batch_size", str(TRAIN_B), "--train_nviews", str(TRAIN_V), "--test_nviews", str(TRAIN_V),
+    "--summary_freq", "1", "--logdir", TRAIN_CLI_LOGDIR,
+]
+# train steps of --mode profile: the first call, one warm-up, five timed
+# (train/profiler.profile_step_fn) and one traced
+PROFILE_STEPS = 8
+# K6 at the eval forward's layers (B4 V4 512x640: N = B*V in the FPN stem,
+# B*D in Reg2D.conv0 with D = 8, 8, 4, 4): (name, N, H, W, Ci, Co, launches
+# per forward); conv1.1 and conv1.2 share a shape. The 32- and 64-channel
+# stem layers are off the route (launches 0), timed so that the record says
+# whether it should widen.
+BAND_CONV_LAYERS = (
+    ("stem conv0.0", B * V, H, W, 3, 8, 1),
+    ("stem conv0.1", B * V, H, W, 8, 8, 1),
+    ("stem conv1.1, conv1.2", B * V, H // 2, W // 2, 16, 16, 2),
+    ("Reg2D.conv0 stage1", B * 8, H // 8, W // 8, 8, 8, 1),
+    ("Reg2D.conv0 stage2", B * 8, H // 4, W // 4, 8, 8, 1),
+    ("Reg2D.conv0 stage3", B * 4, H // 2, W // 2, 4, 8, 1),
+    ("Reg2D.conv0 stage4", B * 4, H, W, 4, 8, 1),
+    ("stem conv2.1 (off route)", B * V, H // 4, W // 4, 32, 32, 0),
+    ("stem conv3.1 (off route)", B * V, H // 8, W // 8, 64, 64, 0),
+)
 
 
 def _dtu_model_config(dtype="bfloat16"):
@@ -133,10 +180,11 @@ def _scene(b, v, h, w, device):
 
 
 def _record(rows, kernel, path, shape, dtype, err, tol, per_run, run, run_ref, nbytes, ops,
-            peak, run_library=None):
+            peak, run_library=None, run_unfused=None):
     """One ``kernel_shapes`` row: the kernel against its plain version, and
-    in bf16 (the paths' dtype) their times, the bound and the library
-    yardstick's time. Raises when the difference exceeds the tolerance."""
+    in bf16 (the paths' dtype) their times, the bound, the library
+    yardstick's time and, where given, the time of the unfused route the
+    kernel replaces. Raises when the difference exceeds the tolerance."""
     import torch
 
     row = {
@@ -149,6 +197,7 @@ def _record(rows, kernel, path, shape, dtype, err, tol, per_run, run, run_ref, n
         row.update(
             kernel_ms=_time_ms(run, 20), plain_ms=_time_ms(run_ref, 3),
             library_ms=None if run_library is None else _time_ms(run_library, 20),
+            **({} if run_unfused is None else {"unfused_ms": _time_ms(run_unfused, 20)}),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, ops=ops,
@@ -249,6 +298,62 @@ def check_kernels(dev, batch):
             _record(rows, "topdown", "eval", [N, 2 * hh, 2 * wh, cs, co], dtype, err, tol, 1,
                     lambda: k2.topdown_level(*args), lambda: k2.topdown_level_ref(*args),
                     nbytes, ops, BF16_TENSOR_FLOPS)
+    return rows
+
+
+def check_band_conv(dev):
+    """K6 against ``band_conv_ref`` at ``BAND_CONV_LAYERS``, in float32 and
+    bf16, with random weights, folded scale and bias; in bf16 the times of
+    the kernel, the plain version, the library yardstick (``F.conv2d`` on the
+    folded weight and bias, then in-place ``relu_``) and the unfused route K6
+    replaces (cuDNN conv, ``TorchBatchNorm`` in eval, ``F.relu``). The bound
+    counts x read and the output written once; operations at the bf16
+    tensor-core rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
+        TorchBatchNorm,
+        conv2d_nhwc,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        band_conv as k6,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, n, h, w, ci, co, per_run in BAND_CONV_LAYERS:
+            x = torch.randn((n, h, w, ci), generator=gen, device=dev).to(dtype)
+            wt = torch.randn((co, ci, 3, 3), generator=gen, device=dev) * (9 * ci) ** -0.5
+            bn = TorchBatchNorm(co).to(dev).eval()
+            with torch.no_grad():
+                bn.weight.copy_(torch.rand(co, generator=gen, device=dev) * 1.5 + 0.5)
+                bn.bias.copy_(torch.randn(co, generator=gen, device=dev) * 0.2)
+                bn.running_mean.copy_(torch.randn(co, generator=gen, device=dev) * 0.2)
+                bn.running_var.copy_(torch.rand(co, generator=gen, device=dev) * 1.5 + 0.5)
+                scale, bias = bn.folded()
+            args = (x, wt, scale, bias)
+            got, want = k6.band_conv(*args), k6.band_conv_ref(*args)
+            torch.cuda.synchronize()
+            x_nchw = x.permute(0, 3, 1, 2)
+            w_lib = (wt * scale[:, None, None, None]).to(dtype)
+            b_lib = bias.to(dtype)
+
+            def run_library(x_nchw=x_nchw, w_lib=w_lib, b_lib=b_lib):
+                return F.conv2d(x_nchw, w_lib, b_lib, 1, 1).relu_()
+
+            def run_unfused(x=x, wt=wt, bn=bn):
+                return F.relu(bn(conv2d_nhwc(x, wt, padding=1)))
+
+            nbytes = (x.numel() + got.numel()) * x.element_size() + (wt.numel() + 2 * co) * 4
+            with torch.no_grad():
+                _record(rows, "band_conv", "eval", [n, h, w, ci, co], dtype,
+                        _max_err(got, want), k6.TOLERANCE[dtype] * _scale(want), per_run,
+                        lambda a=args: k6.band_conv(*a), lambda a=args: k6.band_conv_ref(*a),
+                        nbytes, 2 * n * h * w * co * 9 * ci, BF16_TENSOR_FLOPS, run_library,
+                        run_unfused)
+            rows[-1]["layer"] = name
     return rows
 
 
@@ -464,7 +569,7 @@ def check_chain_backward(dev):
     return out
 
 
-def drive_train(dev, batch, counters):
+def drive_train(dev, batch, counters, kernels):
     """The DTU train recipe at full width: counted step, warm-up, three
     rounds of three timed steps, a profile of one step."""
     import torch
@@ -510,7 +615,7 @@ def drive_train(dev, batch, counters):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = sorted(round_ms)[rounds // 2]
     prof = profile_run(lambda: step(batch), {
-        **{name: (f"{name}_kernel",) for name in KERNELS}, "conv_library": CONV_LIBRARY})
+        **{name: (f"{name}_kernel",) for name in kernels}, "conv_library": CONV_LIBRARY})
     train = {
         "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
@@ -520,7 +625,7 @@ def drive_train(dev, batch, counters):
     return train, prof, counts
 
 
-def drive_pipeline(dev, counters):
+def drive_pipeline(dev, counters, kernels):
     """The eval CLI's path at full width (``checks.run_pipeline``): the
     scripts/eval_dtu.sh model in float32 (weights and BatchNorm statistics
     from ``PIPELINE_SEED``), B=1, a SyntheticEvalDataset of 4 views at
@@ -558,7 +663,7 @@ def drive_pipeline(dev, counters):
         if d.shape != (H, W) or not np.isfinite(d).all():
             raise AssertionError(f"view {v}: depth {d.shape} not finite/shaped")
     prof = profile_run(lambda: checks.run_pipeline(model, ds, dev), {
-        **{name: (f"{name}_kernel",) for name in KERNELS}, "conv_library": CONV_LIBRARY})
+        **{name: (f"{name}_kernel",) for name in kernels}, "conv_library": CONV_LIBRARY})
     print(json.dumps({"pipeline_profile": prof}))
     return {
         "B": 1, "V": PIPELINE_V, "H": H, "W": W, "dtype": "float32", "hypotheses": 192,
@@ -574,6 +679,107 @@ def drive_pipeline(dev, counters):
     }, counts
 
 
+def _read_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def drive_train_cli(counters):
+    """The train CLI in this process at full width (``TRAIN_CLI_FLAGS``): one
+    epoch (2 steps, 2 validation batches); ``--resume --epochs 2``, which
+    must continue at epoch 2 and step 2; ``--mode test``; ``--mode
+    profile``. The counters are set to 0 before each part and read after
+    it. Raises on a non-finite loss, a missing checkpoint or record, a
+    learning rate off the schedule or a wrong count."""
+    import shutil
+
+    import numpy as np
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli import train as cli
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.checkpoint import (
+        save_checkpoint,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.schedule import (
+        make_schedule,
+    )
+
+    shutil.rmtree(TRAIN_CLI_LOGDIR, ignore_errors=True)
+    metrics = os.path.join(TRAIN_CLI_LOGDIR, "metrics.jsonl")
+
+    def part(extra, steps, val_batches):
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out = cli.main(TRAIN_CLI_FLAGS + extra)
+        seconds = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in counters.items()}
+        want = {name: steps * TRAIN_LAUNCHES[name] + val_batches * VAL_LAUNCHES[name]
+                for name in counters}
+        if counts != want:
+            raise AssertionError(f"train CLI {extra}: launches {counts}, want {want}")
+        return out, counts, seconds
+
+    state, counts_fit, s_fit = part(["--epochs", "1"], 2, 2)
+    ckpt = os.path.join(TRAIN_CLI_LOGDIR, "model_00.ckpt")
+    first = _read_records(metrics)
+    if not os.path.exists(ckpt) or [(r["mode"], r["step"]) for r in first] != [
+            ("train", 0), ("train", 1), ("test", 0), ("test", 1), ("fulltest", 2)]:
+        raise AssertionError(f"epoch 1: {ckpt} or records missing: "
+                             f"{[(r['mode'], r['step']) for r in first]}")
+    t0 = time.perf_counter()
+    timed = save_checkpoint(TRAIN_CLI_LOGDIR, 99, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    os.remove(timed)
+    state, counts_resume, s_resume = part(["--epochs", "2", "--resume"], 2, 2)
+    resumed = _read_records(metrics)[len(first):]
+    if state.step != 4 or [(r["mode"], r["step"]) for r in resumed] != [
+            ("train", 2), ("train", 3), ("test", 2), ("test", 3), ("fulltest", 4)]:
+        raise AssertionError(f"resume: step {state.step}, records "
+                             f"{[(r['mode'], r['step']) for r in resumed]}")
+    records = first + resumed
+    sched = make_schedule("MS", 1e-3, milestones_iters=[12, 16, 18], gamma=0.5)
+    train_recs = [r for r in records if r["mode"] == "train"]
+    for r in records:
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"train CLI: loss not finite in {r['mode']} {r['step']}")
+        if r["mode"] == "train" and r["lr"] != sched(r["step"]):
+            raise AssertionError(f"step {r['step']}: lr {r['lr']}, schedule {sched(r['step'])}")
+    avg, counts_test, s_test = part(["--mode", "test"], 0, 2)
+    if not np.isfinite(avg["loss"]):
+        raise AssertionError(f"--mode test: loss {avg['loss']}")
+    prof, counts_profile, s_profile = part(["--mode", "profile"], PROFILE_STEPS, 0)
+    if not os.path.getsize(prof["trace"]):
+        raise AssertionError(f"--mode profile: empty trace {prof['trace']}")
+    ckpt_bytes = os.path.getsize(ckpt)
+    # the two checkpoints (12 MB each) stay out of what chiprun_out/ brings back
+    for name in os.listdir(TRAIN_CLI_LOGDIR):
+        if name.endswith(".ckpt"):
+            os.remove(os.path.join(TRAIN_CLI_LOGDIR, name))
+    step_ms = [r["step_s"] * 1e3 for r in train_recs]
+    val_ms = [r["step_s"] * 1e3 for r in records if r["mode"] == "test"]
+    return {
+        "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
+        "steps": len(train_recs), "profile_steps": PROFILE_STEPS,
+        "host_ms_per_step": float(np.median(step_ms[1:])), "host_ms_per_step_all": step_ms,
+        "val_ms_per_batch": float(np.median(val_ms)), "val_ms_per_batch_all": val_ms,
+        "profile_steady_ms_per_step": prof["stats"]["steady_state_s"] * 1e3,
+        "profile_first_call_s": prof["stats"]["first_call_s"],
+        "launches_per_train_step": {k: v / PROFILE_STEPS for k, v in counts_profile.items()},
+        "launches_per_val_batch": {k: v / 2 for k, v in counts_test.items()},
+        "launches": {"fit": counts_fit, "resume": counts_resume, "test": counts_test,
+                     "profile": counts_profile},
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_save_ms": save_ms,
+        "resume_epoch": resumed[0]["step"] // 2 + 1, "resume_step": resumed[0]["step"],
+        "lr_per_step": [r["lr"] for r in train_recs],
+        "loss_per_step": [r["loss"] for r in train_recs],
+        "fulltest_loss": [r["loss"] for r in records if r["mode"] == "fulltest"],
+        "test_mode_loss": avg["loss"], "trace": prof["trace"],
+        "trace_bytes": os.path.getsize(prof["trace"]),
+        "part_seconds": {"fit": s_fit, "resume": s_resume, "test": s_test,
+                         "profile": s_profile},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -585,6 +791,9 @@ def main() -> int:
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         attn_fuse as k5,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        band_conv as k6,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
@@ -599,7 +808,9 @@ def main() -> int:
         warp_fwd as k4,
     )
 
-    counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3, "warp_fwd": k4, "attn_fuse": k5}
+    counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3, "warp_fwd": k4, "attn_fuse": k5,
+                "band_conv": k6}
+    kernels = _build.KERNELS
     # the eval CLI's device setup (TF32 off), so that every phase runs at
     # the precision a user of the port gets
     dev = setup_device()
@@ -612,9 +823,9 @@ def main() -> int:
                       "python": sys.version.split()[0]}))
 
     t0 = time.perf_counter()
-    built = _build.build(KERNELS)
+    built = _build.build(kernels)
     build_s = time.perf_counter() - t0
-    for name in KERNELS:
+    for name in kernels:
         log = _build.library_path(name).with_suffix(".log").read_text()
         for line in log.splitlines():
             if "registers" in line:
@@ -624,7 +835,7 @@ def main() -> int:
 
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
-    rows = check_kernels(dev, batch)
+    rows = check_kernels(dev, batch) + check_band_conv(dev)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows
@@ -666,7 +877,7 @@ def main() -> int:
             raise AssertionError(f"timed forwards launched {timed_counts}")
         torch.cuda.reset_peak_memory_stats()
         profile = profile_run(lambda: model(*args), {
-            **{name: (f"{name}_kernel",) for name in KERNELS}, "conv_library": CONV_LIBRARY})
+            **{name: (f"{name}_kernel",) for name in kernels}, "conv_library": CONV_LIBRARY})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"profile": profile}))
     small = check_small_forward_against_cpu(dev)
@@ -685,15 +896,18 @@ def main() -> int:
     print(json.dumps({"chain_backward": check_chain_backward(dev)}))
     torch.cuda.empty_cache()
     print(json.dumps({"small_train_step": checks.check_train_step(dev)}))
-    train, train_profile, train_counts = drive_train(dev, train_batch, counters)
+    train, train_profile, train_counts = drive_train(dev, train_batch, counters, kernels)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))
     del train_batch
     torch.cuda.empty_cache()
-    pipeline, pipeline_counts = drive_pipeline(dev, counters)
+    pipeline, pipeline_counts = drive_pipeline(dev, counters, kernels)
     print(json.dumps({"pipeline": pipeline}))
+    torch.cuda.empty_cache()
+    train_cli = drive_train_cli(counters)
+    print(json.dumps({"train_cli": train_cli}))
 
-    kernels = []
+    kernel_line = []
     for name, src, replaces, also_serves, path in (
         ("warp_cor", "csrc/warp_cor.cu", "warp_fwd_v3.py:438",
          ["warp_fwd_v3.py:522 (with ref, via warp_mxu.warp_cor_v3)"], "eval"),
@@ -704,6 +918,7 @@ def main() -> int:
         ("warp_fwd", "csrc/warp_fwd.cu", "warp_fwd_v3.py:522 (no ref, via warp_mxu._warp_v3)",
          ["warp_xband_kernel.py:111", "warp_kernel.py:83"], "train"),
         ("attn_fuse", "csrc/attn_fuse.cu", "attn_fuse.py:98", [], "eval"),
+        ("band_conv", "csrc/band_conv.cu", "reg_band_proto.py:89", [], "eval"),
     ):
         mine = [r for r in rows if r["kernel"] == name]
         timed = [r for r in mine if "kernel_ms" in r]
@@ -711,15 +926,16 @@ def main() -> int:
         per_run = {k: sum(r[k] * r["launches_per_run"] for r in timed)
                    for k in ("kernel_ms", "plain_ms", "bound_ms", "bytes", "ops")}
         lib = [r["library_ms"] for r in timed]
-        peak = BF16_TENSOR_FLOPS if name == "topdown" else FP32_FLOPS
+        peak = BF16_TENSOR_FLOPS if name in ("topdown", "band_conv") else FP32_FLOPS
         by_ops = per_run["ops"] / peak * 1e3
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": f"{JAX_PKG_OPS}/{replaces}",
             "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
             "launches": counts[name] + train_counts[name] + pipeline_counts[name],
             "launches_eval": counts[name], "launches_train": train_counts[name],
             "launches_pipeline": pipeline_counts[name],
+            "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
             "timed_per": "eval forward" if path == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
             "ms": per_run["kernel_ms"], "plain_ms": per_run["plain_ms"],
@@ -727,8 +943,14 @@ def main() -> int:
             "bound_by": "operations" if by_ops > per_run["bytes"] / HBM_BYTES_PER_S * 1e3 else "bytes",
             "library_ms": None if None in lib else sum(
                 r["library_ms"] * r["launches_per_run"] for r in timed),
-        })
-    print(json.dumps({"kernels": kernels}))
+        }
+        if name == "band_conv":
+            # the route it replaces, and the least time of its sums on the
+            # float32 CUDA cores, where this kernel computes them
+            entry["unfused_ms"] = sum(r["unfused_ms"] * r["launches_per_run"] for r in timed)
+            entry["cuda_core_bound_ms"] = per_run["ops"] / FP32_FLOPS * 1e3
+        kernel_line.append(entry)
+    print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

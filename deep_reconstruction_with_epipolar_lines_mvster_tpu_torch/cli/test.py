@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Tuple
+
+from .train import make_model_config
 
 _IGNORED = "a TPU layout flag, accepted and ignored by the port"
 
@@ -136,78 +137,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _ints(s: str) -> Tuple[int, ...]:
-    return tuple(int(x) for x in str(s).split(",") if x.strip())
-
-
-def _floats(s: str) -> Tuple[float, ...]:
-    return tuple(float(x) for x in str(s).split(",") if x.strip())
-
-
-def make_model_config(args):
-    """The port's ``ModelConfig`` from the eval flags, field for field as
-    the JAX package's ``cli/train.make_model_config(args, mode="eval")``."""
-    from ..config import ModelConfig
-
-    band = _ints(args.warp_band)
-    return ModelConfig(
-        arch_mode=args.arch_mode,
-        reg_mode=args.reg_mode,
-        fpn_base_channel=args.fpn_base_channel,
-        reg_channel=args.reg_channel,
-        ndepths=_ints(args.ndepths),
-        depth_inter_r=_floats(args.depth_inter_r),
-        group_cor=args.group_cor,
-        group_cor_dim=_ints(args.group_cor_dim),
-        inverse_depth=args.inverse_depth,
-        agg_type=args.agg_type,
-        dcn=args.dcn,
-        pos_enc=args.pos_enc,
-        mono=args.mono,
-        mono_stg_itrpl=args.mono_stg_itrpl,
-        asff=args.ASFF,
-        attn_temp=args.attn_temp,
-        dtype="bfloat16" if args.bf16 else "float32",
-        warp_impl=args.warp_impl or "mxu_v3",
-        warp_band=band[0] if len(band) == 1 else band,
-        warp_tile_rows=args.warp_tile_rows,
-        warp_xband=args.warp_xband,
-        warp_tile_cols=args.warp_tile_cols,
-        pack_conv=bool(args.pack_conv),
-        fused_topdown=bool(args.fused_topdown),
-        kernel_coords=args.kernel_coords,
-        fuse_attn=args.fuse_attn,
-        d_pack_mids=args.d_pack_mids,
-    )
-
-
-def load_checkpoint(model, path: str) -> None:
-    """Load a reference ``.ckpt`` (``torch.save`` of a dict with a ``model``
-    state_dict, reference test_mvs4.py:317) into ``model``. Every parameter
-    and buffer of the model must be in it; keys of parts this configuration
-    does not build (e.g. the mono decoder of a ``--mono`` training run) are
-    reported and skipped."""
-    import torch
-
-    blob = torch.load(path, map_location="cpu")
-    sd = blob.get("model", blob) if isinstance(blob, dict) else blob
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    if missing:
-        raise KeyError(f"{path}: checkpoint lacks {len(missing)} keys, e.g. {missing[:5]}")
-    if unexpected:
-        print(f"{path}: {len(unexpected)} keys not used by this model, e.g. {unexpected[:3]}")
-
-
-def _dataset_class(name: str):
-    if name in ("dataloader_eval", "eval"):
-        from ..data.eval_loader import EvalDataset
-
-        return EvalDataset
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported for eval yet; use dataloader_eval"
-    )
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.batch_size != 1:
@@ -220,7 +149,9 @@ def main(argv=None):
             "the numeric debug dumps are not ported yet (ROADMAP Queue 1 item 14)")
 
     from ..config import setup_device
+    from ..data import find_dataset_def
     from ..data.io import read_scan_list
+    from ..train.checkpoint import load_weights
 
     device = setup_device(args.device)
     testlist = read_scan_list(args.testlist) if args.testlist else [""]
@@ -231,10 +162,10 @@ def main(argv=None):
         from ..eval.depthgen import device_peak_memory_gb, generate_depth_maps
         from ..models import MVS4Net
 
-        model = MVS4Net(make_model_config(args), device=device)
+        model = MVS4Net(make_model_config(args, mode="eval"), device=device)
         if args.loadckpt:
             print(f"=> loading model {args.loadckpt}")
-            load_checkpoint(model, args.loadckpt)
+            load_weights(model, args.loadckpt)
         bucket = args.eval_shape_bucket
         if bucket in ("none", "0", ""):
             bucket = 0
@@ -243,7 +174,7 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
 
-        DS = _dataset_class(args.dataset)
+        DS = find_dataset_def(args.dataset)
         total_time, total_views, shapes = 0.0, 0, set()
         for scene in testlist:
             ds = DS(

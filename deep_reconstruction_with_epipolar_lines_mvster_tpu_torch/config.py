@@ -1,9 +1,11 @@
 """Typed configuration of the PyTorch port, and its device rule.
 
-``ModelConfig`` and ``LossConfig`` keep the field names of the JAX
-package's (``deep_reconstruction_with_epipolar_lines_mvster_tpu/config.py``),
+``ModelConfig``, ``LossConfig`` and ``TrainConfig`` keep the field names of
+the JAX package's (``deep_reconstruction_with_epipolar_lines_mvster_tpu/config.py``),
 so that ``ModelConfig(**dataclasses.asdict(jax_cfg))`` builds the same
-model here.
+model here; ``parse_*`` are copies of its parsers of the reference's string
+encodings (``--ndepths "8,8,4,4"``, ``--lrepochs "6,8,9:2"``, ``--Nlights
+"3:7"``).
 
 The TPU execution-layout fields below are accepted and ignored: they choose
 how the TPU lays out work, never the function the model computes. The port
@@ -33,8 +35,17 @@ say (on the CPU, each kernel's plain PyTorch version):
   group correlation is K5 (``csrc/attn_fuse.cu``); the train path and the
   ``attn_fuse_d=False`` form stay PyTorch, as the JAX kernel covers
   neither;
-- ``pack_conv``, ``cw_stage_features``, ``d_pack_mids``: layouts only; the
-  convolutions are cuDNN's.
+- ``pack_conv``: the small-channel convolutions it packs on the TPU run,
+  in eval, as kernel K6 (``csrc/band_conv.cu``: 3x3 stride-1 conv with the
+  BatchNorm folded and the ReLU fused, at most 16 channels in and out,
+  ``models/layers.py``); every other convolution, and every one in
+  training, is cuDNN's;
+- ``cw_stage_features``, ``d_pack_mids``: layouts only.
+
+The train CLI (``cli/train.py``) accepts and ignores the flags that set
+them, and three more of the same kind: ``--warp_bwd`` (which TPU
+warp-backward variant; the port's is K3), ``--dp_impl`` (the TPU mesh's
+data-parallel form; the port trains on one card) and ``--no_remat``.
 """
 
 from __future__ import annotations
@@ -45,6 +56,30 @@ from typing import Any, Tuple
 import torch
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def parse_int_list(s: str) -> Tuple[int, ...]:
+    """``"8,8,4,4" -> (8, 8, 4, 4)`` (reference: train_mvs4.py:510)."""
+    return tuple(int(x) for x in s.split(",") if x)
+
+
+def parse_float_list(s: str) -> Tuple[float, ...]:
+    """``"0.5,0.5,0.5,1" -> (0.5, 0.5, 0.5, 1.0)`` (train_mvs4.py:511)."""
+    return tuple(float(x) for x in s.split(",") if x)
+
+
+def parse_lrepochs(s: str) -> Tuple[Tuple[int, ...], float]:
+    """``"6,8,9:2" -> ((6, 8, 9), 2.0)``: milestone epochs and LR divisor
+    (reference: train_mvs4.py:120-121)."""
+    milestones, divisor = s.split(":")
+    return parse_int_list(milestones), float(divisor)
+
+
+def parse_nlights(s: str) -> Tuple[int, int]:
+    """``"3:7" -> (3, 7)``: use 3 of 7 lights; a negative first element
+    means a fixed light index (reference: datasets/blender4.py:25-27,52-66)."""
+    use, total = s.split(":")
+    return int(use), int(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +145,26 @@ class LossConfig:
     ot_continuous: bool = False
     inverse_depth: bool = False
     mono: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and loop settings (reference:
+    train_mvs4.py:33-52,118-137)."""
+
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    epochs: int = 10
+    batch_size: int = 1
+    lr_scheduler: str = "MS"            # MS | cos | onecycle | CyclicLR_tri2 | exponent
+    lr_milestones: Tuple[int, ...] = (6, 8, 9)   # epochs
+    lr_gamma_divisor: float = 2.0
+    warmup_iters: int = 500
+    warmup_factor: float = 1.0 / 3.0
+    seed: int = 1
+    summary_freq: int = 50
+    save_freq: int = 1
+    eval_freq: int = 1
 
 
 def resolve_device(device=None) -> torch.device:

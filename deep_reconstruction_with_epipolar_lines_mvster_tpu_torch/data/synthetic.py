@@ -1,7 +1,9 @@
 """Synthetic multi-view fixture: an analytically rendered textured plane.
 
-A numpy copy of the JAX package's ``data/synthetic.py`` scene, so that the
-port's tests and ``chip_smoke.py`` build the same inputs without importing
+A numpy copy of the JAX package's ``data/synthetic.py`` (the scene, the
+eval dataset over it and ``SyntheticTrainDataset``, behind the train CLI's
+zero-file ``--dataset synthetic``), so that the port's tests,
+``chip_smoke.py`` and the train CLI build the same inputs without importing
 that package. The sample dict follows the reference loader spec
 (``datasets/dtu_yao4.py:228-232``): ``imgs [V,H,W,3]``, ``proj_matrices
 {stage: [V,2,4,4]}``, ``depth {stage: [h,w]}``, ``depth_values [2]``,
@@ -143,6 +145,51 @@ class SyntheticEvalDataset:
             "depth_values": depth_values,
             "filename": self.scan + "/{}/" + f"{idx:0>8}" + "{}",
         }
+
+
+class SyntheticTrainDataset:
+    """Train-style dataset over analytic plane scenes, constructor-compatible
+    with the CLI dataset protocol (``DS(datapath, listfile, mode, nviews,
+    interval_scale, **common)`` — cli/train.py) so the full train CLI can run
+    with zero data files: ``--dataset synthetic --trainpath 'synthetic://HxW/N'``
+    (default ``64x64/8``). ``listfile`` is ignored.
+
+    Each index is its own deterministic plane scene (seeded by ``(seed, idx)``,
+    independent of epoch/workers), with slightly varying slants so batches are
+    not degenerate.
+    """
+
+    def __init__(self, datapath, listfile, mode, nviews, interval_scale=1.0,
+                 *, rt=False, use_raw_train=False, pair_fname="pair.txt",
+                 Nlights="", seed=0, **_ignored):
+        h, w, n = 64, 64, 8
+        if datapath and str(datapath).startswith("synthetic://"):
+            spec = str(datapath)[len("synthetic://"):]
+            size, _, count = spec.partition("/")
+            if "x" in size:
+                h, w = (int(x) for x in size.split("x"))
+            if count:
+                n = int(count)
+        self.H, self.W, self.n = h, w, n
+        self.mode = mode
+        self.nviews = nviews
+        self.seed = seed
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, epoch: int) -> None:
+        pass  # scenes are index-deterministic
+
+    def __getitem__(self, idx: int) -> Dict:
+        s = make_plane_scene(
+            V=self.nviews, H=self.H, W=self.W,
+            seed=self.seed * 1000 + idx,
+            gx=0.05 + 0.02 * (idx % 5), gy=-0.04 - 0.015 * (idx % 3),
+        )
+        for k in ("view_depths", "intrinsics", "extrinsics"):
+            s.pop(k)
+        return s
 
 
 def batch_samples(samples) -> Dict:

@@ -5,8 +5,11 @@ Counterpart of the JAX package's ``models/fpn.py`` ``FPN4`` and
 The three top-down levels (``up2(intra) + inner(skip)``, then the 3x3
 ``out`` conv) run through kernel K2 (``ops/kernels/topdown.py``), by way of
 ``ops/topdown_chain.py``: its ``autograd.Function`` in training, K2
-directly in eval. The stem and the ``out1`` 1x1 are plain
-convolutions; in training the stem's BatchNorm takes statistics per view.
+directly in eval. In eval the stem's 3x3 layers of at most 16 channels
+(``conv0.0``, ``conv0.1``, ``conv1.1``, ``conv1.2``) run as kernel K6 with
+the BatchNorm folded (``models/layers.py``); the rest of the stem and the
+``out1`` 1x1 are plain convolutions; in training the stem's BatchNorm takes
+statistics per view.
 """
 
 from __future__ import annotations

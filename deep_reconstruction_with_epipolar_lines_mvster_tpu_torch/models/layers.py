@@ -11,6 +11,13 @@ activations' dtype at use, as flax casts them.
 Cost volumes flow folded, ``[B*D, H, W, C]``: the (1,3,3) Conv3d kernels are
 2-D convolutions over the folded batch, and only the 3x3x3 blocks unfold to
 ``[B, C, D, H, W]``.
+
+In eval, a 3x3 (or (1,3,3)) stride-1 conv + BatchNorm + ReLU with at most
+``BAND_CONV_MAX_CHANNELS`` input and output channels runs as kernel K6
+(``ops/kernels/band_conv.py``) with the BatchNorm folded into a scale and a
+bias; every other block, and every block in training, is the convolution
+library's conv followed by ``TorchBatchNorm`` and ReLU. The route follows
+the module's shape and mode only.
 """
 
 from __future__ import annotations
@@ -21,8 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.band_conv import band_conv
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax momentum; torch's 0.1
+
+# The widest eval 3x3 stride-1 conv + BatchNorm + ReLU that runs as K6. Up
+# to here the unfused route's float32 BatchNorm and ReLU passes (~50 bytes
+# per output element) cost more than the convolution; on wider layers they
+# are small beside it, and cuDNN's tensor cores beat K6's CUDA-core sums.
+BAND_CONV_MAX_CHANNELS = 16
 
 
 class ConvWeight(nn.Module):
@@ -100,6 +115,21 @@ class TorchBatchNorm(nn.Module):
             self.num_batches_tracked.add_(G)
         return (y * self.weight + self.bias).to(x.dtype)
 
+    def folded(self):
+        """The eval transform as ``(scale, bias)``, float32 ``[C]``:
+        ``scale = weight * rsqrt(running_var + eps)``, ``bias = bias -
+        running_mean * scale``."""
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return scale, self.bias - self.running_mean * scale
+
+
+def _band_conv_route(module, weight) -> bool:
+    """Whether an eval 3x3 stride-1 block with this OIHW ``weight`` runs as
+    K6: eval mode and at most ``BAND_CONV_MAX_CHANNELS`` channels in and
+    out."""
+    return (not module.training and tuple(weight.shape[2:]) == (3, 3)
+            and max(weight.shape[:2]) <= BAND_CONV_MAX_CHANNELS)
+
 
 class ConvBnReLU(nn.Module):
     """2-D conv (no bias) + BatchNorm + ReLU, symmetric ``k//2`` padding
@@ -113,6 +143,8 @@ class ConvBnReLU(nn.Module):
         self.stride = stride
 
     def forward(self, x, view_groups: int = 1):
+        if self.stride == 1 and _band_conv_route(self, self.conv.weight):
+            return band_conv(x.contiguous(), self.conv.weight, *self.bn.folded())
         x = conv2d_nhwc(x, self.conv.weight, stride=self.stride,
                         padding=self.conv.weight.shape[-1] // 2)
         return F.relu(self.bn(x, view_groups))
@@ -139,6 +171,8 @@ class ConvBnReLU3D(nn.Module):
         kd, kh, kw = self.kernel
         sd, sh, sw = self.stride
         w = self.conv.weight
+        if kd == 1 and self.stride == (1, 1, 1) and _band_conv_route(self, w[:, :, 0]):
+            return band_conv(x.contiguous(), w[:, :, 0], *self.bn.folded())
         if kd == 1 and sd == 1:
             x = conv2d_nhwc(x, w[:, :, 0], stride=(sh, sw), padding=(kh // 2, kw // 2))
         else:

@@ -3,7 +3,9 @@
 
 Counterpart of the JAX package's ``models/reg.py`` ``Reg2D`` with
 ``agg_type="ConvBnReLU3D"``: (1,3,3) stride and boundary convs as 2-D convs
-on the folded batch, full 3x3x3 mid blocks after each downsample.
+on the folded batch, full 3x3x3 mid blocks after each downsample. In eval
+``conv0`` (G -> 8 channels, (1,3,3), stride 1) runs as kernel K6 with the
+BatchNorm folded (``models/layers.py``).
 """
 
 from __future__ import annotations

@@ -29,6 +29,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the port's kernels, one ``csrc/<name>.cu`` each: K1 warp + group
+# correlation, K2 top-down level, K3 warp backward, K4 warp forward, K5
+# attention accumulation, K6 conv + folded BatchNorm + ReLU
+KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv")
+
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 

@@ -1,0 +1,92 @@
+"""K6: 3x3 stride-1 convolution with a fused scale, bias and ReLU
+(``csrc/band_conv.cu``), the eval-mode ``ConvBnReLU`` of the small-channel
+layers once the BatchNorm is folded (``models/layers.py``).
+
+``band_conv`` launches the CUDA kernel on a CUDA tensor and uses the plain
+PyTorch version ``band_conv_ref`` only for a tensor on the CPU.
+``launches`` counts the kernel's launches. It has no backward, as the JAX
+kernel has no VJP: training keeps the convolution library and the
+train-mode BatchNorm.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+launches = 0
+
+# Kernel against plain version, relative to max(1, max|plain|): in float32
+# the kernel sums the 9·Ci products in another order than the convolution
+# library (Ci <= 16 on the path: a few float32 ulps); in bf16 both round one
+# float32 result, which may then land one bf16 ulp (2^-7 relative at most)
+# apart.
+TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def band_conv_ref(x, weight, scale, bias) -> torch.Tensor:
+    """Plain PyTorch version. ``x [N,H,W,Ci]`` (NHWC), ``weight [Co,Ci,3,3]``
+    (OIHW), ``scale`` and ``bias [Co]`` -> ``[N,H,W,Co]`` in the dtype of
+    ``x``: the 3x3 convolution with zero padding 1 in float32, the weight
+    rounded to the dtype of ``x`` (as the TPU kernel rounds its banded
+    matrices), then ``max(acc * scale + bias, 0)`` rounded once."""
+    dt = x.dtype
+    acc = F.conv2d(x.float().permute(0, 3, 1, 2), weight.to(dt).float(), None, 1, 1)
+    return torch.relu(acc.permute(0, 2, 3, 1) * scale.float() + bias.float()).to(dt)
+
+
+def _lib():
+    lib = _build.load("band_conv")
+    fn = lib.band_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_conv(x, weight, scale, bias) -> torch.Tensor:
+    """``x [N,H,W,Ci]`` f32/bf16, contiguous; ``weight [Co,Ci,3,3]``,
+    ``scale`` and ``bias [Co]``, float32 and contiguous -> ``[N,H,W,Co]`` in
+    the dtype of ``x``, for any H, W, Ci and Co. Same function as JAX
+    ``band_conv3x3`` on its ``[N,H,Ci,W]`` layout; see
+    :func:`band_conv_ref`."""
+    if x.device.type == "cpu":
+        return band_conv_ref(x, weight, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"band_conv: unsupported device {x.device}")
+    _build.refuse_autograd("band_conv", x, weight, scale, bias)
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"band_conv: x {tuple(x.shape)} / weight {tuple(weight.shape)} "
+                         "are not [N,H,W,Ci] / [Co,Ci,3,3]")
+    N, H, W, Ci = x.shape
+    Co = weight.shape[0]
+    if tuple(weight.shape) != (Co, Ci, 3, 3) or tuple(scale.shape) != (Co,) \
+            or tuple(bias.shape) != (Co,):
+        raise ValueError(f"band_conv: shapes x {tuple(x.shape)} weight {tuple(weight.shape)} "
+                         f"scale {tuple(scale.shape)} bias {tuple(bias.shape)}")
+    for name, t in (("weight", weight), ("scale", scale), ("bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"band_conv: {name} on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"band_conv: {name} must be contiguous float32, not {t.dtype}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"band_conv: dtype {x.dtype} not supported")
+    if not x.is_contiguous():
+        raise ValueError("band_conv: x is not contiguous")
+    if min(N, H, W, Ci, Co) < 1 or N >= 2 ** 16:
+        raise ValueError(f"band_conv: N={N}, H={H}, W={W}, Ci={Ci}, Co={Co} not supported")
+    out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
+    status = _lib()(
+        x.data_ptr(), weight.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        N, H, W, Ci, Co, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "band_conv")
+    global launches
+    launches += 1
+    return out

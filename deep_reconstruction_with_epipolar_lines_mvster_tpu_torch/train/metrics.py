@@ -1,4 +1,4 @@
-"""Depth metrics (reference utils.py:139-163).
+"""Depth metrics and the running meter (reference utils.py:103-163).
 
 Counterpart of the JAX package's ``train/metrics.py``: per-image masked
 means, then the batch mean; an image with an empty mask contributes 0, and
@@ -38,3 +38,19 @@ def depth_metrics(depth_est, depth_gt, mask, valid=None) -> Dict[str, torch.Tens
     for t in (1, 2, 4, 8):
         out[f"thres{t}mm_error"] = thres_metric(depth_est, depth_gt, mask, float(t), valid)
     return out
+
+
+class DictAverageMeter:
+    """Running mean over scalar dicts (reference utils.py:103-122)."""
+
+    def __init__(self):
+        self.data: Dict[str, float] = {}
+        self.count = 0
+
+    def update(self, new_input: Dict[str, float]) -> None:
+        self.count += 1
+        for k, v in new_input.items():
+            self.data[k] = self.data.get(k, 0.0) + float(v)
+
+    def mean(self) -> Dict[str, float]:
+        return {k: v / max(self.count, 1) for k, v in self.data.items()}

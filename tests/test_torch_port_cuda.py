@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 and the paths through them: the chain backward against autograd of the
 plain chain, a small train step and the eval pipeline against the CPU's,
-and the rule that a kernel meets autograd only through its
-``autograd.Function``.
+the train CLI's launches, and the rule that a kernel meets autograd only
+through its ``autograd.Function``.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither JAX nor the JAX package, so that it runs on a
@@ -14,12 +14,15 @@ machine that has only PyTorch; there the repository's ``conftest.py``
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli import test as cli
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli import train as train_cli
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import setup_device
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
     relative_projection,
@@ -30,6 +33,9 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic imp
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     attn_fuse as k5,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    band_conv as k6,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     topdown as k2,
@@ -137,6 +143,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         k1.warp_cor(torch.zeros((1, 8, 8, 8), device=dev), torch.zeros((1, 8, 8, 8), device=dev),
                     rel, hypo, 4, out=torch.zeros((1, 2, 8, 4, 8), device=dev).transpose(3, 4))
+    w6, s6 = torch.zeros((8, 8, 3, 3), device=dev), torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.band_conv(torch.zeros((1, 8, 8, 8), device=dev).transpose(1, 2), w6, s6, s6)
+    with pytest.raises(ValueError, match="not supported"):
+        k6.band_conv(torch.zeros((1, 8, 8, 8), device=dev, dtype=torch.float16), w6, s6, s6)
+    with pytest.raises(ValueError, match="shapes"):
+        k6.band_conv(torch.zeros((1, 8, 8, 4), device=dev), w6, s6, s6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -253,10 +266,10 @@ def test_eval_pipeline_matches_cpu(dev):
     ``checks.check_pipeline``: depth equal at >= 99% of each view's pixels,
     final masks agreeing at >= 99%, point counts within 1%. Each view's
     forward launches K1 12, K2 3 and K5 4 times."""
-    before = (k1.launches, k2.launches, k5.launches)
+    before = (k1.launches, k2.launches, k5.launches, k6.launches)
     checks.check_pipeline(dev)
-    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2]) == (
-        48, 12, 16)
+    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2],
+            k6.launches - before[3]) == (48, 12, 16, 32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -282,11 +295,12 @@ def test_small_train_step_matches_cpu(dev):
     hypotheses and its gradients at the cost volumes and mono depths; then
     the loss within 1e-4 relative, a nonzero gradient on every parameter,
     the FPN outputs' and the kernel-fed parameters' gradients each within
-    1e-3 of their max, the stem and Reg2D weights within 0.5."""
-    before = (k2.launches, k3.launches, k4.launches)
+    1e-3 of their max, the stem and Reg2D weights within 0.5. K6 (eval
+    only) is not launched."""
+    before = (k2.launches, k3.launches, k4.launches, k6.launches)
     checks.check_train_step(dev)
     assert k2.launches - before[0] == 6 and k3.launches - before[1] == 8
-    assert k4.launches - before[2] == 8
+    assert k4.launches - before[2] == 8 and k6.launches == before[3]
 
 
 def test_kernel_wrappers_raise_under_autograd(dev):
@@ -313,10 +327,64 @@ def test_kernel_wrappers_raise_under_autograd(dev):
     cors = torch.zeros((2, 1, 2, 8, 8, 4), device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="autograd"):
         k5.attn_fuse(cors, 2.0, 8)
+    w6 = torch.zeros((8, 8, 3, 3), device=dev, requires_grad=True)
+    s6 = torch.ones(8, device=dev)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k6.band_conv(src, w6, s6, s6)
     with torch.no_grad():
         k1.warp_cor(src, src, rel, hypo, 4)
         k3.warp_bwd(g, rel, hypo, (1, 8, 8, 8))
         k2.topdown_level(intra, skip, wi, bi, wo)
         k4.warp_fwd(src, rel, hypo)
         k5.attn_fuse(cors, 2.0, 8)
+        k6.band_conv(src, w6, s6, s6)
     torch.cuda.synchronize()
+
+
+# K6 at the flagship eval forward's shapes (B4 V4 512x640: the FPN stem's
+# conv0.0, conv0.1, conv1.1/conv1.2, Reg2D.conv0 at stages 1-4) with N cut
+# to 2, then at odd sizes: 37x97 (tiles cut on both axes), Ci 3, and Ci, Co
+# over 16 (the chunk loops)
+K6_SHAPES = [(512, 640, 3, 8), (512, 640, 8, 8), (256, 320, 16, 16), (64, 80, 8, 8),
+             (128, 160, 8, 8), (256, 320, 4, 8), (512, 640, 4, 8),
+             (37, 97, 3, 8), (37, 97, 16, 16), (37, 97, 5, 7), (19, 33, 20, 24)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,Ci,Co", K6_SHAPES)
+def test_band_conv_kernel_matches_plain(dev, dtype, H, W, Ci, Co):
+    """K6 against ``band_conv_ref`` on the card (tolerance: ``TOLERANCE`` of
+    the kernel module), one launch per call."""
+    rng = np.random.default_rng(H + W + Ci * 10 + Co)
+    x = torch.from_numpy(rng.standard_normal((2, H, W, Ci)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((Co, Ci, 3, 3)) * (9 * Ci) ** -0.5)
+                         .astype(np.float32)).to(dev)
+    s = torch.from_numpy(rng.uniform(0.5, 2.0, Co).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(0.0, 0.2, Co).astype(np.float32)).to(dev)
+    before = k6.launches
+    got = k6.band_conv(x, w, s, b)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, H, W, Co)
+    _close(got, k6.band_conv_ref(x, w, s, b), k6.TOLERANCE[dtype])
+
+
+def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
+    """One epoch of the train CLI on the card (``synthetic://64x128/2``, B1,
+    V3, the DTU recipe's model in bf16): the two train steps launch K4 and
+    K3 8 times each and K6 never; the two validation batches launch K6 8
+    times each (the FPN stem's four small 3x3 layers, Reg2D.conv0 at four
+    stages); the losses in ``metrics.jsonl`` are finite."""
+    before = (k3.launches, k4.launches, k6.launches)
+    logdir = str(tmp_path / "run")
+    state = train_cli.main([
+        "--dataset", "synthetic", "--trainpath", "synthetic://64x128/2", "--batch_size", "1",
+        "--train_nviews", "3", "--test_nviews", "3", "--epochs", "1", "--summary_freq", "1",
+        "--logdir", logdir, "--dataloader_workers", "0", "--group_cor", "--inverse_depth",
+        "--attn_temp", "2", "--mono", "--rt", "--bf16", "--l1ce_lw", "0.003,1", "--wd", "1e-4"])
+    torch.cuda.synchronize()
+    assert state.step == 2
+    assert (k3.launches - before[0], k4.launches - before[1], k6.launches - before[2]) == (
+        16, 16, 16)
+    with open(f"{logdir}/metrics.jsonl") as f:
+        assert all(np.isfinite(json.loads(line)["loss"]) for line in f)

@@ -332,14 +332,17 @@ def test_epipolar_aggregate_matches_jax(group_cor, attn_fuse_d):
 def _port_sources():
     files = sorted((REPO / PORT).rglob("*.py"))
     names = {str(f.relative_to(REPO / PORT)) for f in files}
-    # the train path's and the eval pipeline's modules are among them
+    # the train path's, the eval pipeline's and the train CLI's modules are
+    # among them
     assert {"ops/warp.py", "ops/topdown_chain.py", "ops/kernels/warp_bwd.py",
             "models/mono.py", "core/sinkhorn.py", "models/losses.py",
             "train/metrics.py", "train/schedule.py", "train/step.py",
             "ops/kernels/warp_fwd.py", "ops/kernels/attn_fuse.py", "data/io.py",
             "data/loader.py", "data/base.py", "data/eval_loader.py", "eval/ply.py",
             "eval/fusion.py", "eval/scene_filter.py", "eval/depthgen.py",
-            "cli/test.py"} <= names
+            "cli/test.py", "ops/kernels/band_conv.py", "train/checkpoint.py",
+            "train/loop.py", "train/logging.py", "train/profiler.py", "cli/train.py",
+            "data/dtu.py", "data/blender.py", "data/blendedmvs.py"} <= names
     return files + [REPO / "chip_smoke.py"]
 
 
