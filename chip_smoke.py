@@ -8,12 +8,17 @@
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
    flagship paths give it, in float32 (TF32 off) and in bf16, and times
-   both with CUDA events: K1 (warp + group correlation), K2 (FPN top-down
-   level), K5 (attention accumulation) and K6 (3x3 conv + folded BatchNorm
-   + ReLU, beside ``F.conv2d`` + ``relu_`` on the folded weights and the
-   unfused conv + BatchNorm + ReLU it replaces; also at two wider stem
-   layers off its route) at the eval forward's shapes, K3 (warp backward)
-   and K4 (warp forward) at the train step's, beside their library
+   both with CUDA events: K1 (warp + group correlation), K5 (attention
+   accumulation) and K6 (3x3 conv + folded BatchNorm + ReLU, beside
+   ``F.conv2d`` + ``relu_`` on the folded weights and the unfused conv +
+   BatchNorm + ReLU it replaces; also at two wider stem layers off its
+   route) at the eval forward's shapes; K2 (FPN top-down level) at the eval
+   forward's, the train step's (its 3 forward launches and the backward's 3
+   ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
+   (warp backward) at the train step's on two sets of hypotheses (the full
+   inverse range at every stage, as PR 4 timed it, and the train path's
+   windows around a depth map), and K4 (warp forward) at the train step's,
+   beside their library
    yardsticks ``aten.grid_sampler_2d_backward`` and ``F.grid_sample``.
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
@@ -180,25 +185,27 @@ def _scene(b, v, h, w, device):
 
 
 def _record(rows, kernel, path, shape, dtype, err, tol, per_run, run, run_ref, nbytes, ops,
-            peak, run_library=None, run_unfused=None):
-    """One ``kernel_shapes`` row: the kernel against its plain version, and
-    in bf16 (the paths' dtype) their times, the bound, the library
-    yardstick's time and, where given, the time of the unfused route the
-    kernel replaces. Raises when the difference exceeds the tolerance."""
+            peak, run_library=None, run_unfused=None, row_set=None, timed=None, **extra):
+    """One ``kernel_shapes`` row: the kernel against its plain version, and,
+    when ``timed`` (by default in bf16, the paths' dtype), their times, the
+    bound, the library yardstick's time and, where given, the time of the
+    unfused route the kernel replaces. ``row_set`` names the sum the row
+    belongs to on the ``kernels`` line (by default its path). Raises when
+    the difference exceeds the tolerance."""
     import torch
 
     row = {
-        "kernel": kernel, "path": path, "shape": shape,
+        "kernel": kernel, "path": path, "set": row_set or path, "shape": shape,
         "dtype": str(dtype).replace("torch.", ""),
-        "max_abs_diff": err, "tolerance": tol, "launches_per_run": per_run,
+        "max_abs_diff": err, "tolerance": tol, "launches_per_run": per_run, **extra,
     }
-    if dtype == torch.bfloat16:
+    if timed if timed is not None else dtype == torch.bfloat16:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
         row.update(
             kernel_ms=_time_ms(run, 20), plain_ms=_time_ms(run_ref, 3),
             library_ms=None if run_library is None else _time_ms(run_library, 20),
             **({} if run_unfused is None else {"unfused_ms": _time_ms(run_unfused, 20)}),
-            bound_ms=max(t_bytes, t_ops),
+            bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, ops=ops,
         )
@@ -220,8 +227,9 @@ def _jittered_hypo(depth_values, D, h, w, gen):
 
 
 def check_kernels(dev, batch):
-    """K1, K2 and K5 against their plain versions at the eval forward's
-    shapes, in float32 and bf16; times in bf16 (the forward's dtype)."""
+    """K1 and K5 against their plain versions at the eval forward's shapes,
+    in float32 and bf16, times in bf16 (the forward's dtype); then K2
+    (``check_topdown``)."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
@@ -229,9 +237,6 @@ def check_kernels(dev, batch):
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         attn_fuse as k5,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        topdown as k2,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         warp_cor as k1,
@@ -274,30 +279,66 @@ def check_kernels(dev, batch):
                     k5.TOLERANCE[dtype] * _scale(want), 1,
                     lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
                     nbytes, ops, FP32_FLOPS)
-        # K2 at each top-down level: (Cs, Co) = (32,32), (16,16), (8,8)
-        N = B * V
-        for lvl, (cs, co) in enumerate(((32, 32), (16, 16), (8, 8))):
-            hh, wh = H >> (3 - lvl), W >> (3 - lvl)
-            with_u = lvl < 2
-            intra = torch.randn((N, hh, wh, 64), generator=gen, device=dev).to(dtype)
-            skip = torch.randn((N, 2 * hh, 2 * wh, cs), generator=gen, device=dev).to(dtype)
-            wi = torch.randn((64, cs, 1, 1), generator=gen, device=dev) * cs ** -0.5
-            bi = torch.randn((64,), generator=gen, device=dev) * 0.1
-            wo = torch.randn((co, 64, 3, 3), generator=gen, device=dev) * 576 ** -0.5
-            args = (intra, skip, wi, bi, wo, with_u)
-            got, want = k2.topdown_level(*args), k2.topdown_level_ref(*args)
-            torch.cuda.synchronize()
-            got, want = (got, want) if with_u else ((got,), (want,))
-            err = max(_max_err(a, b) for a, b in zip(got, want))
-            tol = k2.TOLERANCE[dtype] * max(_scale(b) for b in want)
-            esz = intra.element_size()
-            npix = N * 4 * hh * wh
-            nbytes = (intra.numel() + skip.numel()) * esz + npix * (co + (64 if with_u else 0)) * esz \
-                + (wi.numel() + bi.numel() + wo.numel()) * 4
-            ops = npix * (64 * (2 * cs + 7) + 2 * 9 * 64 * co)
-            _record(rows, "topdown", "eval", [N, 2 * hh, 2 * wh, cs, co], dtype, err, tol, 1,
-                    lambda: k2.topdown_level(*args), lambda: k2.topdown_level_ref(*args),
-                    nbytes, ops, BF16_TENSOR_FLOPS)
+    rows += check_topdown(dev, gen)
+    return rows
+
+
+# K2's rows: (set, N, dtypes, modes per level); a level's mode is "with_u"
+# (o and u: the eval forward's and the train forward's mid levels), "o" (the
+# last level) or "u_only" (the train step's backward re-deriving u). Every
+# row is held in float32 and bf16; the set's dtype is timed: the eval
+# forward (B*V images), the train step (forward and backward, TRAIN_B*TRAIN_V
+# images) in bf16, and one view of the float32 pipeline (PIPELINE_V images).
+TOPDOWN_SETS = (
+    ("eval", B * V, "bfloat16", ("with_u", "with_u", "o")),
+    ("train", TRAIN_B * TRAIN_V, "bfloat16", ("with_u", "with_u", "o")),
+    ("train", TRAIN_B * TRAIN_V, "bfloat16", ("u_only",) * 3),
+    ("pipeline_float32", PIPELINE_V, "float32", ("with_u", "with_u", "o")),
+)
+
+
+def check_topdown(dev, gen):
+    """K2 against ``topdown_level_ref`` at every level of each of
+    ``TOPDOWN_SETS``, in float32 and bf16, with the set's dtype timed. The
+    bound counts intra and skip read once, o and u (where written) written
+    once and the weights; operations at the bf16 tensor-core rate in bf16,
+    at the float32 CUDA-core rate in float32, where each route computes
+    them."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        topdown as k2,
+    )
+
+    rows = []
+    for row_set, N, timed_dtype, modes in TOPDOWN_SETS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for lvl, ((cs, co), mode) in enumerate(zip(((32, 32), (16, 16), (8, 8)), modes)):
+                hh, wh = H >> (3 - lvl), W >> (3 - lvl)
+                intra = torch.randn((N, hh, wh, 64), generator=gen, device=dev).to(dtype)
+                skip = torch.randn((N, 2 * hh, 2 * wh, cs), generator=gen, device=dev).to(dtype)
+                wi = torch.randn((64, cs, 1, 1), generator=gen, device=dev) * cs ** -0.5
+                bi = torch.randn((64,), generator=gen, device=dev) * 0.1
+                wo = torch.randn((co, 64, 3, 3), generator=gen, device=dev) * 576 ** -0.5
+                kw = {"with_u": mode == "with_u", "u_only": mode == "u_only"}
+                args = (intra, skip, wi, bi, wo)
+                got, want = k2.topdown_level(*args, **kw), k2.topdown_level_ref(*args, **kw)
+                torch.cuda.synchronize()
+                got, want = (got, want) if mode == "with_u" else ((got,), (want,))
+                err = max(_max_err(a, b) for a, b in zip(got, want))
+                tol = k2.TOLERANCE[dtype] * max(_scale(b) for b in want)
+                esz = intra.element_size()
+                npix = N * 4 * hh * wh
+                written = (0 if mode == "u_only" else co) + (0 if mode == "o" else 64)
+                nbytes = (intra.numel() + skip.numel() + npix * written) * esz \
+                    + (wi.numel() + bi.numel() + (0 if mode == "u_only" else wo.numel())) * 4
+                ops = npix * (64 * (2 * cs + 7) + (0 if mode == "u_only" else 2 * 9 * 64 * co))
+                is_bf16 = dtype == torch.bfloat16
+                _record(rows, "topdown", row_set.split("_")[0], [N, 2 * hh, 2 * wh, cs, co], dtype,
+                        err, tol, 1, lambda a=args, k=kw: k2.topdown_level(*a, **k),
+                        lambda a=args, k=kw: k2.topdown_level_ref(*a, **k), nbytes, ops,
+                        BF16_TENSOR_FLOPS if is_bf16 else FP32_FLOPS, row_set=row_set,
+                        timed=str(dtype) == f"torch.{timed_dtype}", mode=mode)
     return rows
 
 
@@ -357,14 +398,39 @@ def check_band_conv(dev):
     return rows
 
 
+def _train_hypotheses(batch, cfg):
+    """The four stages' hypotheses as the train path makes them from a
+    depth map: stage 1 the full inverse range (``init_inverse_range``),
+    each later stage ``schedule_inverse_range`` around the scene's depth at
+    the previous stage, +- ``depth_inter_r`` of that stage's spacing, as
+    ``models/stagenet.py`` and ``models/mvs4net.py`` compute it."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.hypothesis import (
+        init_inverse_range,
+        schedule_inverse_range,
+    )
+
+    hypos = [init_inverse_range(batch["depth_values"], cfg.ndepths[0], H >> 3, W >> 3).float()]
+    for s in range(1, 4):
+        prev = hypos[-1]
+        depth = batch["depth"][f"stage{s}"].float()
+        itv = 1.0 / prev[:, 2] - 1.0 / prev[:, 1]
+        r = cfg.depth_inter_r[s - 1]
+        hypos.append(schedule_inverse_range(1.0 / depth + r * itv, 1.0 / depth - r * itv,
+                                            cfg.ndepths[s], H >> (3 - s), W >> (3 - s)).float())
+    return [h.contiguous() for h in hypos]
+
+
 def check_warp_bwd(dev, batch):
     """K3 against ``warp_bwd_ref`` at the train step's four stages (B=6,
-    the stage's C and D, 4 source views each), with g in float32 and bf16;
-    in bf16 the times of the kernel, the plain version and the library
-    yardstick ``aten.grid_sampler_2d_backward`` (bilinear, zeros,
-    align_corners, the D planes stacked as rows). The yardstick runs in
-    float32: grid_sampler takes its grid in the input's dtype, and a bf16
-    grid cannot hold a 640-pixel coordinate."""
+    the stage's C and D, 4 source views each), with g in float32 and bf16,
+    on two sets of hypotheses: PR 4's (``full_range``: the full inverse
+    range at every stage, jittered, the worst case for the footprint) and
+    the train path's (``train``: ``_train_hypotheses``); in bf16 the times
+    of the kernel, of the plain version and of the library yardstick
+    ``aten.grid_sampler_2d_backward`` (bilinear, zeros, align_corners, the
+    D planes stacked as rows). The yardstick runs in float32: grid_sampler
+    takes its grid in the input's dtype, and a bf16 grid cannot hold a
+    640-pixel coordinate."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
@@ -379,40 +445,47 @@ def check_warp_bwd(dev, batch):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows, library_diff = [], {}
     Bt = TRAIN_B
-    for dtype in (torch.float32, torch.bfloat16):
-        for s in range(4):
-            h, w = H >> (3 - s), W >> (3 - s)
-            C, D = cfg.fpn_out_channels[s], cfg.ndepths[s]
-            projs = batch["proj_matrices"][f"stage{s + 1}"]
-            rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
-            hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
-            g = torch.randn((Bt, D, h, w, C), generator=gen, device=dev).to(dtype)
-            shape = (Bt, h, w, C)
-            got, want = k3.warp_bwd(g, rel, hypo, shape), k3.warp_bwd_ref(g, rel, hypo, shape)
-            torch.cuda.synchronize()
-            run_library = None
-            if dtype == torch.bfloat16:
-                xy = warp_coords(rel, hypo).reshape(Bt, D * h, w, 2)
-                grid = torch.stack([xy[..., 0] * (2.0 / (w - 1)) - 1.0,
-                                    xy[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
-                g_nchw = g.float().permute(0, 4, 1, 2, 3).reshape(Bt, C, D * h, w).contiguous()
-                src = torch.zeros((Bt, C, h, w), device=dev)
+    train_hypos = _train_hypotheses(batch, cfg)
+    for row_set in ("full_range", "train"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in range(4):
+                h, w = H >> (3 - s), W >> (3 - s)
+                C, D = cfg.fpn_out_channels[s], cfg.ndepths[s]
+                projs = batch["proj_matrices"][f"stage{s + 1}"]
+                rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+                if row_set == "train":
+                    hypo = train_hypos[s]
+                else:
+                    hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
+                g = torch.randn((Bt, D, h, w, C), generator=gen, device=dev).to(dtype)
+                shape = (Bt, h, w, C)
+                got = k3.warp_bwd(g, rel, hypo, shape)
+                want = k3.warp_bwd_ref(g, rel, hypo, shape)
+                torch.cuda.synchronize()
+                run_library = None
+                if dtype == torch.bfloat16:
+                    xy = warp_coords(rel, hypo).reshape(Bt, D * h, w, 2)
+                    grid = torch.stack([xy[..., 0] * (2.0 / (w - 1)) - 1.0,
+                                        xy[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
+                    g_nchw = g.float().permute(0, 4, 1, 2, 3).reshape(Bt, C, D * h, w).contiguous()
+                    src = torch.zeros((Bt, C, h, w), device=dev)
 
-                def run_library(g_nchw=g_nchw, src=src, grid=grid):
-                    return torch.ops.aten.grid_sampler_2d_backward(
-                        g_nchw, src, grid, 0, 0, True, [True, False])[0]
+                    def run_library(g_nchw=g_nchw, src=src, grid=grid):
+                        return torch.ops.aten.grid_sampler_2d_backward(
+                            g_nchw, src, grid, 0, 0, True, [True, False])[0]
 
-                lib = run_library().permute(0, 2, 3, 1)
-                library_diff[f"stage{s + 1}"] = _max_err(lib, want)
-            # the function's bytes: g, hypo and rel read once, dsrc written
-            # once; the zeroing pass of the atomic design is not in the bound
-            nbytes = g.numel() * g.element_size() + hypo.numel() * 4 + rel.numel() * 4 \
-                + got.numel() * 4
-            _record(rows, "warp_bwd", "train", [Bt, D, h, w, C], dtype, _max_err(got, want),
-                    k3.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
-                    lambda g=g, rel=rel, hypo=hypo, shape=shape: k3.warp_bwd(g, rel, hypo, shape),
-                    lambda g=g, rel=rel, hypo=hypo, shape=shape: k3.warp_bwd_ref(g, rel, hypo, shape),
-                    nbytes, Bt * D * h * w * (28 + 8 * C), FP32_FLOPS, run_library)
+                    lib = run_library().permute(0, 2, 3, 1)
+                    library_diff[f"{row_set} stage{s + 1}"] = _max_err(lib, want)
+                # the function's bytes: g, hypo and rel read once, dsrc written
+                # once; the zeroing pass of the scatter design is not in the bound
+                nbytes = g.numel() * g.element_size() + hypo.numel() * 4 + rel.numel() * 4 \
+                    + got.numel() * 4
+                a = (g, rel, hypo, shape)
+                _record(rows, "warp_bwd", "train", [Bt, D, h, w, C], dtype, _max_err(got, want),
+                        k3.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
+                        lambda a=a: k3.warp_bwd(*a), lambda a=a: k3.warp_bwd_ref(*a),
+                        nbytes, Bt * D * h * w * (28 + 8 * C), FP32_FLOPS, run_library,
+                        row_set=row_set)
     return rows, library_diff
 
 
@@ -780,6 +853,29 @@ def drive_train_cli(counters):
     }
 
 
+def _per_run(rows):
+    """Sums over the timed rows of each set, per run of the set's path
+    (times the rows' launches per run): the kernel's time, the plain
+    version's, the bound and its parts, the library yardstick's (None if a
+    row has none)."""
+    sums = {}
+    for row_set in {r["set"] for r in rows}:
+        timed = [r for r in rows if r["set"] == row_set and "kernel_ms" in r]
+        if not timed:
+            continue
+
+        def total(key, timed=timed):
+            return sum(r[key] * r["launches_per_run"] for r in timed)
+
+        entry = {"ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+                 "bound_ms": total("bound_ms"), "bytes": total("bytes"), "ops": total("ops"),
+                 "bound_by": "operations" if total("ops_ms") > total("bytes_ms") else "bytes",
+                 "library_ms": None if any(r["library_ms"] is None for r in timed)
+                 else total("library_ms")}
+        sums[row_set] = entry
+    return sums
+
+
 def main() -> int:
     import torch
 
@@ -908,7 +1004,7 @@ def main() -> int:
     print(json.dumps({"train_cli": train_cli}))
 
     kernel_line = []
-    for name, src, replaces, also_serves, path in (
+    for name, src, replaces, also_serves, row_set in (
         ("warp_cor", "csrc/warp_cor.cu", "warp_fwd_v3.py:438",
          ["warp_fwd_v3.py:522 (with ref, via warp_mxu.warp_cor_v3)"], "eval"),
         ("topdown", "csrc/topdown.cu", "topdown_fused.py:317",
@@ -921,13 +1017,8 @@ def main() -> int:
         ("band_conv", "csrc/band_conv.cu", "reg_band_proto.py:89", [], "eval"),
     ):
         mine = [r for r in rows if r["kernel"] == name]
-        timed = [r for r in mine if "kernel_ms" in r]
-        # per run of the kernel's timed path: an eval forward or a train step
-        per_run = {k: sum(r[k] * r["launches_per_run"] for r in timed)
-                   for k in ("kernel_ms", "plain_ms", "bound_ms", "bytes", "ops")}
-        lib = [r["library_ms"] for r in timed]
-        peak = BF16_TENSOR_FLOPS if name in ("topdown", "band_conv") else FP32_FLOPS
-        by_ops = per_run["ops"] / peak * 1e3
+        sums = _per_run(mine)
+        main = sums[row_set]
         entry = {
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": f"{JAX_PKG_OPS}/{replaces}",
@@ -936,19 +1027,24 @@ def main() -> int:
             "launches_eval": counts[name], "launches_train": train_counts[name],
             "launches_pipeline": pipeline_counts[name],
             "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
-            "timed_per": "eval forward" if path == "eval" else "train step",
+            "timed_per": "eval forward" if row_set == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
-            "ms": per_run["kernel_ms"], "plain_ms": per_run["plain_ms"],
-            "bound_ms": per_run["bound_ms"],
-            "bound_by": "operations" if by_ops > per_run["bytes"] / HBM_BYTES_PER_S * 1e3 else "bytes",
-            "library_ms": None if None in lib else sum(
-                r["library_ms"] * r["launches_per_run"] for r in timed),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
         if name == "band_conv":
             # the route it replaces, and the least time of its sums on the
             # float32 CUDA cores, where this kernel computes them
-            entry["unfused_ms"] = sum(r["unfused_ms"] * r["launches_per_run"] for r in timed)
-            entry["cuda_core_bound_ms"] = per_run["ops"] / FP32_FLOPS * 1e3
+            entry["unfused_ms"] = sum(r["unfused_ms"] * r["launches_per_run"]
+                                      for r in mine if "unfused_ms" in r)
+            entry["cuda_core_bound_ms"] = main["ops"] / FP32_FLOPS * 1e3
+        if name == "topdown":
+            # the train step (forward and the backward's u_only, bf16) and
+            # one view of the float32 pipeline
+            entry["train_step"] = sums["train"]
+            entry["pipeline_float32_view"] = sums["pipeline_float32"]
+        if name == "warp_bwd":
+            # PR 4's hypotheses: the full inverse range at every stage
+            entry["full_range"] = sums["full_range"]
         kernel_line.append(entry)
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,7 @@ launches = 0
 TOLERANCE = {torch.float32: 3e-5, torch.bfloat16: 3e-5}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_CHANNELS = (8, 16, 32, 64)
 
 
 def warp_bwd_ref(g, rel_proj, hypo, src_shape) -> torch.Tensor:
@@ -90,6 +91,8 @@ def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
             raise ValueError(f"warp_bwd: {name} is not contiguous")
     if not g.is_contiguous():
         raise ValueError("warp_bwd: g is not contiguous")
+    if g.data_ptr() % 16:
+        raise ValueError("warp_bwd: g must be 16-byte aligned")
     if g.dtype not in _DTYPES:
         raise ValueError(f"warp_bwd: dtype {g.dtype} not supported")
     if rel_proj.dtype != torch.float32 or hypo.dtype != torch.float32:
@@ -99,7 +102,9 @@ def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
             f"warp_bwd: shapes g {tuple(g.shape)} rel {tuple(rel_proj.shape)} "
             f"hypo {tuple(hypo.shape)} src {tuple(src_shape)}"
         )
-    if max(H * W * C, Hs * Ws * C) >= 2 ** 31 or B * D >= 2 ** 16:
+    if C not in _CHANNELS:
+        raise ValueError(f"warp_bwd: C={C} not supported")
+    if max(H * W * C, Hs * Ws * C) >= 2 ** 31 or B >= 2 ** 16:
         raise ValueError("warp_bwd: plane or grid too large for the kernel's indices")
     dsrc = torch.zeros((B, Hs, Ws, C), dtype=torch.float32, device=g.device)
     status = _lib()(

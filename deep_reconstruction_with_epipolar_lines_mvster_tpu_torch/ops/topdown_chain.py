@@ -8,7 +8,8 @@ then ``o = 3x3(u)``, and each mid level's ``u`` feeds the next.
 ``TopDownChain`` is the ``torch.autograd.Function``. Its forward runs K2
 once per level and saves only ``(intra, skips, weights)``. Its backward:
 
-  1. re-derives every level's ``u`` with K2 (``with_u=True``);
+  1. re-derives every level's ``u`` with K2 (``u_only=True``: no 3x3, no
+     ``o``);
   2. casts the output gradients to the working dtype;
   3. per level, finest first: ``du, dwo`` of the 3x3 from the convolution
      library's gradient calls, plus the gradient from the next level;
@@ -70,7 +71,7 @@ class TopDownChain(torch.autograd.Function):
         us = []
         cur = intra
         for skip, (wi, bi, wo) in zip(skips, weights):
-            _, cur = topdown_level(cur, skip, wi, bi, wo, with_u=True)
+            cur = topdown_level(cur, skip, wi, bi, wo, u_only=True)
             us.append(cur)
 
         n = len(skips)

@@ -123,6 +123,58 @@ def test_topdown_kernel_matches_plain(dev, dtype):
         cur = u_ref
 
 
+# K2 at sizes that are not multiples of the 8 x 32 tile: (N, Hh, Wh) of the
+# half-resolution input, one image smaller than a tile (6 x 10), ragged on
+# both axes (26 x 74), and the train path's N = 30
+K2_SHAPES = [(1, 3, 5), (1, 13, 37), (30, 12, 20), (2, 5, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hh,Wh", K2_SHAPES)
+@pytest.mark.parametrize("cs,co", [(32, 32), (16, 16), (8, 8)])
+def test_topdown_kernel_ragged_shapes_match_plain(dev, dtype, N, Hh, Wh, cs, co):
+    """K2 against ``topdown_level_ref`` with ``with_u`` (both outputs) and
+    ``u_only`` at the three levels' (Cs, Co) on images that are not
+    multiples of the tile, including one smaller than a tile and N = 30;
+    ``u_only`` gives the ``u`` of ``with_u`` bit for bit, one launch each."""
+    rng = np.random.default_rng(N * 1000 + Hh * 10 + Wh + cs)
+    H, W = 2 * Hh, 2 * Wh
+    intra = torch.from_numpy(rng.standard_normal((N, Hh, Wh, 64)).astype(np.float32))
+    skip = torch.from_numpy(rng.standard_normal((N, H, W, cs)).astype(np.float32))
+    wi = torch.from_numpy((rng.standard_normal((64, cs, 1, 1)) * cs ** -0.5).astype(np.float32))
+    bi = torch.from_numpy((rng.standard_normal((64,)) * 0.1).astype(np.float32))
+    wo = torch.from_numpy((rng.standard_normal((co, 64, 3, 3)) / 24).astype(np.float32))
+    args = (intra.to(dev, dtype), skip.to(dev, dtype), wi.to(dev), bi.to(dev), wo.to(dev))
+    before = k2.launches
+    o, u = k2.topdown_level(*args, with_u=True)
+    u_only = k2.topdown_level(*args, u_only=True)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 2
+    o_ref, u_ref = k2.topdown_level_ref(*args, with_u=True)
+    assert o.shape == (N, H, W, co) and u_only.shape == (N, H, W, 64)
+    _close(o, o_ref, k2.TOLERANCE[dtype])
+    _close(u, u_ref, k2.TOLERANCE[dtype])
+    assert torch.equal(u_only, u)
+
+
+@pytest.mark.parametrize("cs", [8, 16, 32])
+@pytest.mark.parametrize("co", [8, 16, 32])
+def test_topdown_kernel_every_channel_pair(dev, cs, co):
+    """Every (Cs, Co) instantiation of K2's bf16 tensor-core route against
+    ``topdown_level_ref`` (o alone), on a 2 x 18 x 70 image."""
+    rng = np.random.default_rng(cs * 100 + co)
+    intra = torch.from_numpy(rng.standard_normal((2, 9, 35, 64)).astype(np.float32))
+    skip = torch.from_numpy(rng.standard_normal((2, 18, 70, cs)).astype(np.float32))
+    wi = torch.from_numpy((rng.standard_normal((64, cs, 1, 1)) * cs ** -0.5).astype(np.float32))
+    bi = torch.from_numpy((rng.standard_normal((64,)) * 0.1).astype(np.float32))
+    wo = torch.from_numpy((rng.standard_normal((co, 64, 3, 3)) / 24).astype(np.float32))
+    args = (intra.to(dev, torch.bfloat16), skip.to(dev, torch.bfloat16), wi.to(dev),
+            bi.to(dev), wo.to(dev))
+    got = k2.topdown_level(*args)
+    torch.cuda.synchronize()
+    _close(got, k2.topdown_level_ref(*args), k2.TOLERANCE[torch.bfloat16])
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     """No fallback: a CUDA tensor the kernel cannot take raises instead of
     being computed some other way."""
@@ -150,6 +202,24 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k6.band_conv(torch.zeros((1, 8, 8, 8), device=dev, dtype=torch.float16), w6, s6, s6)
     with pytest.raises(ValueError, match="shapes"):
         k6.band_conv(torch.zeros((1, 8, 8, 4), device=dev), w6, s6, s6)
+    g3 = torch.zeros((1, 2, 8, 8, 12), device=dev)
+    with pytest.raises(ValueError, match="not supported"):
+        k3.warp_bwd(g3, rel, hypo, (1, 8, 8, 12))                 # C = 12
+    with pytest.raises(ValueError, match="not supported"):
+        k3.warp_bwd(g3[..., :8].half().contiguous(), rel, hypo, (1, 8, 8, 8))
+    with pytest.raises(ValueError, match="aligned"):
+        k3.warp_bwd(torch.zeros(1 * 2 * 8 * 8 * 8 + 1, device=dev)[1:].view(1, 2, 8, 8, 8),
+                    rel, hypo, (1, 8, 8, 8))
+    with pytest.raises(ValueError, match="shapes"):
+        k3.warp_bwd(torch.zeros((1, 3, 8, 8, 8), device=dev), rel, hypo, (1, 8, 8, 8))
+    with pytest.raises(ValueError, match="shapes"):
+        k2.topdown_level(intra, torch.zeros((1, 6, 8, 8), device=dev),
+                         torch.zeros((64, 8, 1, 1), device=dev), torch.zeros(64, device=dev),
+                         torch.zeros((8, 64, 3, 3), device=dev), u_only=True)
+    with pytest.raises(ValueError, match="not supported"):
+        k2.topdown_level(intra.half(), torch.zeros((1, 8, 8, 8), device=dev).half(),
+                         torch.zeros((64, 8, 1, 1), device=dev), torch.zeros(64, device=dev),
+                         torch.zeros((8, 64, 3, 3), device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -175,6 +245,65 @@ def test_warp_bwd_kernel_matches_plain(dev, dtype, C, src_hw):
     assert k3.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, hs, ws, C)
     _close(got, k3.warp_bwd_ref(g, rel, hypo, (B, hs, ws, C)), k3.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,src_hw", [(8, None), (16, None), (32, None), (64, None), (8, (20, 28))])
+def _k3_case(case, C, dev):
+    """Inputs of one K3 footprint case (see the test below)."""
+    B = 2
+    H, W, D = (64, 80, 8) if case in ("full_range", "scrambled") else (
+        48, 64, 8 if case == "narrow" else 4)
+    rng = np.random.default_rng(C * 7 + len(case))
+    batch = batch_samples([make_plane_scene(V=2, H=H, W=W, seed=i) for i in range(B)])
+    pr = torch.from_numpy(batch["proj_matrices"]["stage4"]).to(dev)
+    rel = relative_projection(pr[:, 1], pr[:, 0]).contiguous()
+    if case == "narrow":
+        # a window of +-0.5% around a depth map, as stages 2-4 sweep it
+        depth = np.linspace(500.0, 800.0, W)[None, None, None, :] * np.ones((B, 1, H, W))
+        hypo = depth * (1 + np.linspace(-0.005, 0.005, D)[None, :, None, None])
+    else:
+        # the full inverse range (stage 1); the small source leaves the image
+        inv = np.linspace(1 / 935.0, 1 / 425.0, D)[None, :, None, None]
+        hypo = 1.0 / (inv * (1 + 0.02 * rng.standard_normal((B, D, H, W))))
+    if case == "scrambled":
+        # every plane holds every depth of the sweep, so even one plane's
+        # box overflows the window and is clipped to it
+        d = (np.arange(D)[:, None, None] + np.arange(H)[:, None] + np.arange(W)) % D
+        hypo = np.take_along_axis(hypo, np.broadcast_to(d, hypo.shape), axis=1)
+    hypo = hypo.astype(np.float32)
+    if case == "nan_inf":
+        hypo[0, 1, 3:9, 5:30] = np.nan
+        hypo[1, 2, 10:20, :] = np.inf
+        hypo[1, 0, 0:4, 0:4] = -np.inf
+        hypo[0, 3, 30:40, 40:60] = 1e30
+    hs, ws = (20, 28) if case == "small_source" else (H, W)
+    g = rng.standard_normal((B, D, H, W, C)).astype(np.float32)
+    return g, rel, torch.from_numpy(hypo).to(dev), (B, hs, ws, C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,C", [
+    ("narrow", 8), ("narrow", 64), ("full_range", 64), ("full_range", 8),
+    ("scrambled", 64), ("small_source", 16), ("nan_inf", 32), ("nan_inf", 8),
+])
+def test_warp_bwd_kernel_footprints_match_plain(dev, dtype, case, C):
+    """K3's footprint cases against ``warp_bwd_ref`` (tolerance:
+    ``TOLERANCE``): a narrow depth window, whose taps over all D fit the
+    shared-memory window; the full range at D = 8 (C = 64 overflows the
+    window, plane by plane); every depth in every plane (one plane's box
+    clipped to the window, the taps outside it straight to device memory);
+    a source smaller than the reference; NaN, +-inf
+    and huge hypotheses, which give no taps and no fault."""
+    g, rel, hypo, shape = _k3_case(case, C, dev)
+    g = torch.from_numpy(g).to(dev, dtype)
+    before = k3.launches
+    got = k3.warp_bwd(g, rel, hypo, shape)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    want = k3.warp_bwd_ref(g, rel, hypo, shape)
+    assert torch.isfinite(got).all()
+    _close(got, want, k3.TOLERANCE[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -322,6 +451,8 @@ def test_kernel_wrappers_raise_under_autograd(dev):
     bi, wo = torch.zeros(64, device=dev), torch.zeros((8, 64, 3, 3), device=dev)
     with pytest.raises(RuntimeError, match="autograd"):
         k2.topdown_level(intra, skip, wi, bi, wo)
+    with pytest.raises(RuntimeError, match="autograd"):
+        k2.topdown_level(intra, skip, wi, bi, wo, u_only=True)
     with pytest.raises(RuntimeError, match="autograd"):
         k4.warp_fwd(src, rel, hypo)
     cors = torch.zeros((2, 1, 2, 8, 8, 4), device=dev, requires_grad=True)
