@@ -11,8 +11,9 @@
    both with CUDA events: K1 (warp + group correlation), K5 (attention
    accumulation) and K6 (3x3 conv + folded BatchNorm + ReLU, beside
    ``F.conv2d`` + ``relu_`` on the folded weights and the unfused conv +
-   BatchNorm + ReLU it replaces; also at two wider stem layers off its
-   route) at the eval forward's shapes; K2 (FPN top-down level) at the eval
+   BatchNorm + ReLU it replaces, at every 3x3 stride-1 layer of the stem and
+   Reg2D.conv0, timed in both dtypes, the rows that back its route rule in
+   ``models/layers.py``) at the eval forward's shapes; K2 (FPN top-down level) at the eval
    forward's, the train step's (its 3 forward launches and the backward's 3
    ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
    (warp backward) at the train step's on two sets of hypotheses (the full
@@ -20,15 +21,22 @@
    windows around a depth map), and K4 (warp forward) at the train step's,
    beside their library
    yardsticks ``aten.grid_sampler_2d_backward`` and ``F.grid_sample``.
+   Then every kernel at the widths of FPN base 4 and 16 (``OTHER_WIDTHS``,
+   the same checks at those widths): K1, K5 and K2 at the eval forward's
+   shapes, K3 and K4 at the train step's, each row naming the instance it took (the
+   generic instances: K1 at C 4 and 128 and G 16, K4 at C 4 and 128, K2 at
+   Ci 32 and 128; K5's workspace form at G 16).
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
    and BatchNorm statistics on plane-scene inputs: the launch counters are
    set to 0 just before one forward and read just after (K1 12 launches,
-   K2 3, K5 4, K6 8), then three rounds of five forwards are timed.
+   K2 3, K5 4, K6 12: every 3x3 stride-1 layer on its bf16 route), then
+   three rounds of five forwards are timed.
 4. Checks the eval output: finite depth of the expected shape, and, on a
    small input, the card's forward against the CPU's plain forward with the
-   same weights in float32.
+   same weights in float32 (``checks.check_forward``), at FPN base 8 and
+   then at base 4 and 16 (``forward_other_widths``).
 5. The top-down chain's ``autograd.Function`` (K2 forward, K2 re-deriving
    ``u`` in the backward) against autograd through the plain chain, at the
    train shape (30 images), in float32 and bf16 (``checks.py``).
@@ -37,7 +45,8 @@
    CPU's next-stage hypotheses and its gradients at the cost volumes and
    mono depths, then the loss, the FPN outputs' gradients, every
    parameter's gradient, and a nonzero gradient for every parameter on the
-   card are held to fixed limits.
+   card are held to fixed limits; then the same at FPN base 4
+   (``small_train_step_other_width``).
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
    Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
    before one step and read just after (K4 16, K3 16, K2 6, K6 0), then a
@@ -48,9 +57,11 @@
    a 4-view 512x640 plane scene with 192 hypotheses): the depth maps of
    every reference view, each view filtered against its 3 sources, the
    fused PLY written under ``chiprun_out/``; the counters are set to 0 just
-   before the run and read just after (per view K1 12, K2 3, K5 4, K6 8),
+   before the run and read just after (per view K1 12, K2 3, K5 4, K6 10:
+   its float32 route stops at 32 channels),
    and a profile of one more run. Then the same pipeline at 64x128 on the
-   card against the CPU (``checks.check_pipeline``).
+   card against the CPU (``checks.check_pipeline``). K6's launches per
+   forward follow its route rule (``_k6_launches``).
 9. Drives the train CLI (``cli.train.main`` in this process) at full width
    with scripts/train_dtu.sh's model, loss and optimizer flags on 12
    synthetic 512x640 scenes of 5 views, B=6, logdir ``chiprun_out/
@@ -58,12 +69,13 @@
    ``--resume --epochs 2`` (continues at epoch 2, step 2), ``--mode test``
    and ``--mode profile`` (a Chrome trace); the counters are set to 0 before
    each part and read after it (per train step K4 16, K3 16, K2 6, K6 0; per
-   validation batch K1 16, K2 3, K5 4, K6 8).
+   validation batch K1 16, K2 3, K5 4, K6 12).
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
-one forward by kernel), a ``forward`` line, a ``chain_backward`` line, a
-``small_train_step`` line, a ``train`` line, a ``train_profile`` line, a
+one forward by kernel), a ``forward`` line, a ``forward_other_widths``
+line, a ``chain_backward`` line, a ``small_train_step`` line, a
+``small_train_step_other_width`` line, a ``train`` line, a ``train_profile`` line, a
 ``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line and a
 ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
@@ -93,14 +105,16 @@ SEED = 0
 # launches of each kernel on each path: an eval forward (B4 V4), a train
 # step (B6 V5), one reference view of the eval pipeline (V4) and one
 # validation batch of the train CLI (B6 V5)
+# (K6's launches follow its route rule, models/layers.band_conv_route:
+# main() fills them in from _k6_launches)
 EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                 "band_conv": 8}
+                 "band_conv": None}
 TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0,
                   "band_conv": 0}
 PIPELINE_LAUNCHES_PER_VIEW = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0,
-                              "attn_fuse": 4, "band_conv": 8}
+                              "attn_fuse": 4, "band_conv": None}
 VAL_LAUNCHES = {"warp_cor": 16, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                "band_conv": 8}
+                "band_conv": None}
 PIPELINE_V = 4
 # the weight seed of the pipeline phase: with random weights the fused cloud's
 # size depends on the draw, and some seeds give an empty cloud; seed 4 gives
@@ -122,22 +136,35 @@ TRAIN_CLI_FLAGS = [
 # train steps of --mode profile: the first call, one warm-up, five timed
 # (train/profiler.profile_step_fn) and one traced
 PROFILE_STEPS = 8
-# K6 at the eval forward's layers (B4 V4 512x640: N = B*V in the FPN stem,
-# B*D in Reg2D.conv0 with D = 8, 8, 4, 4): (name, N, H, W, Ci, Co, launches
-# per forward); conv1.1 and conv1.2 share a shape. The 32- and 64-channel
-# stem layers are off the route (launches 0), timed so that the record says
-# whether it should widen.
+# K6 at the eval forward's 3x3 stride-1 conv + BatchNorm + ReLU layers (B4
+# V4 512x640: N = B*V in the FPN stem, B*D in Reg2D.conv0 with D = 8, 8, 4,
+# 4): (name, N, H, W, Ci, Co, layers of that shape per forward). A row's
+# launches per forward are its layers where models/layers.band_conv_route
+# puts the shape on K6's route in the row's dtype, else 0; every row is
+# timed in both dtypes beside the unfused route, so that the rule rests on
+# the rows of the same call.
 BAND_CONV_LAYERS = (
     ("stem conv0.0", B * V, H, W, 3, 8, 1),
     ("stem conv0.1", B * V, H, W, 8, 8, 1),
     ("stem conv1.1, conv1.2", B * V, H // 2, W // 2, 16, 16, 2),
+    ("stem conv2.1, conv2.2", B * V, H // 4, W // 4, 32, 32, 2),
+    ("stem conv3.1, conv3.2", B * V, H // 8, W // 8, 64, 64, 2),
     ("Reg2D.conv0 stage1", B * 8, H // 8, W // 8, 8, 8, 1),
     ("Reg2D.conv0 stage2", B * 8, H // 4, W // 4, 8, 8, 1),
     ("Reg2D.conv0 stage3", B * 4, H // 2, W // 2, 4, 8, 1),
     ("Reg2D.conv0 stage4", B * 4, H, W, 4, 8, 1),
-    ("stem conv2.1 (off route)", B * V, H // 4, W // 4, 32, 32, 0),
-    ("stem conv3.1 (off route)", B * V, H // 8, W // 8, 64, 64, 0),
 )
+
+
+def _k6_launches(dtype) -> int:
+    """K6's launches per eval forward of the flagship model (FPN base 8) in
+    ``dtype``: the layers of ``BAND_CONV_LAYERS`` on its route."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
+        band_conv_route,
+    )
+
+    return sum(n for _, _, _, _, ci, co, n in BAND_CONV_LAYERS
+               if band_conv_route(ci, co, dtype))
 
 
 def _dtu_model_config(dtype="bfloat16"):
@@ -226,10 +253,24 @@ def _jittered_hypo(depth_values, D, h, w, gen):
     return (hypo * (1 + 0.01 * noise)).contiguous()
 
 
-def check_kernels(dev, batch):
-    """K1 and K5 against their plain versions at the eval forward's shapes,
-    in float32 and bf16, times in bf16 (the forward's dtype); then K2
-    (``check_topdown``)."""
+# FPN widths beside the flagship's base 8, which the kernels take through
+# their generic instances: (--fpn_base_channel, --group_cor_dim); their rows
+# make the sets eval_base{b} and train_base{b}
+OTHER_WIDTHS = ((4, (8, 8, 4, 2)), (16, (16, 8, 4, 4)))
+
+
+def _stage_channels(base, s):
+    """The channels stage ``s`` (0 = 1/8 resolution) carries at FPN base
+    ``base``: 8b, 4b, 2b, b."""
+    return (8 * base) >> s
+
+
+def check_kernels(dev, batch, base=8, groups=(8, 8, 4, 4), row_set="eval"):
+    """K1 and K5 against their plain versions at the eval forward's shapes
+    at FPN base ``base`` and ``groups`` (the stages' C and G), in float32
+    and bf16, times in bf16 (the forward's dtype). A row's ``instance``
+    names the instance its shape takes: K1's compile-time (``fast``) or
+    generic one, K5's register or workspace form."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
@@ -243,13 +284,13 @@ def check_kernels(dev, batch):
     )
 
     cfg = _dtu_model_config()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + base)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         # K1 at each stage: C and G of the stage, D hypotheses, 3 source views
         for s in range(4):
             h, w = H >> (3 - s), W >> (3 - s)
-            C, G, D = cfg.fpn_out_channels[s], cfg.group_cor_dim[s], cfg.ndepths[s]
+            C, G, D = _stage_channels(base, s), groups[s], cfg.ndepths[s]
             projs = batch["proj_matrices"][f"stage{s + 1}"]
             rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
             hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
@@ -260,10 +301,12 @@ def check_kernels(dev, batch):
             torch.cuda.synchronize()
             out_bytes = got.numel() * got.element_size()
             nbytes = sum(t.numel() * t.element_size() for t in args[:4]) + out_bytes
+            fast = C in k1.FAST_CHANNELS and G in k1.FAST_GROUPS
             _record(rows, "warp_cor", "eval", [B, D, h, w, C, G], dtype, _max_err(got, want),
                     k1.TOLERANCE[dtype] * _scale(want), V - 1,
-                    lambda: k1.warp_cor(*args), lambda: k1.warp_cor_ref(*args),
-                    nbytes, B * D * h * w * (28 + 9 * C + G), FP32_FLOPS)
+                    lambda a=args: k1.warp_cor(*a), lambda a=args: k1.warp_cor_ref(*a),
+                    nbytes, B * D * h * w * (28 + 9 * C + G), FP32_FLOPS, row_set=row_set,
+                    instance="fast" if fast else "generic")
             # K5 at each stage: the V-1 volumes of the stage's (D, G), the
             # 1/sqrt(C) of its features; one launch per forward
             cors = (torch.randn((V - 1, B, D, h, w, G), generator=gen, device=dev) * 0.5).to(dtype)
@@ -275,51 +318,62 @@ def check_kernels(dev, batch):
             # and the weights, 2G for the accumulation; G divides at the end
             nbytes = (cors.numel() + got.numel()) * cors.element_size()
             ops = (V - 1) * B * D * h * w * (3 * G + 8) + B * D * h * w * G
+            reg = D in k5.REGISTER_DEPTHS and G in k5.REGISTER_GROUPS
             _record(rows, "attn_fuse", "eval", [V - 1, B, D, h, w, G], dtype, _max_err(got, want),
                     k5.TOLERANCE[dtype] * _scale(want), 1,
                     lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
-                    nbytes, ops, FP32_FLOPS)
-    rows += check_topdown(dev, gen)
+                    nbytes, ops, FP32_FLOPS, row_set=row_set,
+                    instance="register" if reg else "workspace")
     return rows
 
 
-# K2's rows: (set, N, dtypes, modes per level); a level's mode is "with_u"
-# (o and u: the eval forward's and the train forward's mid levels), "o" (the
-# last level) or "u_only" (the train step's backward re-deriving u). Every
-# row is held in float32 and bf16; the set's dtype is timed: the eval
-# forward (B*V images), the train step (forward and backward, TRAIN_B*TRAIN_V
-# images) in bf16, and one view of the float32 pipeline (PIPELINE_V images).
+# K2's rows: (set, N, dtypes, modes per level, FPN base); a level's mode is
+# "with_u" (o and u: the eval forward's and the train forward's mid levels),
+# "o" (the last level) or "u_only" (the train step's backward re-deriving
+# u). Every row is held in float32 and bf16; the set's dtype is timed: the
+# eval forward (B*V images), the train step (forward and backward,
+# TRAIN_B*TRAIN_V images) in bf16, one view of the float32 pipeline
+# (PIPELINE_V images; its u_only rows, which the pipeline does not launch,
+# time the generic kernel's phase 1 alone), and the eval forward at FPN base
+# 4 and 16. A level
+# at base b has Ci = 8b and Cs = Co = 4b, 2b, b.
 TOPDOWN_SETS = (
-    ("eval", B * V, "bfloat16", ("with_u", "with_u", "o")),
-    ("train", TRAIN_B * TRAIN_V, "bfloat16", ("with_u", "with_u", "o")),
-    ("train", TRAIN_B * TRAIN_V, "bfloat16", ("u_only",) * 3),
-    ("pipeline_float32", PIPELINE_V, "float32", ("with_u", "with_u", "o")),
+    ("eval", B * V, "bfloat16", ("with_u", "with_u", "o"), 8),
+    ("train", TRAIN_B * TRAIN_V, "bfloat16", ("with_u", "with_u", "o"), 8),
+    ("train", TRAIN_B * TRAIN_V, "bfloat16", ("u_only",) * 3, 8),
+    ("pipeline_float32", PIPELINE_V, "float32", ("with_u", "with_u", "o"), 8),
+    # phase 1 alone (u_only) at the pipeline's shapes: what the 3x3 adds
+    ("pipeline_float32_u_only", PIPELINE_V, "float32", ("u_only",) * 3, 8),
+    *((f"eval_base{b}", B * V, "bfloat16", ("with_u", "with_u", "o"), b) for b, _ in OTHER_WIDTHS),
 )
 
 
-def check_topdown(dev, gen):
+def check_topdown(dev):
     """K2 against ``topdown_level_ref`` at every level of each of
     ``TOPDOWN_SETS``, in float32 and bf16, with the set's dtype timed. The
     bound counts intra and skip read once, o and u (where written) written
     once and the weights; operations at the bf16 tensor-core rate in bf16,
-    at the float32 CUDA-core rate in float32, where each route computes
-    them."""
+    at the float32 CUDA-core rate in float32. A row's ``instance`` names
+    the route its shape takes: the tensor cores or the generic kernel."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
     )
 
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for row_set, N, timed_dtype, modes in TOPDOWN_SETS:
+    for row_set, N, timed_dtype, modes, base in TOPDOWN_SETS:
+        ci = 8 * base
         for dtype in (torch.float32, torch.bfloat16):
-            for lvl, ((cs, co), mode) in enumerate(zip(((32, 32), (16, 16), (8, 8)), modes)):
+            for lvl, mode in enumerate(modes):
+                cs = co = (4 * base) >> lvl
                 hh, wh = H >> (3 - lvl), W >> (3 - lvl)
-                intra = torch.randn((N, hh, wh, 64), generator=gen, device=dev).to(dtype)
+                intra = torch.randn((N, hh, wh, ci), generator=gen, device=dev).to(dtype)
                 skip = torch.randn((N, 2 * hh, 2 * wh, cs), generator=gen, device=dev).to(dtype)
-                wi = torch.randn((64, cs, 1, 1), generator=gen, device=dev) * cs ** -0.5
-                bi = torch.randn((64,), generator=gen, device=dev) * 0.1
-                wo = torch.randn((co, 64, 3, 3), generator=gen, device=dev) * 576 ** -0.5
+                wi = torch.randn((ci, cs, 1, 1), generator=gen, device=dev) * cs ** -0.5
+                bi = torch.randn((ci,), generator=gen, device=dev) * 0.1
+                wo = torch.randn((co, ci, 3, 3), generator=gen, device=dev) * (9 * ci) ** -0.5
                 kw = {"with_u": mode == "with_u", "u_only": mode == "u_only"}
                 args = (intra, skip, wi, bi, wo)
                 got, want = k2.topdown_level(*args, **kw), k2.topdown_level_ref(*args, **kw)
@@ -329,16 +383,19 @@ def check_topdown(dev, gen):
                 tol = k2.TOLERANCE[dtype] * max(_scale(b) for b in want)
                 esz = intra.element_size()
                 npix = N * 4 * hh * wh
-                written = (0 if mode == "u_only" else co) + (0 if mode == "o" else 64)
+                written = (0 if mode == "u_only" else co) + (0 if mode == "o" else ci)
                 nbytes = (intra.numel() + skip.numel() + npix * written) * esz \
                     + (wi.numel() + bi.numel() + (0 if mode == "u_only" else wo.numel())) * 4
-                ops = npix * (64 * (2 * cs + 7) + (0 if mode == "u_only" else 2 * 9 * 64 * co))
+                ops = npix * (ci * (2 * cs + 7) + (0 if mode == "u_only" else 2 * 9 * ci * co))
                 is_bf16 = dtype == torch.bfloat16
+                mma = (is_bf16 and ci == k2.MMA_CI and cs in k2.MMA_CHANNELS
+                       and co in k2.MMA_CHANNELS)
                 _record(rows, "topdown", row_set.split("_")[0], [N, 2 * hh, 2 * wh, cs, co], dtype,
                         err, tol, 1, lambda a=args, k=kw: k2.topdown_level(*a, **k),
                         lambda a=args, k=kw: k2.topdown_level_ref(*a, **k), nbytes, ops,
                         BF16_TENSOR_FLOPS if is_bf16 else FP32_FLOPS, row_set=row_set,
-                        timed=str(dtype) == f"torch.{timed_dtype}", mode=mode)
+                        timed=str(dtype) == f"torch.{timed_dtype}", mode=mode, ci=ci,
+                        instance="tensor cores" if mma else "generic")
     return rows
 
 
@@ -355,6 +412,7 @@ def check_band_conv(dev):
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
         TorchBatchNorm,
+        band_conv_route,
         conv2d_nhwc,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -364,7 +422,8 @@ def check_band_conv(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for name, n, h, w, ci, co, per_run in BAND_CONV_LAYERS:
+        for name, n, h, w, ci, co, layers in BAND_CONV_LAYERS:
+            per_run = layers if band_conv_route(ci, co, dtype) else 0
             x = torch.randn((n, h, w, ci), generator=gen, device=dev).to(dtype)
             wt = torch.randn((co, ci, 3, 3), generator=gen, device=dev) * (9 * ci) ** -0.5
             bn = TorchBatchNorm(co).to(dev).eval()
@@ -388,12 +447,17 @@ def check_band_conv(dev):
                 return F.relu(bn(conv2d_nhwc(x, wt, padding=1)))
 
             nbytes = (x.numel() + got.numel()) * x.element_size() + (wt.numel() + 2 * co) * 4
+            is_bf16 = dtype == torch.bfloat16
             with torch.no_grad():
                 _record(rows, "band_conv", "eval", [n, h, w, ci, co], dtype,
                         _max_err(got, want), k6.TOLERANCE[dtype] * _scale(want), per_run,
                         lambda a=args: k6.band_conv(*a), lambda a=args: k6.band_conv_ref(*a),
-                        nbytes, 2 * n * h * w * co * 9 * ci, BF16_TENSOR_FLOPS, run_library,
-                        run_unfused)
+                        nbytes, 2 * n * h * w * co * 9 * ci,
+                        BF16_TENSOR_FLOPS if is_bf16 else FP32_FLOPS, run_library,
+                        run_unfused, row_set="eval" if is_bf16 else "eval_float32",
+                        timed=True, layers=layers,
+                        route="tensor cores" if is_bf16 and k6.mma_widths(ci, co)
+                        else "direct")
             rows[-1]["layer"] = name
     return rows
 
@@ -420,12 +484,14 @@ def _train_hypotheses(batch, cfg):
     return [h.contiguous() for h in hypos]
 
 
-def check_warp_bwd(dev, batch):
+def check_warp_bwd(dev, batch, base=8, hypotheses=("full_range", "train"), suffix=""):
     """K3 against ``warp_bwd_ref`` at the train step's four stages (B=6,
-    the stage's C and D, 4 source views each), with g in float32 and bf16,
-    on two sets of hypotheses: PR 4's (``full_range``: the full inverse
-    range at every stage, jittered, the worst case for the footprint) and
-    the train path's (``train``: ``_train_hypotheses``); in bf16 the times
+    the stage's C at FPN base ``base`` and D, 4 source views each), with g
+    in float32 and bf16, on the ``hypotheses`` sets (row set: the name and
+    ``suffix``): ``full_range`` (the full inverse range at every stage,
+    jittered, the worst case for the footprint) and the train path's
+    (``train``: ``_train_hypotheses``); a row's ``instance`` names K3's
+    float4 or scalar atomics; in bf16 the times
     of the kernel, of the plain version and of the library yardstick
     ``aten.grid_sampler_2d_backward`` (bilinear, zeros, align_corners, the
     D planes stacked as rows). The yardstick runs in float32: grid_sampler
@@ -442,18 +508,19 @@ def check_warp_bwd(dev, batch):
     )
 
     cfg = _dtu_model_config()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2 + base)
     rows, library_diff = [], {}
     Bt = TRAIN_B
     train_hypos = _train_hypotheses(batch, cfg)
-    for row_set in ("full_range", "train"):
+    for hyps in hypotheses:
+        row_set = hyps + suffix
         for dtype in (torch.float32, torch.bfloat16):
             for s in range(4):
                 h, w = H >> (3 - s), W >> (3 - s)
-                C, D = cfg.fpn_out_channels[s], cfg.ndepths[s]
+                C, D = _stage_channels(base, s), cfg.ndepths[s]
                 projs = batch["proj_matrices"][f"stage{s + 1}"]
                 rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
-                if row_set == "train":
+                if hyps == "train":
                     hypo = train_hypos[s]
                 else:
                     hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
@@ -485,13 +552,16 @@ def check_warp_bwd(dev, batch):
                         k3.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
                         lambda a=a: k3.warp_bwd(*a), lambda a=a: k3.warp_bwd_ref(*a),
                         nbytes, Bt * D * h * w * (28 + 8 * C), FP32_FLOPS, run_library,
-                        row_set=row_set)
+                        row_set=row_set,
+                        instance="float4" if C % k3.FAST_CHANNEL_MULTIPLE == 0 else "scalar")
     return rows, library_diff
 
 
-def check_warp_fwd(dev, batch):
+def check_warp_fwd(dev, batch, base=8, row_set="train"):
     """K4 against ``warp_fwd_ref`` at the train step's four stages (B=6,
-    the stage's C and D, 4 source views each), in float32 and bf16; in bf16
+    the stage's C at FPN base ``base`` and D, 4 source views each), in
+    float32 and bf16; a row's ``instance`` names K4's compile-time
+    (``fast``) or generic instance; in bf16
     the times of the kernel, the plain version and the library yardstick
     ``F.grid_sample`` (bilinear, zeros, align_corners; the source permuted
     to NCHW and the grid normalised beforehand, the D planes stacked as
@@ -509,13 +579,13 @@ def check_warp_fwd(dev, batch):
     )
 
     cfg = _dtu_model_config()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4 + base)
     rows, library_diff = [], {}
     Bt = TRAIN_B
     for dtype in (torch.float32, torch.bfloat16):
         for s in range(4):
             h, w = H >> (3 - s), W >> (3 - s)
-            C, D = cfg.fpn_out_channels[s], cfg.ndepths[s]
+            C, D = _stage_channels(base, s), cfg.ndepths[s]
             projs = batch["proj_matrices"][f"stage{s + 1}"]
             rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
             hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
@@ -534,7 +604,7 @@ def check_warp_fwd(dev, batch):
                                          align_corners=True)
 
                 lib = run_library().reshape(Bt, C, D, h, w).permute(0, 2, 3, 4, 1)
-                library_diff[f"stage{s + 1}"] = _max_err(lib, want)
+                library_diff[f"{row_set} stage{s + 1}"] = _max_err(lib, want)
             # the source, hypotheses and projection read once, the warped
             # volume written once; per output element 4 products and 3 sums,
             # per pixel the coordinates (~28 operations, as K1's)
@@ -544,42 +614,19 @@ def check_warp_fwd(dev, batch):
                     k4.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
                     lambda a=(src, rel, hypo): k4.warp_fwd(*a),
                     lambda a=(src, rel, hypo): k4.warp_fwd_ref(*a),
-                    nbytes, Bt * D * h * w * (28 + 7 * C), FP32_FLOPS, run_library)
+                    nbytes, Bt * D * h * w * (28 + 7 * C), FP32_FLOPS, run_library,
+                    row_set=row_set, instance="fast" if C in k4.FAST_CHANNELS else "generic")
     return rows, library_diff
 
 
-def check_small_forward_against_cpu(dev):
-    """The card's float32 forward against the CPU's plain forward, same
-    weights, on a 64x128 scene: attention within 1e-3 and depth equal at
-    >= 99% of pixels per stage (argmax near-ties may flip)."""
-    import torch
-
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
-
-    cfg = _dtu_model_config("float32")
-    cpu_model = checks.seeded_model(cfg, SEED + 1, "cpu")
-    gpu_model = checks.seeded_model(cfg, SEED + 1, dev)
-    b_cpu, b_gpu = _scene(1, 3, 64, 128, "cpu"), _scene(1, 3, 64, 128, dev)
-    with torch.inference_mode():
-        want = cpu_model(b_cpu["imgs"], b_cpu["proj_matrices"], b_cpu["depth_values"])
-        got = gpu_model(b_gpu["imgs"], b_gpu["proj_matrices"], b_gpu["depth_values"])
-    worst = {}
-    for s in range(1, 5):
-        g = {k: v.float().cpu() for k, v in got[f"stage{s}"].items()}
-        w = want[f"stage{s}"]
-        attn = (g["attn_weight"] - w["attn_weight"]).abs().max().item()
-        same = torch.isclose(g["depth"], w["depth"], rtol=1e-5, atol=0).float().mean().item()
-        if attn > 1e-3 or same < 0.99:
-            raise AssertionError(f"stage{s}: attn diff {attn}, depth agreement {same}")
-        worst[f"stage{s}"] = {"attn_max_abs_diff": attn, "depth_agreement": same}
-    return worst
-
-
-def profile_run(fn, shares):
+def profile_run(fn, shares, library=None):
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``:
     the total, the device's busy share of the call's wall time, the share
     of each ``shares`` entry (kernel names that contain one of its
-    substrings) and the ten largest kernels."""
+    substrings), the share of the ``library`` substrings among the kernels
+    no ``shares`` entry claims (``share_conv_library``: the port's own
+    kernels, K6 among them, are not the convolution library), and the ten
+    largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -597,14 +644,17 @@ def profile_run(fn, shares):
     ]
     total = sum(ms for _, ms, _ in kernels)
 
-    def share(subs):
-        hit = sum(ms for k, ms, _ in kernels if any(c in k.lower() for c in subs))
+    def share(subs, claimed=()):
+        hit = sum(ms for k, ms, _ in kernels if any(c in k.lower() for c in subs)
+                  and not any(c in k.lower() for c in claimed))
         return hit / total if total else 0.0
 
+    own = tuple(c for subs in shares.values() for c in subs)
     return {
         "device_ms": total, "wall_ms": wall_ms,
         "device_busy_share": total / wall_ms if wall_ms else 0.0,
         **{f"share_{name}": share(subs) for name, subs in shares.items()},
+        **({} if library is None else {"share_conv_library": share(library, own)}),
         "top": [{"kernel": k[:120], "ms": ms, "calls": n}
                 for k, ms, n in sorted(kernels, key=lambda x: -x[1])[:10]],
     }
@@ -688,7 +738,7 @@ def drive_train(dev, batch, counters, kernels):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = sorted(round_ms)[rounds // 2]
     prof = profile_run(lambda: step(batch), {
-        **{name: (f"{name}_kernel",) for name in kernels}, "conv_library": CONV_LIBRARY})
+        name: (f"{name}_kernel",) for name in kernels}, CONV_LIBRARY)
     train = {
         "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
@@ -736,7 +786,7 @@ def drive_pipeline(dev, counters, kernels):
         if d.shape != (H, W) or not np.isfinite(d).all():
             raise AssertionError(f"view {v}: depth {d.shape} not finite/shaped")
     prof = profile_run(lambda: checks.run_pipeline(model, ds, dev), {
-        **{name: (f"{name}_kernel",) for name in kernels}, "conv_library": CONV_LIBRARY})
+        name: (f"{name}_kernel",) for name in kernels}, CONV_LIBRARY)
     print(json.dumps({"pipeline_profile": prof}))
     return {
         "B": 1, "V": PIPELINE_V, "H": H, "W": W, "dtype": "float32", "hypotheses": 192,
@@ -906,6 +956,8 @@ def main() -> int:
 
     counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3, "warp_fwd": k4, "attn_fuse": k5,
                 "band_conv": k6}
+    EVAL_LAUNCHES["band_conv"] = VAL_LAUNCHES["band_conv"] = _k6_launches(torch.bfloat16)
+    PIPELINE_LAUNCHES_PER_VIEW["band_conv"] = _k6_launches(torch.float32)
     kernels = _build.KERNELS
     # the eval CLI's device setup (TF32 off), so that every phase runs at
     # the precision a user of the port gets
@@ -931,10 +983,15 @@ def main() -> int:
 
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
-    rows = check_kernels(dev, batch) + check_band_conv(dev)
+    rows = check_kernels(dev, batch) + check_topdown(dev) + check_band_conv(dev)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows
+    # every kernel at FPN base 4 and 16: the generic instances
+    for base, groups in OTHER_WIDTHS:
+        rows += check_kernels(dev, batch, base, groups, f"eval_base{base}")
+        rows += check_warp_fwd(dev, train_batch, base, f"train_base{base}")[0]
+        rows += check_warp_bwd(dev, train_batch, base, ("train",), f"_base{base}")[0]
     print(json.dumps({"kernel_shapes": rows,
                       "warp_bwd_library_max_abs_diff": bwd_library_diff,
                       "warp_fwd_library_max_abs_diff": fwd_library_diff}))
@@ -973,10 +1030,10 @@ def main() -> int:
             raise AssertionError(f"timed forwards launched {timed_counts}")
         torch.cuda.reset_peak_memory_stats()
         profile = profile_run(lambda: model(*args), {
-            **{name: (f"{name}_kernel",) for name in kernels}, "conv_library": CONV_LIBRARY})
+            name: (f"{name}_kernel",) for name in kernels}, CONV_LIBRARY)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"profile": profile}))
-    small = check_small_forward_against_cpu(dev)
+    small = checks.check_forward(dev, seed=SEED + 1)
     print(json.dumps({"forward": {
         "B": B, "V": V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_forward": fwd_ms, "depth_maps_per_s": B * 1e3 / fwd_ms,
@@ -989,9 +1046,15 @@ def main() -> int:
     del model, out, batch, args
     torch.cuda.empty_cache()
 
+    print(json.dumps({"forward_other_widths": [
+        checks.check_forward(dev, base, groups, seed=SEED + 1) for base, groups in OTHER_WIDTHS]}))
     print(json.dumps({"chain_backward": check_chain_backward(dev)}))
     torch.cuda.empty_cache()
     print(json.dumps({"small_train_step": checks.check_train_step(dev)}))
+    base, groups = OTHER_WIDTHS[0]
+    print(json.dumps({"small_train_step_other_width": {
+        "base": base, "group_cor_dim": list(groups),
+        **checks.check_train_step(dev, base=base, group_cor_dim=groups)}}))
     train, train_profile, train_counts = drive_train(dev, train_batch, counters, kernels)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))
@@ -1035,7 +1098,7 @@ def main() -> int:
             # the route it replaces, and the least time of its sums on the
             # float32 CUDA cores, where this kernel computes them
             entry["unfused_ms"] = sum(r["unfused_ms"] * r["launches_per_run"]
-                                      for r in mine if "unfused_ms" in r)
+                                      for r in mine if r["set"] == row_set)
             entry["cuda_core_bound_ms"] = main["ops"] / FP32_FLOPS * 1e3
         if name == "topdown":
             # the train step (forward and the backward's u_only, bf16) and
@@ -1045,6 +1108,11 @@ def main() -> int:
         if name == "warp_bwd":
             # PR 4's hypotheses: the full inverse range at every stage
             entry["full_range"] = sums["full_range"]
+        if name == "band_conv":
+            # the float32 rows: the pipeline's route
+            entry["float32_forward"] = sums["eval_float32"]
+        # the same path at FPN base 4 and 16, through the generic instances
+        entry["other_widths"] = {k: v for k, v in sums.items() if "_base" in k}
         kernel_line.append(entry)
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ both call these, so that each tolerance is stated once. Every check raises
   the plain chain.
 - ``check_train_step``: one float32 train step on a device against the
   same step on the CPU, where every kernel wrapper takes its plain version.
+- ``check_forward``: the float32 eval forward on a device against the CPU's,
+  at any FPN base and group counts (the widths every kernel must take).
 - ``check_pipeline``: the eval pipeline (depth maps of every view, the
   consistency filter, the fused point cloud; ``run_pipeline``) on a device
   against the same pipeline on the CPU.
@@ -151,14 +153,15 @@ def check_chain_backward(leaves, grads) -> Dict[str, object]:
 # ------------------------------------------------------- the train step --
 
 
-def small_step_model(seed: int = 3, perturb: float = 0.0, perturb_seed: int = 0):
+def small_step_model(seed: int = 3, perturb: float = 0.0, perturb_seed: int = 0,
+                     base: int = 8, group_cor_dim=(8, 8, 4, 4)):
     """The flagship configuration in float32 on the CPU, weights drawn from
-    ``seed``; ``perturb`` moves every weight by that relative amount
-    (normal, from ``perturb_seed``)."""
+    ``seed``, at FPN base ``base`` and ``group_cor_dim``; ``perturb`` moves
+    every weight by that relative amount (normal, from ``perturb_seed``)."""
     from .models import MVS4Net
 
-    cfg = ModelConfig(group_cor=True, group_cor_dim=(8, 8, 4, 4), inverse_depth=True,
-                      mono=True, attn_temp=2.0, dtype="float32")
+    cfg = ModelConfig(group_cor=True, group_cor_dim=tuple(group_cor_dim), inverse_depth=True,
+                      mono=True, attn_temp=2.0, dtype="float32", fpn_base_channel=base)
     model = MVS4Net(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
     if perturb:
         gen = torch.Generator().manual_seed(perturb_seed)
@@ -280,16 +283,66 @@ def compare_train_step(cpu: Dict, dev: Dict, what: str = "device") -> Dict[str, 
     return out
 
 
-def check_train_step(device, seed: int = 3) -> Dict[str, object]:
-    """One float32 train step of ``small_step_model(seed)`` on
-    ``small_step_batch`` on ``device``, pinned to the same step on the CPU
-    and held to it by ``compare_train_step``; ``device`` is set up by
-    ``config.setup_device`` (TF32 off)."""
+def check_train_step(device, seed: int = 3, base: int = 8,
+                     group_cor_dim=(8, 8, 4, 4)) -> Dict[str, object]:
+    """One float32 train step of ``small_step_model(seed, base=base,
+    group_cor_dim=group_cor_dim)`` on ``small_step_batch`` on ``device``,
+    pinned to the same step on the CPU and held to it by
+    ``compare_train_step``; ``device`` is set up by ``config.setup_device``
+    (TF32 off)."""
     device = setup_device(device)
-    cpu = train_step_grads(small_step_model(seed), small_step_batch("cpu"))
-    dev = train_step_grads(small_step_model(seed).to(device), small_step_batch(device),
+    kw = {"base": base, "group_cor_dim": group_cor_dim}
+    cpu = train_step_grads(small_step_model(seed, **kw), small_step_batch("cpu"))
+    dev = train_step_grads(small_step_model(seed, **kw).to(device), small_step_batch(device),
                            pin=cpu["seen"])
     return compare_train_step(cpu, dev, str(device))
+
+
+# ------------------------------------------------------ the eval forward --
+
+# device against CPU, float32, per stage: the attention weights within
+# 1e-3 and the depth equal (rtol 1e-5) at >= 99% of pixels (argmax
+# near-ties may flip)
+FORWARD_ATTN_ATOL = 1e-3
+FORWARD_DEPTH_AGREEMENT = 0.99
+
+
+def check_forward(device, base: int = 8, group_cor_dim=(8, 8, 4, 4), seed: int = 1,
+                  hw=(64, 128), views: int = 3) -> Dict[str, object]:
+    """The float32 eval forward of the flagship model (group correlation,
+    inverse depth, attn_temp 2, mono) at FPN base ``base`` and
+    ``group_cor_dim``, weights and BatchNorm statistics from ``seed``
+    (``seeded_model``), on a plane scene of ``views`` views at ``hw``, on
+    ``device`` (``config.setup_device``) against the CPU: per stage the
+    attention within ``FORWARD_ATTN_ATOL`` and the depth equal at
+    ``FORWARD_DEPTH_AGREEMENT`` of the pixels."""
+    from .data.synthetic import batch_samples, batch_to_torch, make_plane_scene
+
+    device = setup_device(device)
+    cfg = ModelConfig(group_cor=True, group_cor_dim=tuple(group_cor_dim), inverse_depth=True,
+                      mono=True, attn_temp=2.0, dtype="float32", fpn_base_channel=base)
+    scene = batch_samples([make_plane_scene(V=views, H=hw[0], W=hw[1], seed=0)])
+    outs = []
+    for dev in ("cpu", device):
+        model = seeded_model(cfg, seed, dev)
+        b = batch_to_torch(scene, dev)
+        with torch.inference_mode():
+            outs.append(model(b["imgs"], b["proj_matrices"], b["depth_values"]))
+    want, got = outs
+    worst = {}
+    for s in range(1, 5):
+        g = {k: v.float().cpu() for k, v in got[f"stage{s}"].items()}
+        w = want[f"stage{s}"]
+        if g["depth"].shape != w["depth"].shape or not torch.isfinite(g["depth"]).all():
+            raise AssertionError(f"base {base} stage{s}: depth {tuple(g['depth'].shape)} "
+                                 "not finite or misshaped")
+        attn = (g["attn_weight"] - w["attn_weight"]).abs().max().item()
+        same = torch.isclose(g["depth"], w["depth"], rtol=1e-5, atol=0).float().mean().item()
+        if attn > FORWARD_ATTN_ATOL or same < FORWARD_DEPTH_AGREEMENT:
+            raise AssertionError(f"base {base} {tuple(group_cor_dim)} stage{s} on {device}: "
+                                 f"attn diff {attn}, depth agreement {same}")
+        worst[f"stage{s}"] = {"attn_max_abs_diff": attn, "depth_agreement": same}
+    return {"base": base, "group_cor_dim": list(group_cor_dim), **worst}
 
 
 def rounding_noise(seed: int, perturb: float, perturb_seed: int) -> Dict[str, object]:

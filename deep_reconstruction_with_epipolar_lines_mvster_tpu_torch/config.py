@@ -37,9 +37,9 @@ say (on the CPU, each kernel's plain PyTorch version):
   neither;
 - ``pack_conv``: the small-channel convolutions it packs on the TPU run,
   in eval, as kernel K6 (``csrc/band_conv.cu``: 3x3 stride-1 conv with the
-  BatchNorm folded and the ReLU fused, at most 16 channels in and out,
-  ``models/layers.py``); every other convolution, and every one in
-  training, is cuDNN's;
+  BatchNorm folded and the ReLU fused, at most 64 channels in and out in
+  bf16 and 32 in float32, ``models/layers.py``); every other convolution,
+  and every one in training, is cuDNN's;
 - ``cw_stage_features``, ``d_pack_mids``: layouts only.
 
 The train CLI (``cli/train.py``) accepts and ignores the flags that set

@@ -158,7 +158,7 @@ __device__ __forceinline__ float group_score(const T* p, int G, float temp) {
 // Any D and G: acc [B, D, H*W, G] and norm [B, D, H*W] float32 in device
 // memory, each slot owned by one thread, so nothing needs zeroing first.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) attn_fuse_any_kernel(
+__global__ void __launch_bounds__(THREADS) attn_fuse_kernel_any(
     const T* __restrict__ cors, T* __restrict__ out, float* __restrict__ acc,
     float* __restrict__ norm, int S, int B, int D, int HW, int G, float temp, float sqrt_c) {
     const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;  // (b, y, x)
@@ -236,7 +236,7 @@ int launch_any(const void* cors, void* out, float* acc, float* norm, int S, int 
                int HW, int G, float temp, float sqrt_c, cudaStream_t stream) {
     const long long total = (long long)B * HW;
     const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-    attn_fuse_any_kernel<T><<<blocks, THREADS, 0, stream>>>(
+    attn_fuse_kernel_any<T><<<blocks, THREADS, 0, stream>>>(
         static_cast<const T*>(cors), static_cast<T*>(out), acc, norm, S, B, D, HW, G, temp,
         sqrt_c);
     return (int)cudaGetLastError();

@@ -1,13 +1,19 @@
 // Device helpers shared by the port's kernels: eight channels of an NHWC
 // pixel as one 16-byte load (bf16) or two (float32), widened to float32,
-// one float32 value stored in the tensor's dtype, and the plane-sweep
+// and the 8-, 4- and 1-wide loads and stores of the generic instances (any
+// channel count), one float32 value stored in the tensor's dtype, the PTX
+// of the tensor-core routes (cp.async, ldmatrix, mma.sync), and the plane-sweep
 // bilinear taps of one (b, d, y, x) that the warp kernels (K1 forward, K3
 // backward) both use, so that the two agree with each other and with the
 // plain PyTorch version to the bit.
 #pragma once
 
+#include <stdint.h>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace port {
 
@@ -32,6 +38,62 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
+    const unsigned short r = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __bfloat162float(__ushort_as_bfloat16(r));
+}
+
+// VW (8, 4 or 1) consecutive channels widened to float32: one or two 16-byte
+// loads, one 16- or 8-byte load, or a scalar load. The generic instances of
+// the kernels take VW = 8 where C % 8 == 0, 4 where C % 4 == 0, else 1, so
+// that every vector load stays aligned.
+template <int VW, typename T>
+__device__ __forceinline__ void loadv(const T* p, float* v) {
+    if constexpr (VW == 8) {
+        load8(p, v);
+    } else if constexpr (VW == 4) {
+        if constexpr (std::is_same<T, float>::value) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+            v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        } else {
+            const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+            const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+            const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+            v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < VW; ++i) v[i] = ldg1(p + i);
+    }
+}
+
+// VW consecutive float32 values stored in the tensor's dtype, each rounded
+// once; vector stores for VW 8 and 4 (the caller keeps them aligned)
+template <int VW, typename T>
+__device__ __forceinline__ void storev(T* p, const float* v) {
+    if constexpr (VW == 1) {
+        store1(p, v[0]);
+    } else if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+        for (int q = 0; q < VW / 4; ++q)
+            reinterpret_cast<float4*>(p)[q] =
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else if constexpr (VW == 8) {
+        uint4 r;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        *reinterpret_cast<uint4*>(p) = r;
+    } else {
+        uint2 r;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+        h[0] = __floats2bfloat162_rn(v[0], v[1]);
+        h[1] = __floats2bfloat162_rn(v[2], v[3]);
+        *reinterpret_cast<uint2*>(p) = r;
+    }
 }
 
 // (m0*u + m1*v + m2)*d + m3 without contraction into FMAs
@@ -79,6 +141,38 @@ __device__ __forceinline__ bool plane_taps(const float* m, int x, int y, float d
     t.ya = min(max(y0, 0), Hs - 1);
     t.yb = min(max(y0 + 1, 0), Hs - 1);
     return true;
+}
+
+// ---------------------------------------- the tensor-core routes' PTX (K2, K6)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// d += a * b: m16n8k16, bf16 inputs, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint2 b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// two floats as a bf16 pair, each rounded to nearest even, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 }  // namespace port

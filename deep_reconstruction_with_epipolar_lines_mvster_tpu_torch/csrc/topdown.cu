@@ -1,5 +1,5 @@
 // K2: one FPN top-down level,
-//   u = up2_align_corners(intra) + Conv1x1(skip) + bi     (64 channels)
+//   u = up2_align_corners(intra) + Conv1x1(skip) + bi     (CI = 8 x base channels)
 //   o = Conv3x3(u), zero padding, no bias                 (Co channels)
 // with u also written out for the mid levels (its next level's input), or,
 // in the u_only mode of the chain's backward, u alone.
@@ -19,17 +19,18 @@
 // 336 MB of input and output, 100 us at 3.35 TB/s; the 54 GFLOP take 55 us
 // on the bf16 tensor cores, so the level is bound by bytes.
 //
-// The first design (PR 1, kept below as the float32 route) ran every FLOP
-// in float32 on the CUDA cores: per thread one output pixel, one u value
-// and CO/4 float4 weight vectors from shared memory per CO FMAs (three
-// loads per eight FMAs at Co = 8); phase 1 gathered four 64-channel corners
-// of intra from device memory for each of the 10x34 halo pixels and ran the
-// 1x1 on the CUDA cores; u sat in shared memory as float32 (87 KB). 6.99 ms
+// The first design (the float32 route until the generic kernel below
+// replaced it) ran every FLOP in float32 on the CUDA cores: per thread one
+// output pixel, one u value and CO/4 float4 weight vectors from shared
+// memory per CO FMAs (three loads per eight FMAs at Co = 8); phase 1
+// gathered four 64-channel corners of intra from device memory for each of
+// the 10x34 halo pixels and ran the 1x1 on the CUDA cores; u sat in shared
+// memory as float32 (87 KB). 6.99 ms
 // per bf16 eval forward (L2/L3/L4 1018/2520/3451 us against bounds of
 // 28/88/100 us, H100 80GB HBM3 at 700 W).
 //
-// The bf16 route (topdown_kernel_mma): one CTA of 8 warps per (n, 8-row x
-// 32-column output tile).
+// The bf16 route (topdown_kernel_mma), for CI = 64 (base 8) and Cs, Co in
+// {8, 16, 32}: one CTA of 8 warps per (n, 8-row x 32-column output tile).
 //   0. cp.async stages the tile's intra footprint (7 x 19 half-resolution
 //      pixels, 17 KB) and its skip halo (10 x 34 pixels) in shared memory,
 //      zero outside the image.
@@ -66,9 +67,43 @@
 // 1.155 ms per bf16 eval forward (L2/L3/L4 0.116 / 0.266 / 0.774 ms), 3.67
 // ms per train step (forward and u_only at N 30).
 //
-// The float32 route (topdown_kernel_f32) keeps the first design: in full
-// float32 on the CUDA cores, as the float32 pipeline is held to the CPU
-// (no TF32), 1.87 ms per pipeline view (N 4). u_only skips its 3x3.
+// The generic kernel (topdown_kernel_gen) is the float32 route and serves
+// every shape: CI = 8 x base (a multiple of 8), any Cs and Co, at run time,
+// in float32 storage or in bf16 for the shapes the tensor-core route has no
+// instance for (the sums in float32, u and o rounded once each, as
+// topdown_level_ref rounds them). It stays in full float32 on the CUDA
+// cores (the float32 pipeline is held to the CPU with TF32 off). It
+// replaces the first design, which cost 1.87 ms per float32
+// pipeline view (N 4; L2/L3/L4 0.301 / 0.617 / 0.955 ms against an
+// operation bound of 0.050 / 0.100 / 0.200 ms) because:
+//   - its 3x3 read one u float and Co/4 float4 weights from shared memory
+//     per Co FMAs (three loads per eight FMAs at Co = 8);
+//   - its phase 1 gathered the four 64-channel corners of intra from device
+//     memory for each of the 10 x 34 halo pixels;
+//   - its float32 u tile (87 KB) and weights held one or two CTAs an SM.
+// The generic design: one CTA per (n, 16-row x 32-column output tile; 8
+// rows where Co > 8, so that the smaller L2 and L3 grids fill the card),
+// over u in chunks of 8 channels (so any CI fits: 20-41 KB of shared
+// memory, not 87-174 KB):
+//   0. cp.async stages the skip halo once where it fits in 48 KB (phase 1
+//      reads it in every chunk; from device memory that was a chain of L2
+//      round trips per pixel), then per chunk the intra footprint (11 x 19
+//      half-resolution pixels), its 1x1 weights and its 3x3 weights;
+//   1. u of the chunk over the 18 x 34 halo, with the first design's
+//      operations in its order (the 1x1 as fmaf over Cs from 0, then the
+//      __fmul_rn/__fadd_rn upsample and bias), so float32 u is bit-equal to
+//      the first design's; zero outside the image; then the tile's own
+//      pixels of the chunk to u in device memory where asked, two lanes to
+//      a pixel's 32 bytes (one lane a pixel, at a 4 CI-byte stride, wrote
+//      at 0.24 TB/s: 1.42 ms for L4's u alone);
+//   2. the 3x3 register-tiled: each thread owns a strip of 4 adjacent
+//      output pixels x 8 output channels (8 x rows x NCB threads, NCB = 1,
+//      2, 4 for Co <= 8, 16, more; wider Co runs passes), keeps the strip's 3 x 6
+//      u window of one channel in registers (two vector loads a row), and
+//      reads each tap's 8 weights as two float4 broadcasts once for all 4
+//      pixels: per channel 24 loads for 288 FMAs (the first design: 27 for
+//      72 at Co = 8). Each output sums over (ci, tap) in the first design's
+//      order.
 
 #include <stdint.h>
 
@@ -78,7 +113,12 @@
 
 namespace {
 
+using port::cp_async16;
+using port::ldmatrix_x4;
 using port::load8;
+using port::mma_bf16;
+using port::pack_bf16;
+using port::smem_addr;
 using port::store1;
 
 constexpr int CI = 64;   // top-down pathway width (8 x base 8)
@@ -87,117 +127,304 @@ constexpr int TC = 32;   // output columns per tile
 constexpr int HR = TR + 2, HC = TC + 2, NP = HR * HC;
 constexpr int THREADS = TR * TC;
 
-// ---------------------------------------------------------------- float32
-
-template <int CS, int CO>
-constexpr size_t f32_smem_bytes() {
-    return sizeof(float) * (CI * NP + 9 * CI * CO + CS * CI + CI);
+// commit this thread's cp.async copies and wait for all of them
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\n");
+    asm volatile("cp.async.wait_all;\n");
 }
 
-template <int CS, int CO>
-__global__ void __launch_bounds__(THREADS) topdown_kernel_f32(
-    const float* __restrict__ intra, // [N, Hh, Wh, 64]
-    const float* __restrict__ skip,  // [N, H, W, CS]
-    const float* __restrict__ wi,    // [CS, 64]
-    const float* __restrict__ bi,    // [64]
-    const float* __restrict__ wo,    // [3, 3, 64, CO]
+// ------------------------------------- generic: float32 route, any shape
+
+constexpr int GTC = 32;                       // output tile columns
+constexpr int GHC = GTC + 2;                  // u halo columns
+constexpr int GHS = GHC + 2;                  // its row stride, 16-byte aligned
+constexpr int GIC = GTC / 2 + 3;              // intra footprint columns
+constexpr int CK = 8;                         // u channels per chunk (CI = 8 x base)
+
+// output tile rows: 16 where a thread block covers Co <= 8, 8 above (twice
+// the CTAs, so that the small L2 and L3 grids fill the card)
+template <int NCB> __host__ __device__ constexpr int gen_rows() { return NCB == 1 ? 16 : 8; }
+
+// bytes of shared memory: the u chunk, the 3x3 weights of the chunk, the
+// 1x1 weights of the chunk, the intra footprint of the chunk, and, where
+// staged, the skip halo
+template <typename T, int NCB>
+size_t gen_smem_bytes(int cs, bool skip_staged) {
+    constexpr int TR = gen_rows<NCB>();
+    return sizeof(float) * ((size_t)CK * (TR + 2) * GHS + 9 * CK * 8 * NCB + (size_t)cs * CK) +
+           sizeof(T) * (TR / 2 + 3) * GIC * CK +
+           (skip_staged ? sizeof(T) * (size_t)(TR + 2) * GHC * cs : 0);
+}
+
+// the largest skip halo staged in shared memory; a wider one is read from
+// device memory in every chunk
+constexpr size_t SKIP_STAGE_MAX = 48 * 1024;
+
+// four or one channel(s) of a skip pixel in shared or device memory (a
+// generic load), widened to float32
+__device__ __forceinline__ void ld4(const float* p, float v[4]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float v[4]) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// eight channels of a staged footprint pixel, widened to float32
+__device__ __forceinline__ void lds8(const float* p, float v[8]) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void lds8(const __nv_bfloat16* p, float v[8]) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+    }
+}
+
+// The generic instance: CI (a multiple of 8), CS and CO at run time; T is
+// the storage (float32, or bf16 for the shapes the tensor-core route does
+// not take), the sums are float32 and u and o are rounded to T once each.
+// NCB: 8-channel blocks of o per pass, one thread per (strip, block), so a
+// thread keeps 4 pixels x 8 sums; CO > 8 NCB runs ceil(CO / (8 NCB)) passes.
+// At least 20 warps an SM (the register cap: ~100 at 128 threads, 128 at
+// 256; left to itself ptxas took 166-177 and held 8 warps).
+template <typename T, int NCB>
+__global__ void __launch_bounds__(gen_rows<NCB>() * 8 * NCB, 640 / (gen_rows<NCB>() * 8 * NCB))
+topdown_kernel_gen(
+    const T* __restrict__ intra,     // [N, Hh, Wh, CI]
+    const T* __restrict__ skip,      // [N, H, W, CS]
+    const float* __restrict__ wi,    // [CS, CI], rounded to T
+    const float* __restrict__ bi,    // [CI]
+    const float* __restrict__ wo,    // [passes][3][3][CI][8 NCB], rounded to T, 0 past CO
     const int* __restrict__ hidx, const float* __restrict__ hw0,
     const float* __restrict__ hw1,   // [H] row taps
     const int* __restrict__ widx, const float* __restrict__ ww0,
     const float* __restrict__ ww1,   // [W] column taps
-    float* __restrict__ out,         // [N, H, W, CO] or null (u_only)
-    float* __restrict__ uout,        // [N, H, W, 64] or null
-    int H, int W, int Hh, int Wh) {
-    extern __shared__ float smem[];
-    float* us = smem;                // [64][HR][HC]
-    float* ws = us + CI * NP;        // [9 * 64][CO]
-    float* wis = ws + 9 * CI * CO;   // [CS][64]
-    float* bis = wis + CS * CI;      // [64]
+    T* __restrict__ out,             // [N, H, W, CO] or null (u_only)
+    T* __restrict__ uout,            // [N, H, W, CI] or null
+    int H, int W, int Hh, int Wh, int CI, int CS, int CO, int skip_staged) {
+    constexpr int COB = 8 * NCB;
+    constexpr int TR = gen_rows<NCB>(), GHR = TR + 2, GNP = GHR * GHC, GIR = TR / 2 + 3;
+    constexpr int STRIPS = TR * 8;               // 4-pixel strips of the tile
+    constexpr int UCH = GHR * GHS;               // channel stride of the u chunk
+    constexpr int TCH = CK * sizeof(T) / 16;     // 16-byte pieces of a footprint pixel
+    extern __shared__ float4 smem_gen[];
+    float* us = reinterpret_cast<float*>(smem_gen);   // [CK][GHR][GHS]
+    float* ws = us + CK * UCH;                         // [9][CK][COB]
+    float* wis = ws + 9 * CK * COB;                    // [CS][CK]
+    T* isf = reinterpret_cast<T*>(wis + CS * CK);      // [GIR * GIC][CK]
+    T* sks = isf + GIR * GIC * CK;                     // [GNP][CS] where staged
 
-    const int n = blockIdx.z, r0 = blockIdx.y * TR, c0 = blockIdx.x * TC;
+    const int n = blockIdx.z, r0 = blockIdx.y * TR, c0 = blockIdx.x * GTC;
+    constexpr int NTH = STRIPS * NCB;
     const int tid = threadIdx.x;
-    if (out)
-        for (int i = tid; i < 9 * CI * CO; i += THREADS) ws[i] = wo[i];
-    for (int i = tid; i < CS * CI; i += THREADS) wis[i] = wi[i];
-    if (tid < CI) bis[tid] = bi[tid];
-    __syncthreads();
+    const int st = tid % STRIPS, cb = tid / STRIPS;  // strip, 8-channel block of o
+    const int tr = st >> 3, tj = st & 7;         // strip: row tr, columns 4tj .. 4tj + 3
+    const int hbase = hidx[max(r0 - 1, 0)], wbase = widx[max(c0 - 1, 0)];
+    const T* ibase = intra + (long long)n * Hh * Wh * CI;
+    const int passes = out ? (CO + COB - 1) / COB : 1;
 
-    // phase 1: the u tile with a one-pixel halo
-    for (int p = tid; p < NP; p += THREADS) {
-        const int pr = p / HC, pc = p % HC;
-        const int g = r0 - 1 + pr, gc = c0 - 1 + pc;
-        if (g < 0 || g >= H || gc < 0 || gc >= W) {
-#pragma unroll 8
-            for (int ci = 0; ci < CI; ++ci) us[ci * NP + p] = 0.0f;
-            continue;
-        }
-        float sk[CS];
-        const float* sp = skip + (((long long)n * H + g) * W + gc) * CS;
-#pragma unroll
-        for (int c8 = 0; c8 < CS; c8 += 8) load8(sp + c8, sk + c8);
-        const int h0 = hidx[g], v0 = widx[gc];
-        const float a0 = hw0[g], a1 = hw1[g], b0 = ww0[gc], b1 = ww1[gc];
-        const int h1 = min(h0 + 1, Hh - 1), v1 = min(v0 + 1, Wh - 1);
-        const float* base = intra + (long long)n * Hh * Wh * CI;
-        const float* q00 = base + ((long long)h0 * Wh + v0) * CI;
-        const float* q01 = base + ((long long)h0 * Wh + v1) * CI;
-        const float* q10 = base + ((long long)h1 * Wh + v0) * CI;
-        const float* q11 = base + ((long long)h1 * Wh + v1) * CI;
-        const bool center = pr >= 1 && pr <= TR && pc >= 1 && pc <= TC;
-        float* up = uout ? uout + (((long long)n * H + g) * W + gc) * CI : nullptr;
-#pragma unroll 1
-        for (int c8 = 0; c8 < CI; c8 += 8) {
-            float e00[8], e01[8], e10[8], e11[8];
-            load8(q00 + c8, e00);
-            load8(q01 + c8, e01);
-            load8(q10 + c8, e10);
-            load8(q11 + c8, e11);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const int ci = c8 + i;
-                const float left = __fadd_rn(__fmul_rn(a0, e00[i]), __fmul_rn(a1, e10[i]));
-                const float right = __fadd_rn(__fmul_rn(a0, e01[i]), __fmul_rn(a1, e11[i]));
-                const float upv = __fadd_rn(__fmul_rn(b0, left), __fmul_rn(b1, right));
-                float s = 0.0f;
-#pragma unroll
-                for (int cs = 0; cs < CS; ++cs) s = fmaf(sk[cs], wis[cs * CI + ci], s);
-                const float uv = __fadd_rn(upv, __fadd_rn(s, bis[ci]));
-                us[ci * NP + p] = uv;
-                if (center && up) store1(up + ci, uv);
-            }
+    // the skip halo, once for all chunks and passes (it lands with the first
+    // chunk's copies), zero outside the image
+    if (skip_staged) {
+        const int PC = CS * (int)sizeof(T) / 16;     // 16-byte pieces of a pixel
+        for (int i = tid; i < GNP * PC; i += NTH) {
+            const int p = i / PC, c = i % PC;
+            const int g = r0 - 1 + p / GHC, gc = c0 - 1 + p % GHC;
+            const bool ok = g >= 0 && g < H && gc >= 0 && gc < W;
+            cp_async16(reinterpret_cast<char*>(sks) + (p * PC + c) * 16,
+                       skip + (ok ? (((long long)n * H + g) * W + gc) * CS : 0) +
+                           c * (16 / (int)sizeof(T)),
+                       ok);
         }
     }
-    if (!out) return;                // u_only
-    __syncthreads();
 
-    // phase 2: the 3x3 conv, one output pixel per thread, all CO channels
-    const int tr = tid / TC, tc = tid % TC;
-    float acc[CO];
-#pragma unroll
-    for (int co = 0; co < CO; ++co) acc[co] = 0.0f;
 #pragma unroll 1
-    for (int ci = 0; ci < CI; ++ci) {
-        const float* uc = us + ci * NP + tr * HC + tc;
+    for (int pass = 0; pass < passes; ++pass) {
+        float acc[4][8];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) {
-            const float uv = uc[(k / 3) * HC + (k % 3)];
-            const float4* w4 = reinterpret_cast<const float4*>(ws + (k * CI + ci) * CO);
+        for (int px = 0; px < 4; ++px)
 #pragma unroll
-            for (int q = 0; q < CO / 4; ++q) {
-                const float4 w = w4[q];
-                acc[4 * q] = fmaf(uv, w.x, acc[4 * q]);
-                acc[4 * q + 1] = fmaf(uv, w.y, acc[4 * q + 1]);
-                acc[4 * q + 2] = fmaf(uv, w.z, acc[4 * q + 2]);
-                acc[4 * q + 3] = fmaf(uv, w.w, acc[4 * q + 3]);
+            for (int co = 0; co < 8; ++co) acc[px][co] = 0.0f;
+
+#pragma unroll 1
+        for (int ci0 = 0; ci0 < CI; ci0 += CK) {
+            __syncthreads();                     // the previous chunk's readers are done
+            // 0. stage the chunk: intra footprint, 1x1 and 3x3 weights
+            for (int i = tid; i < GIR * GIC * TCH; i += NTH) {
+                const int f = i / TCH, c = i % TCH;
+                const int hr = hbase + f / GIC, wc = wbase + f % GIC;
+                const bool ok = hr < Hh && wc < Wh;
+                cp_async16(reinterpret_cast<char*>(isf) + (f * TCH + c) * 16,
+                           ibase + ((long long)(ok ? hr : 0) * Wh + (ok ? wc : 0)) * CI + ci0 +
+                               c * (16 / (int)sizeof(T)),
+                           ok);
+            }
+            for (int i = tid; i < CS * 2; i += NTH)
+                cp_async16(wis + i * 4, wi + (long long)(i >> 1) * CI + ci0 + (i & 1) * 4, true);
+            if (out) {
+                constexpr int PT = CK * COB / 4;     // 16-byte pieces of one tap's weights
+                for (int i = tid; i < 9 * PT; i += NTH) {
+                    const int k = i / PT, r = i % PT;
+                    cp_async16(ws + k * CK * COB + 4 * r,
+                               wo + (((long long)pass * 9 + k) * CI + ci0) * COB + 4 * r, true);
+                }
+            }
+            cp_async_wait_all();
+            __syncthreads();
+
+            // 1. u = up2(intra) + (1x1(skip) + bi) over the halo, this chunk's
+            // channels, in the first design's operations and order
+            for (int p = tid; p < GNP; p += NTH) {
+                const int pr = p / GHC, pc = p % GHC;
+                const int g = r0 - 1 + pr, gc = c0 - 1 + pc;
+                float* up = us + pr * GHS + pc;
+                if (g < 0 || g >= H || gc < 0 || gc >= W) {
+#pragma unroll
+                    for (int i = 0; i < CK; ++i) up[i * UCH] = 0.0f;
+                    continue;
+                }
+                float s[CK];
+#pragma unroll
+                for (int i = 0; i < CK; ++i) s[i] = 0.0f;
+                const T* sp = skip_staged ? sks + p * CS
+                                          : skip + (((long long)n * H + g) * W + gc) * CS;
+                if ((CS & 3) == 0) {
+#pragma unroll 2
+                    for (int cs = 0; cs < CS; cs += 4) {
+                        float v[4];
+                        ld4(sp + cs, v);
+#pragma unroll
+                        for (int q = 0; q < 4; ++q)
+#pragma unroll
+                            for (int i = 0; i < CK; ++i)
+                                s[i] = fmaf(v[q], wis[(cs + q) * CK + i], s[i]);
+                    }
+                } else {
+#pragma unroll 1
+                    for (int cs = 0; cs < CS; ++cs) {
+                        const float v = ld1(sp + cs);
+#pragma unroll
+                        for (int i = 0; i < CK; ++i) s[i] = fmaf(v, wis[cs * CK + i], s[i]);
+                    }
+                }
+                const int h0 = hidx[g], v0 = widx[gc];
+                const float a0 = hw0[g], a1 = hw1[g], b0 = ww0[gc], b1 = ww1[gc];
+                const int h1 = min(h0 + 1, Hh - 1), v1 = min(v0 + 1, Wh - 1);
+                const int fr0 = (h0 - hbase) * GIC, fr1 = (h1 - hbase) * GIC;
+                const int fc0 = v0 - wbase, fc1 = v1 - wbase;
+                float e00[CK], e01[CK], e10[CK], e11[CK];
+                lds8(isf + (fr0 + fc0) * CK, e00);
+                lds8(isf + (fr0 + fc1) * CK, e01);
+                lds8(isf + (fr1 + fc0) * CK, e10);
+                lds8(isf + (fr1 + fc1) * CK, e11);
+#pragma unroll
+                for (int i = 0; i < CK; ++i) {
+                    const float left = __fadd_rn(__fmul_rn(a0, e00[i]), __fmul_rn(a1, e10[i]));
+                    const float right = __fadd_rn(__fmul_rn(a0, e01[i]), __fmul_rn(a1, e11[i]));
+                    const float upv = __fadd_rn(__fmul_rn(b0, left), __fmul_rn(b1, right));
+                    const float uv = __fadd_rn(upv, __fadd_rn(s[i], __ldg(bi + ci0 + i)));
+                    up[i * UCH] = round_as(uv, skip);
+                }
+            }
+            __syncthreads();
+
+            // the tile's own pixels of the u chunk to device memory: 16 bytes a
+            // lane, neighbouring lanes on one pixel's 32-byte (float32) chunk
+            // (a lane per pixel, 32 B at a 4 CI-byte stride, ran at 0.24 TB/s)
+            if (uout && pass == 0) {
+                constexpr int EPP = 16 / (int)sizeof(T);     // channels a store
+                constexpr int PPX = CK / EPP;                // stores a pixel
+                for (int i = tid; i < TR * GTC * PPX; i += NTH) {
+                    const int px = i / PPX, h = i % PPX;
+                    const int r = px / GTC, c = px % GTC, g = r0 + r, gc = c0 + c;
+                    if (g >= H || gc >= W) continue;
+                    const float* src = us + (r + 1) * GHS + c + 1 + h * EPP * UCH;
+                    float v[EPP];
+#pragma unroll
+                    for (int j = 0; j < EPP; ++j) v[j] = src[j * UCH];
+                    port::storev<EPP>(uout + (((long long)n * H + g) * W + gc) * CI + ci0 + h * EPP,
+                                      v);
+                }
+            }
+            if (!out) continue;                  // u_only
+
+            // 2. the 3x3 over the chunk: each thread keeps the 3 x 6 window of
+            // its strip for one channel in registers, so a u value serves up
+            // to 3 taps and 4 pixels, and a weight vector 4 pixels
+#pragma unroll 1
+            for (int ck = 0; ck < CK; ++ck) {
+                float win[3][6];
+#pragma unroll
+                for (int dy = 0; dy < 3; ++dy) {
+                    const float* row = us + ck * UCH + (tr + dy) * GHS + 4 * tj;
+                    const float4 a = *reinterpret_cast<const float4*>(row);
+                    const float2 b = *reinterpret_cast<const float2*>(row + 4);
+                    win[dy][0] = a.x; win[dy][1] = a.y; win[dy][2] = a.z; win[dy][3] = a.w;
+                    win[dy][4] = b.x; win[dy][5] = b.y;
+                }
+#pragma unroll
+                for (int k = 0; k < 9; ++k) {
+                    const int dy = k / 3, dx = k % 3;
+                    const float4* w4 =
+                        reinterpret_cast<const float4*>(ws + (k * CK + ck) * COB + 8 * cb);
+#pragma unroll
+                    for (int q = 0; q < 2; ++q) {
+                        const float4 w = w4[q];
+#pragma unroll
+                        for (int px = 0; px < 4; ++px) {
+                            const float u = win[dy][px + dx];
+                            acc[px][4 * q] = fmaf(u, w.x, acc[px][4 * q]);
+                            acc[px][4 * q + 1] = fmaf(u, w.y, acc[px][4 * q + 1]);
+                            acc[px][4 * q + 2] = fmaf(u, w.z, acc[px][4 * q + 2]);
+                            acc[px][4 * q + 3] = fmaf(u, w.w, acc[px][4 * q + 3]);
+                        }
+                    }
+                }
             }
         }
-    }
-    const int orow = r0 + tr, ocol = c0 + tc;
-    if (orow < H && ocol < W) {
-        float4* op = reinterpret_cast<float4*>(out + (((long long)n * H + orow) * W + ocol) * CO);
+        if (!out) return;
+
+        // o of the strip, this thread's 8 channels; 16-byte (float32) or
+        // 8-byte (bf16) vectors where CO % 4 == 0
+        const int orow = r0 + tr, co0 = pass * COB + 8 * cb, nco = min(8, CO - co0);
+        if (orow < H && nco > 0) {
 #pragma unroll
-        for (int q = 0; q < CO / 4; ++q)
-            op[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+            for (int px = 0; px < 4; ++px) {
+                const int ocol = c0 + 4 * tj + px;
+                if (ocol >= W) continue;
+                T* op = out + (((long long)n * H + orow) * W + ocol) * CO + co0;
+                if ((CO & 3) == 0) {
+#pragma unroll
+                    for (int q = 0; q < 2; ++q)
+                        if (4 * q < nco) port::storev<4>(op + 4 * q, &acc[px][4 * q]);
+                } else {
+#pragma unroll
+                    for (int co = 0; co < 8; ++co)
+                        if (co < nco) store1(op + co, acc[px][co]);
+                }
+            }
+        }
     }
 }
 
@@ -214,38 +441,9 @@ constexpr size_t mma_smem_bytes() {
     return US_BYTES + IS_BYTES + (size_t)NPM * CS * 2;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                  : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-
-// d += a * b: m16n8k16, bf16 inputs, float32 accumulators
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint2 b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
@@ -299,8 +497,7 @@ __global__ void __launch_bounds__(THREADS, CS == 32 ? 2 : 3) topdown_kernel_mma(
         const long long off = ok ? (((long long)n * H + g) * W + gc) * CS : 0;
         cp_async16(ss + (p * CSC + (c ^ ((p >> SSH) & (CSC - 1)))) * 16, skip + off + c * 8, ok);
     }
-    asm volatile("cp.async.commit_group;\n");
-    asm volatile("cp.async.wait_all;\n");
+    cp_async_wait_all();
     __syncthreads();
 
     // 1. u = round(up2(intra) + (1x1(skip) + bi)) over the halo. The 1x1's
@@ -464,66 +661,86 @@ __global__ void __launch_bounds__(THREADS, CS == 32 ? 2 : 3) topdown_kernel_mma(
 
 // ------------------------------------------------------------- launchers
 
-template <typename KernelFn, typename T, typename WT>
-int run(KernelFn kernel, size_t bytes, const void* intra, const void* skip, const void* wi,
-        const void* bi, const void* wo, const void* hidx, const void* hw0, const void* hw1,
-        const void* widx, const void* ww0, const void* ww1, void* out, void* uout, int N,
-        int H, int W, int Hh, int Wh, cudaStream_t stream) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+#define TOPDOWN_PTRS intra, skip, wi, bi, wo, hidx, hw0, hw1, widx, ww0, ww1, out, uout
+
+template <int CS, int CO>
+int launch_mma(const void* intra, const void* skip, const void* wi, const void* bi,
+               const void* wo, const void* hidx, const void* hw0, const void* hw1,
+               const void* widx, const void* ww0, const void* ww1, void* out, void* uout,
+               int N, int H, int W, int Hh, int Wh, cudaStream_t s) {
+    auto kernel = topdown_kernel_mma<CS, CO>;
+    const size_t bytes = mma_smem_bytes<CS>();
+    static bool allowed = false;
+    if (!allowed) {
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+        allowed = true;
+    }
     const dim3 grid((W + TC - 1) / TC, (H + TR - 1) / TR, N);
-    kernel<<<grid, THREADS, bytes, stream>>>(
-        static_cast<const T*>(intra), static_cast<const T*>(skip),
-        static_cast<const WT*>(wi), static_cast<const float*>(bi),
-        static_cast<const WT*>(wo), static_cast<const int*>(hidx),
+    kernel<<<grid, THREADS, bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(intra), static_cast<const __nv_bfloat16*>(skip),
+        static_cast<const uint2*>(wi), static_cast<const float*>(bi),
+        static_cast<const uint2*>(wo), static_cast<const int*>(hidx),
         static_cast<const float*>(hw0), static_cast<const float*>(hw1),
         static_cast<const int*>(widx), static_cast<const float*>(ww0),
-        static_cast<const float*>(ww1), static_cast<T*>(out), static_cast<T*>(uout),
-        H, W, Hh, Wh);
+        static_cast<const float*>(ww1), static_cast<__nv_bfloat16*>(out),
+        static_cast<__nv_bfloat16*>(uout), H, W, Hh, Wh);
     return (int)cudaGetLastError();
 }
 
-template <typename T, int CS, int CO>
-int launch(const void* intra, const void* skip, const void* wi, const void* bi,
-           const void* wo, const void* hidx, const void* hw0, const void* hw1,
-           const void* widx, const void* ww0, const void* ww1, void* out, void* uout,
-           int N, int H, int W, int Hh, int Wh, cudaStream_t s) {
-    if constexpr (std::is_same<T, float>::value)
-        return run<decltype(&topdown_kernel_f32<CS, CO>), float, float>(
-            topdown_kernel_f32<CS, CO>, f32_smem_bytes<CS, CO>(), intra, skip, wi, bi, wo,
-            hidx, hw0, hw1, widx, ww0, ww1, out, uout, N, H, W, Hh, Wh, s);
-    else
-        return run<decltype(&topdown_kernel_mma<CS, CO>), __nv_bfloat16, uint2>(
-            topdown_kernel_mma<CS, CO>, mma_smem_bytes<CS>(), intra, skip, wi, bi, wo,
-            hidx, hw0, hw1, widx, ww0, ww1, out, uout, N, H, W, Hh, Wh, s);
-}
-
-#define TOPDOWN_ARGS intra, skip, wi, bi, wo, hidx, hw0, hw1, widx, ww0, ww1, out, uout, \
-                     N, H, W, Hh, Wh, s
-
-template <typename T, int CS>
-int launch_co(int CO, const void* intra, const void* skip, const void* wi, const void* bi,
-              const void* wo, const void* hidx, const void* hw0, const void* hw1,
-              const void* widx, const void* ww0, const void* ww1, void* out, void* uout,
-              int N, int H, int W, int Hh, int Wh, cudaStream_t s) {
+template <int CS>
+int launch_mma_co(int CO, const void* intra, const void* skip, const void* wi, const void* bi,
+                  const void* wo, const void* hidx, const void* hw0, const void* hw1,
+                  const void* widx, const void* ww0, const void* ww1, void* out, void* uout,
+                  int N, int H, int W, int Hh, int Wh, cudaStream_t s) {
     switch (CO) {
-        case 8: return launch<T, CS, 8>(TOPDOWN_ARGS);
-        case 16: return launch<T, CS, 16>(TOPDOWN_ARGS);
-        case 32: return launch<T, CS, 32>(TOPDOWN_ARGS);
+        case 8: return launch_mma<CS, 8>(TOPDOWN_PTRS, N, H, W, Hh, Wh, s);
+        case 16: return launch_mma<CS, 16>(TOPDOWN_PTRS, N, H, W, Hh, Wh, s);
+        case 32: return launch_mma<CS, 32>(TOPDOWN_PTRS, N, H, W, Hh, Wh, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
+template <typename T, int NCB>
+int launch_gen(const void* intra, const void* skip, const void* wi, const void* bi,
+               const void* wo, const void* hidx, const void* hw0, const void* hw1,
+               const void* widx, const void* ww0, const void* ww1, void* out, void* uout,
+               int N, int H, int W, int Hh, int Wh, int CI, int CS, int CO, cudaStream_t s) {
+    auto kernel = topdown_kernel_gen<T, NCB>;
+    constexpr int TR = gen_rows<NCB>();
+    const bool staged = CS * sizeof(T) % 16 == 0 &&
+                        sizeof(T) * (size_t)(TR + 2) * GHC * CS <= SKIP_STAGE_MAX;
+    const size_t bytes = gen_smem_bytes<T, NCB>(CS, staged);
+    static size_t allowed = 0;                   // the limit set so far
+    if (bytes > allowed) {
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+        allowed = bytes;
+    }
+    const dim3 grid((W + GTC - 1) / GTC, (H + TR - 1) / TR, N);
+    kernel<<<grid, TR * 8 * NCB, bytes, s>>>(
+        static_cast<const T*>(intra), static_cast<const T*>(skip),
+        static_cast<const float*>(wi), static_cast<const float*>(bi),
+        static_cast<const float*>(wo), static_cast<const int*>(hidx),
+        static_cast<const float*>(hw0), static_cast<const float*>(hw1),
+        static_cast<const int*>(widx), static_cast<const float*>(ww0),
+        static_cast<const float*>(ww1), static_cast<T*>(out), static_cast<T*>(uout),
+        H, W, Hh, Wh, CI, CS, CO, (int)staged);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch_cs(int CS, int CO, const void* intra, const void* skip, const void* wi,
-              const void* bi, const void* wo, const void* hidx, const void* hw0,
-              const void* hw1, const void* widx, const void* ww0, const void* ww1,
-              void* out, void* uout, int N, int H, int W, int Hh, int Wh, cudaStream_t s) {
-    switch (CS) {
-        case 8: return launch_co<T, 8>(CO, TOPDOWN_ARGS);
-        case 16: return launch_co<T, 16>(CO, TOPDOWN_ARGS);
-        case 32: return launch_co<T, 32>(CO, TOPDOWN_ARGS);
+int launch_gen_ncb(int ncb, const void* intra, const void* skip, const void* wi,
+                   const void* bi, const void* wo, const void* hidx, const void* hw0,
+                   const void* hw1, const void* widx, const void* ww0, const void* ww1,
+                   void* out, void* uout, int N, int H, int W, int Hh, int Wh, int CI, int CS,
+                   int CO, cudaStream_t s) {
+    switch (ncb) {
+        case 1: return launch_gen<T, 1>(TOPDOWN_PTRS, N, H, W, Hh, Wh, CI, CS, CO, s);
+        case 2: return launch_gen<T, 2>(TOPDOWN_PTRS, N, H, W, Hh, Wh, CI, CS, CO, s);
+        case 4: return launch_gen<T, 4>(TOPDOWN_PTRS, N, H, W, Hh, Wh, CI, CS, CO, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -531,17 +748,31 @@ int launch_cs(int CS, int CO, const void* intra, const void* skip, const void* w
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// (Cs, Co) pair without an instantiation). uout may be null; out null is the
-// u_only mode (then uout is not). Float32: wi [Cs, 64] and wo [3, 3, 64, Co]
-// float32. bf16: wi and wo the B fragments the wrapper packs.
+// shape that the chosen route has no instance for). uout may be null; out
+// null is the u_only mode (then uout is not).
+//   mma = 1 (bf16, CI = 64, CS and CO in {8, 16, 32}): the tensor-core
+//     route; wi and wo are the B fragments the wrapper packs.
+//   mma = 0: the generic kernel, any CI (a multiple of 8), CS and CO, float32
+//     or bf16 storage; wi [CS, CI] and wo [passes][3][3][CI][8 ncb] float32,
+//     rounded to the storage dtype, wo zero past CO; ncb in {1, 2, 4}.
 extern "C" int topdown_launch(const void* intra, const void* skip, const void* wi,
                               const void* bi, const void* wo, const void* hidx,
                               const void* hw0, const void* hw1, const void* widx,
                               const void* ww0, const void* ww1, void* out, void* uout,
-                              int N, int H, int W, int Hh, int Wh, int CS, int CO,
-                              int is_bf16, void* stream) {
+                              int N, int H, int W, int Hh, int Wh, int CI, int CS, int CO,
+                              int is_bf16, int mma, int ncb, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (mma) {
+        if (!is_bf16 || CI != 64) return (int)cudaErrorInvalidValue;
+        switch (CS) {
+            case 8: return launch_mma_co<8>(CO, TOPDOWN_PTRS, N, H, W, Hh, Wh, s);
+            case 16: return launch_mma_co<16>(CO, TOPDOWN_PTRS, N, H, W, Hh, Wh, s);
+            case 32: return launch_mma_co<32>(CO, TOPDOWN_PTRS, N, H, W, Hh, Wh, s);
+            default: return (int)cudaErrorInvalidValue;
+        }
+    }
+    if (CI % 8 != 0 || CS < 1 || CO < 1) return (int)cudaErrorInvalidValue;
     if (is_bf16)
-        return launch_cs<__nv_bfloat16>(CS, CO, TOPDOWN_ARGS);
-    return launch_cs<float>(CS, CO, TOPDOWN_ARGS);
+        return launch_gen_ncb<__nv_bfloat16>(ncb, TOPDOWN_PTRS, N, H, W, Hh, Wh, CI, CS, CO, s);
+    return launch_gen_ncb<float>(ncb, TOPDOWN_PTRS, N, H, W, Hh, Wh, CI, CS, CO, s);
 }

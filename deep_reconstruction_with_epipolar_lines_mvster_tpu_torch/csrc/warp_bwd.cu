@@ -36,9 +36,8 @@
 //   1. Vector atomics. One thread owns a pixel's group of 4 channels, so a
 //      warp's g loads stay coalesced (8 or 16 B a thread), and adds each
 //      corner with one sm_90 float4 atomicAdd (REDG.E.ADD.F32x4): 4x fewer
-//      atomic instructions. C in {8, 16, 32, 64} and a torch.zeros buffer
-//      keep every target 16-byte aligned; the wrapper raises on any other
-//      C. 3.54 / 3.56 ms.
+//      atomic instructions. C % 4 == 0 and a torch.zeros buffer keep every
+//      target 16-byte aligned. 3.54 / 3.56 ms.
 //   2. Shared-memory accumulation of a tile's footprint, not kept: one CTA
 //      per (b, reference tile) summed the taps of all D (or, where they
 //      did not fit, of one plane) into a shared-memory window over their
@@ -56,6 +55,10 @@
 //      one thread per (b, y, x, 4 channels), takes 1.84 / 2.98 ms
 //      (aten.grid_sampler_2d_backward: 5.36 / 5.63 ms).
 //
+// Any C: C % 4 == 0 (every stage at an FPN base that is a multiple of 4)
+// takes the float4 path above; any other C (base 1, 2, 3, 5, ...) the same
+// kernel with one channel a thread and scalar float atomics (VW = 1).
+//
 // Kept from the first design: coordinates and taps from common.cuh's
 // plane_taps, the same device code as K1 and K4, so forward and backward
 // read and write the same corners with the same weights, and each product
@@ -70,113 +73,125 @@
 
 namespace {
 
+using port::loadv;
 using port::plane_taps;
 using port::Taps;
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
+template <int VW>
+__device__ __forceinline__ void mul(float w, const float* g, float* out) {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) out[i] = __fmul_rn(w, g[i]);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-    return make_float4(a.x, a.y, b.x, b.y);
+template <int VW>
+__device__ __forceinline__ void mul_add(float* acc, float w, const float* g) {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(w, g[i]));
 }
 
-__device__ __forceinline__ float4 mul4(float w, const float4& g) {
-    return make_float4(__fmul_rn(w, g.x), __fmul_rn(w, g.y), __fmul_rn(w, g.z), __fmul_rn(w, g.w));
-}
-
-__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
-    return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                       __fadd_rn(a.w, b.w));
-}
-
-// one float4 atomic into dsrc, none for a sum that is 0
-__device__ __forceinline__ void add_group(float* p, const float4& v) {
-    if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
-        atomicAdd(reinterpret_cast<float4*>(p), v);
+// one float4 atomic (VW 4) or one float atomic (VW 1) into dsrc, none for
+// a sum that is 0
+template <int VW>
+__device__ __forceinline__ void add_group(float* p, const float* v) {
+    if constexpr (VW == 4) {
+        if (v[0] != 0.0f || v[1] != 0.0f || v[2] != 0.0f || v[3] != 0.0f)
+            atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+        if (v[0] != 0.0f) atomicAdd(p, v[0]);
+    }
 }
 
 // The taps of one (pixel, channel group) over a run of consecutive planes
 // that share their four corners, summed in registers.
+template <int VW>
 struct Run {
     int xa, xb, ya, yb;
-    float4 s00, s10, s01, s11;
+    float s00[VW], s10[VW], s01[VW], s11[VW];
 };
 
-__device__ __forceinline__ void flush(const Run& r, float* img, int Ws, int C) {
-    add_group(img + ((long long)r.ya * Ws + r.xa) * C, r.s00);
-    add_group(img + ((long long)r.ya * Ws + r.xb) * C, r.s10);
-    add_group(img + ((long long)r.yb * Ws + r.xa) * C, r.s01);
-    add_group(img + ((long long)r.yb * Ws + r.xb) * C, r.s11);
+template <int VW>
+__device__ __forceinline__ void flush(const Run<VW>& r, float* img, int Ws, int C) {
+    add_group<VW>(img + ((long long)r.ya * Ws + r.xa) * C, r.s00);
+    add_group<VW>(img + ((long long)r.ya * Ws + r.xb) * C, r.s10);
+    add_group<VW>(img + ((long long)r.yb * Ws + r.xa) * C, r.s01);
+    add_group<VW>(img + ((long long)r.yb * Ws + r.xb) * C, r.s11);
 }
 
-template <typename T>
+template <typename T, int VW>
 __global__ void __launch_bounds__(THREADS) warp_bwd_kernel(
     const T* __restrict__ g,        // [B, D, H, W, C]
     const float* __restrict__ rel,  // [B, 4, 4], rows 0..2 used
     const float* __restrict__ hypo, // [B, D, H, W]
     float* __restrict__ dsrc,       // [B, Hs, Ws, C], zeroed
     int D, int H, int W, int Hs, int Ws, int C) {
-    // blockIdx.y = b; one thread per (y, x, 4-channel group) of the plane
-    const int G4 = C / 4;
+    // blockIdx.y = b; one thread per (y, x, VW-channel group) of the plane
+    const int NG = C / VW;
     const int i = blockIdx.x * THREADS + threadIdx.x;
-    if (i >= H * W * G4) return;
-    const int q = i % G4, p = i / G4;
+    if (i >= H * W * NG) return;
+    const int q = i % NG, p = i / NG;
     const int x = p % W, y = p / W;
     const int b = blockIdx.y;
     const float* m = rel + 16 * b;
     const long long plane = (long long)H * W;
     const float* hyp = hypo + (long long)b * D * plane + p;
-    const T* gp = g + ((long long)b * D * plane + p) * C + 4 * q;
-    float* img = dsrc + (long long)b * Hs * Ws * C + 4 * q;
+    const T* gp = g + ((long long)b * D * plane + p) * C + VW * q;
+    float* img = dsrc + (long long)b * Hs * Ws * C + VW * q;
 
-    Run r;
+    Run<VW> r;
     bool open = false;
     for (int d = 0; d < D; ++d) {
         Taps tp;
         if (!plane_taps(m, x, y, __ldg(hyp + d * plane), Hs, Ws, tp)) continue;
-        const float4 gv = load4(gp + d * plane * C);
+        float gv[VW];
+        loadv<VW>(gp + d * plane * C, gv);
         if (open && tp.xa == r.xa && tp.xb == r.xb && tp.ya == r.ya && tp.yb == r.yb) {
-            r.s00 = add4(r.s00, mul4(tp.w00, gv));
-            r.s10 = add4(r.s10, mul4(tp.w10, gv));
-            r.s01 = add4(r.s01, mul4(tp.w01, gv));
-            r.s11 = add4(r.s11, mul4(tp.w11, gv));
+            mul_add<VW>(r.s00, tp.w00, gv);
+            mul_add<VW>(r.s10, tp.w10, gv);
+            mul_add<VW>(r.s01, tp.w01, gv);
+            mul_add<VW>(r.s11, tp.w11, gv);
             continue;
         }
-        if (open) flush(r, img, Ws, C);
-        r = Run{tp.xa, tp.xb, tp.ya, tp.yb, mul4(tp.w00, gv), mul4(tp.w10, gv),
-                mul4(tp.w01, gv), mul4(tp.w11, gv)};
+        if (open) flush<VW>(r, img, Ws, C);
+        r.xa = tp.xa; r.xb = tp.xb; r.ya = tp.ya; r.yb = tp.yb;
+        mul<VW>(tp.w00, gv, r.s00);
+        mul<VW>(tp.w10, gv, r.s10);
+        mul<VW>(tp.w01, gv, r.s01);
+        mul<VW>(tp.w11, gv, r.s11);
         open = true;
     }
-    if (open) flush(r, img, Ws, C);
+    if (open) flush<VW>(r, img, Ws, C);
 }
 
-template <typename T>
+template <typename T, int VW>
 int launch(const void* g, const void* rel, const void* hypo, void* dsrc, int B, int D, int H,
            int W, int Hs, int Ws, int C, cudaStream_t stream) {
-    const dim3 grid((unsigned)((H * W * (C / 4) + THREADS - 1) / THREADS), (unsigned)B);
-    warp_bwd_kernel<T><<<grid, THREADS, 0, stream>>>(
+    const dim3 grid((unsigned)((H * W * (C / VW) + THREADS - 1) / THREADS), (unsigned)B);
+    warp_bwd_kernel<T, VW><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const float*>(rel),
         static_cast<const float*>(hypo), static_cast<float*>(dsrc), D, H, W, Hs, Ws, C);
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_c(const void* g, const void* rel, const void* hypo, void* dsrc, int B, int D,
+             int H, int W, int Hs, int Ws, int C, cudaStream_t s) {
+    if (C % 4 == 0) return launch<T, 4>(g, rel, hypo, dsrc, B, D, H, W, Hs, Ws, C, s);
+    return launch<T, 1>(g, rel, hypo, dsrc, B, D, H, W, Hs, Ws, C, s);
+}
+
 }  // namespace
 
-// Adds into dsrc, which the caller zeroes and keeps 16-byte aligned; C a
-// multiple of 4 (the wrapper takes 8, 16, 32, 64). The caller keeps
-// D*H*W*C and Hs*Ws*C under 2^31 and B under 65536. Returns
+// Adds into dsrc, which the caller zeroes and keeps 16-byte aligned; any
+// C >= 1 (float4 atomics where C % 4 == 0, else scalar ones). The caller
+// keeps D*H*W*C and Hs*Ws*C under 2^31 and B under 65536. Returns
 // cudaGetLastError() after the launch.
 extern "C" int warp_bwd_launch(const void* g, const void* rel, const void* hypo,
                                void* dsrc, int B, int D, int H, int W, int Hs, int Ws,
                                int C, int is_bf16, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16)
-        return launch<__nv_bfloat16>(g, rel, hypo, dsrc, B, D, H, W, Hs, Ws, C, s);
-    return launch<float>(g, rel, hypo, dsrc, B, D, H, W, Hs, Ws, C, s);
+        return launch_c<__nv_bfloat16>(g, rel, hypo, dsrc, B, D, H, W, Hs, Ws, C, s);
+    return launch_c<float>(g, rel, hypo, dsrc, B, D, H, W, Hs, Ws, C, s);
 }

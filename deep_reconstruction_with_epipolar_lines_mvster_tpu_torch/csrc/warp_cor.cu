@@ -22,6 +22,14 @@
 // invalid taps: it is tested before any float -> int cast (undefined in
 // CUDA for NaN and huge values) and gives 0, as the JAX gather does.
 //
+// Any C and G (G dividing C): the stages' (C, G) of FPN base 8, C in {8,
+// 16, 32, 64} and G in {1, 2, 4, 8}, have an instance with both fixed at
+// compile time and G sums in registers; every other pair (any
+// --fpn_base_channel, any --group_cor_dim) takes the generic instance,
+// warp_cor_kernel_any: the same products in the same order, one running group sum
+// stored as the group's last channel is added, and 8-, 4- or 1-wide loads
+// (the widest that divides C).
+//
 // Bound on an H100: bytes. Each (b,d,y,x) reads its depth (4 B), its ref
 // pixel (2C B) and four source pixels, and writes G values; per output
 // element that is a few loads for ~6C FLOPs, far under the card's
@@ -42,6 +50,7 @@
 namespace {
 
 using port::load8;
+using port::loadv;
 using port::store1;
 using port::plane_taps;
 using port::Taps;
@@ -103,6 +112,66 @@ __global__ void __launch_bounds__(256) warp_cor_kernel(
     for (int g = 0; g < G; ++g) store1(o + g, __fdiv_rn(acc[g], (float)CPG));
 }
 
+// The generic instance: C and G at run time, VW channels per load.
+template <typename T, int VW>
+__global__ void __launch_bounds__(256) warp_cor_kernel_any(
+    const T* __restrict__ src,     // [B, Hs, Ws, C]
+    const T* __restrict__ ref,     // [B, H, W, C]
+    const float* __restrict__ rel, // [B, 4, 4], rows 0..2 used
+    const float* __restrict__ hypo,// [B, D, H, W]
+    T* __restrict__ out,           // [B, D, H, W, G]
+    int B, int D, int H, int W, int Hs, int Ws, int C, int G) {
+    const int CPG = C / G;
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long total = (long long)B * D * H * W;
+    if (idx >= total) return;
+    const int x = (int)(idx % W);
+    long long t = idx / W;
+    const int y = (int)(t % H);
+    t /= H;
+    const int b = (int)(t / D);
+
+    T* o = out + idx * G;
+    Taps tp;
+    if (!plane_taps(rel + 16 * b, x, y, __ldg(hypo + idx), Hs, Ws, tp)) {
+        for (int g = 0; g < G; ++g) store1(o + g, 0.0f);
+        return;
+    }
+    const float w00 = tp.w00, w10 = tp.w10, w01 = tp.w01, w11 = tp.w11;
+    const T* img = src + (long long)b * Hs * Ws * C;
+    const T* p00 = img + ((long long)tp.ya * Ws + tp.xa) * C;
+    const T* p10 = img + ((long long)tp.ya * Ws + tp.xb) * C;
+    const T* p01 = img + ((long long)tp.yb * Ws + tp.xa) * C;
+    const T* p11 = img + ((long long)tp.yb * Ws + tp.xb) * C;
+    const T* r = ref + (((long long)b * H + y) * W + x) * C;
+
+    float acc = 0.0f;
+    int g = 0, k = 0;
+#pragma unroll 1
+    for (int c0 = 0; c0 < C; c0 += VW) {
+        float a[VW], bq[VW], cq[VW], dq[VW], rr[VW];
+        loadv<VW>(p00 + c0, a);
+        loadv<VW>(p10 + c0, bq);
+        loadv<VW>(p01 + c0, cq);
+        loadv<VW>(p11 + c0, dq);
+        loadv<VW>(r + c0, rr);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) {
+            float s = __fmul_rn(a[i], w00);
+            s = __fadd_rn(s, __fmul_rn(bq[i], w10));
+            s = __fadd_rn(s, __fmul_rn(cq[i], w01));
+            s = __fadd_rn(s, __fmul_rn(dq[i], w11));
+            acc = __fadd_rn(acc, __fmul_rn(s, rr[i]));
+            if (++k == CPG) {
+                store1(o + g, __fdiv_rn(acc, (float)CPG));
+                ++g;
+                k = 0;
+                acc = 0.0f;
+            }
+        }
+    }
+}
+
 template <typename T, int C, int G>
 int launch(const void* src, const void* ref, const void* rel, const void* hypo, void* out,
            int B, int D, int H, int W, int Hs, int Ws, cudaStream_t stream) {
@@ -115,6 +184,18 @@ int launch(const void* src, const void* ref, const void* rel, const void* hypo, 
     return (int)cudaGetLastError();
 }
 
+template <typename T, int VW>
+int launch_any(const void* src, const void* ref, const void* rel, const void* hypo, void* out,
+               int B, int D, int H, int W, int Hs, int Ws, int C, int G, cudaStream_t stream) {
+    const long long total = (long long)B * D * H * W;
+    const unsigned blocks = (unsigned)((total + 255) / 256);
+    warp_cor_kernel_any<T, VW><<<blocks, 256, 0, stream>>>(
+        static_cast<const T*>(src), static_cast<const T*>(ref),
+        static_cast<const float*>(rel), static_cast<const float*>(hypo),
+        static_cast<T*>(out), B, D, H, W, Hs, Ws, C, G);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int C>
 int launch_g(int G, const void* src, const void* ref, const void* rel, const void* hypo,
              void* out, int B, int D, int H, int W, int Hs, int Ws, cudaStream_t s) {
@@ -123,7 +204,7 @@ int launch_g(int G, const void* src, const void* ref, const void* rel, const voi
         case 2: return launch<T, C, 2>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, s);
         case 4: return launch<T, C, 4>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, s);
         case 8: return launch<T, C, 8>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, s);
-        default: return (int)cudaErrorInvalidValue;
+        default: return launch_any<T, 8>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, C, G, s);
     }
 }
 
@@ -136,14 +217,19 @@ int launch_c(int C, int G, const void* src, const void* ref, const void* rel,
         case 16: return launch_g<T, 16>(G, src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, s);
         case 32: return launch_g<T, 32>(G, src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, s);
         case 64: return launch_g<T, 64>(G, src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, s);
-        default: return (int)cudaErrorInvalidValue;
+        default: break;
     }
+    const int VW = C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 1;
+    if (VW == 8) return launch_any<T, 8>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, C, G, s);
+    if (VW == 4) return launch_any<T, 4>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, C, G, s);
+    return launch_any<T, 1>(src, ref, rel, hypo, out, B, D, H, W, Hs, Ws, C, G, s);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// channel or group count without an instantiation).
+// Any C and G with G dividing C: the (C, G) of FPN base 8 take their
+// compile-time instance, any other the generic one. src and ref 16-byte
+// aligned. Returns cudaGetLastError() after the launch.
 extern "C" int warp_cor_launch(const void* src, const void* ref, const void* rel,
                                const void* hypo, void* out, int B, int D, int H, int W,
                                int Hs, int Ws, int C, int G, int is_bf16, void* stream) {

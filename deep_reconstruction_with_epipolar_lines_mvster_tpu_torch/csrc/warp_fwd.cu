@@ -25,6 +25,12 @@
 //   - the four taps are summed in the plain version's order,
 //     ((a*w00 + b*w10) + c*w01) + d*w11.
 //
+// Any channel count: the stages' widths C in {8, 16, 32, 64} (FPN base 8)
+// have an instance with C fixed at compile time, one thread per 8 channels;
+// every other C (any --fpn_base_channel) takes the generic instance, the
+// same body with C read at run time and a thread per 8, 4 or 1 channels
+// (the widest that divides C, so that its loads and stores stay aligned).
+//
 // Bound on an H100: bytes. Each output element costs 4 taps (8 FLOPs) and
 // one store; per pixel the function reads its depth (4 B), writes C values
 // and reads the source, which the D hypotheses and neighbouring pixels
@@ -39,37 +45,28 @@
 
 namespace {
 
-using port::load8;
+using port::loadv;
 using port::plane_taps;
+using port::storev;
 using port::Taps;
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-    uint4 r;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = r;
-}
-
-template <typename T, int C>
+// CT > 0: C fixed at compile time; CT == 0: the generic instance, C = c_rt.
+// One thread per (b, d, y, x, VW channels).
+template <typename T, int CT, int VW>
 __global__ void __launch_bounds__(THREADS) warp_fwd_kernel(
     const T* __restrict__ src,      // [B, Hs, Ws, C]
     const float* __restrict__ rel,  // [B, 4, 4], rows 0..2 used
     const float* __restrict__ hypo, // [B, D, H, W]
     T* __restrict__ out,            // [B, D, H, W, C]
-    int B, int D, int H, int W, int Hs, int Ws) {
-    constexpr int NG = C / 8;
+    int B, int D, int H, int W, int Hs, int Ws, int c_rt) {
+    const int C = CT > 0 ? CT : c_rt;
+    const int NG = C / VW;
     const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
     const long long total = (long long)B * D * H * W * NG;
     if (idx >= total) return;
-    const int c8 = (int)(idx % NG) * 8;
+    const int cv = (int)(idx % NG) * VW;
     const long long p = idx / NG;               // (b, d, y, x)
     const int x = (int)(p % W);
     long long t = p / W;
@@ -77,58 +74,64 @@ __global__ void __launch_bounds__(THREADS) warp_fwd_kernel(
     t /= H;
     const int b = (int)(t / D);
 
-    T* o = out + p * C + c8;
-    float s[8];
+    T* o = out + p * C + cv;
+    float s[VW];
     Taps tp;
     if (!plane_taps(rel + 16 * b, x, y, __ldg(hypo + p), Hs, Ws, tp)) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) s[i] = 0.0f;
-        store8(o, s);
+        for (int i = 0; i < VW; ++i) s[i] = 0.0f;
+        storev<VW>(o, s);
         return;
     }
-    const T* img = src + (long long)b * Hs * Ws * C + c8;
-    float a[8], bq[8], cq[8], dq[8];
-    load8(img + ((long long)tp.ya * Ws + tp.xa) * C, a);
-    load8(img + ((long long)tp.ya * Ws + tp.xb) * C, bq);
-    load8(img + ((long long)tp.yb * Ws + tp.xa) * C, cq);
-    load8(img + ((long long)tp.yb * Ws + tp.xb) * C, dq);
+    const T* img = src + (long long)b * Hs * Ws * C + cv;
+    float a[VW], bq[VW], cq[VW], dq[VW];
+    loadv<VW>(img + ((long long)tp.ya * Ws + tp.xa) * C, a);
+    loadv<VW>(img + ((long long)tp.ya * Ws + tp.xb) * C, bq);
+    loadv<VW>(img + ((long long)tp.yb * Ws + tp.xa) * C, cq);
+    loadv<VW>(img + ((long long)tp.yb * Ws + tp.xb) * C, dq);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < VW; ++i) {
         float v = __fmul_rn(a[i], tp.w00);
         v = __fadd_rn(v, __fmul_rn(bq[i], tp.w10));
         v = __fadd_rn(v, __fmul_rn(cq[i], tp.w01));
         s[i] = __fadd_rn(v, __fmul_rn(dq[i], tp.w11));
     }
-    store8(o, s);
+    storev<VW>(o, s);
 }
 
-template <typename T, int C>
+template <typename T, int CT, int VW>
 int launch(const void* src, const void* rel, const void* hypo, void* out,
-           int B, int D, int H, int W, int Hs, int Ws, cudaStream_t stream) {
-    const long long total = (long long)B * D * H * W * (C / 8);
+           int B, int D, int H, int W, int Hs, int Ws, int C, cudaStream_t stream) {
+    const long long total = (long long)B * D * H * W * (C / VW);
     const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-    warp_fwd_kernel<T, C><<<blocks, THREADS, 0, stream>>>(
+    warp_fwd_kernel<T, CT, VW><<<blocks, THREADS, 0, stream>>>(
         static_cast<const T*>(src), static_cast<const float*>(rel),
-        static_cast<const float*>(hypo), static_cast<T*>(out), B, D, H, W, Hs, Ws);
+        static_cast<const float*>(hypo), static_cast<T*>(out), B, D, H, W, Hs, Ws, C);
     return (int)cudaGetLastError();
 }
+
+#define WARP_FWD_ARGS src, rel, hypo, out, B, D, H, W, Hs, Ws, C, s
 
 template <typename T>
 int launch_c(int C, const void* src, const void* rel, const void* hypo, void* out,
              int B, int D, int H, int W, int Hs, int Ws, cudaStream_t s) {
     switch (C) {
-        case 8: return launch<T, 8>(src, rel, hypo, out, B, D, H, W, Hs, Ws, s);
-        case 16: return launch<T, 16>(src, rel, hypo, out, B, D, H, W, Hs, Ws, s);
-        case 32: return launch<T, 32>(src, rel, hypo, out, B, D, H, W, Hs, Ws, s);
-        case 64: return launch<T, 64>(src, rel, hypo, out, B, D, H, W, Hs, Ws, s);
-        default: return (int)cudaErrorInvalidValue;
+        case 8: return launch<T, 8, 8>(WARP_FWD_ARGS);
+        case 16: return launch<T, 16, 8>(WARP_FWD_ARGS);
+        case 32: return launch<T, 32, 8>(WARP_FWD_ARGS);
+        case 64: return launch<T, 64, 8>(WARP_FWD_ARGS);
+        default: break;
     }
+    if (C % 8 == 0) return launch<T, 0, 8>(WARP_FWD_ARGS);
+    if (C % 4 == 0) return launch<T, 0, 4>(WARP_FWD_ARGS);
+    return launch<T, 0, 1>(WARP_FWD_ARGS);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// channel count without an instantiation).
+// Any C >= 1: C in {8, 16, 32, 64} takes its compile-time instance, any
+// other the generic one. src and out 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int warp_fwd_launch(const void* src, const void* rel, const void* hypo, void* out,
                                int B, int D, int H, int W, int Hs, int Ws, int C,
                                int is_bf16, void* stream) {

@@ -1,15 +1,15 @@
 """FPN4 feature pyramid, NHWC (reference ``mvs4net_utils.py:426-509``).
 
 Counterpart of the JAX package's ``models/fpn.py`` ``FPN4`` and
-``_TopDown``: stride-2 5x5 stem convs, then a 64-channel top-down pathway.
-The three top-down levels (``up2(intra) + inner(skip)``, then the 3x3
-``out`` conv) run through kernel K2 (``ops/kernels/topdown.py``), by way of
-``ops/topdown_chain.py``: its ``autograd.Function`` in training, K2
-directly in eval. In eval the stem's 3x3 layers of at most 16 channels
-(``conv0.0``, ``conv0.1``, ``conv1.1``, ``conv1.2``) run as kernel K6 with
-the BatchNorm folded (``models/layers.py``); the rest of the stem and the
-``out1`` 1x1 are plain convolutions; in training the stem's BatchNorm takes
-statistics per view.
+``_TopDown``: stride-2 5x5 stem convs, then a top-down pathway of 8 x base
+channels (64 at the flagship's base 8). The three top-down levels
+(``up2(intra) + inner(skip)``, then the 3x3 ``out`` conv) run through kernel
+K2 (``ops/kernels/topdown.py``), by way of ``ops/topdown_chain.py``: its
+``autograd.Function`` in training, K2 directly in eval. In eval the stem's
+3x3 stride-1 layers on K6's route (``models/layers.py``: at base 8 every
+one in bf16, up to ``conv2.2`` in float32) run as kernel K6 with the
+BatchNorm folded; the rest of the stem and the ``out1`` 1x1 are plain
+convolutions; in training the stem's BatchNorm takes statistics per view.
 """
 
 from __future__ import annotations

@@ -13,11 +13,11 @@ Cost volumes flow folded, ``[B*D, H, W, C]``: the (1,3,3) Conv3d kernels are
 ``[B, C, D, H, W]``.
 
 In eval, a 3x3 (or (1,3,3)) stride-1 conv + BatchNorm + ReLU with at most
-``BAND_CONV_MAX_CHANNELS`` input and output channels runs as kernel K6
-(``ops/kernels/band_conv.py``) with the BatchNorm folded into a scale and a
-bias; every other block, and every block in training, is the convolution
+``BAND_CONV_MAX_CHANNELS[dtype]`` input and output channels runs as kernel
+K6 (``ops/kernels/band_conv.py``) with the BatchNorm folded into a scale and
+a bias; every other block, and every block in training, is the convolution
 library's conv followed by ``TorchBatchNorm`` and ReLU. The route follows
-the module's shape and mode only.
+the module's shape, mode and the activations' dtype only.
 """
 
 from __future__ import annotations
@@ -33,11 +33,12 @@ from ..ops.kernels.band_conv import band_conv
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax momentum; torch's 0.1
 
-# The widest eval 3x3 stride-1 conv + BatchNorm + ReLU that runs as K6. Up
-# to here the unfused route's float32 BatchNorm and ReLU passes (~50 bytes
-# per output element) cost more than the convolution; on wider layers they
-# are small beside it, and cuDNN's tensor cores beat K6's CUDA-core sums.
-BAND_CONV_MAX_CHANNELS = 16
+# The widest eval 3x3 stride-1 conv + BatchNorm + ReLU that runs as K6, per
+# activation dtype: where K6 beats the unfused route (cuDNN conv,
+# TorchBatchNorm in eval, ReLU) at every layer of the flagship forward up to
+# that width (chip_smoke.py's band_conv kernel_shapes rows, which time both
+# at each layer's shape and dtype in one call).
+BAND_CONV_MAX_CHANNELS = {torch.bfloat16: 64, torch.float32: 32}
 
 
 class ConvWeight(nn.Module):
@@ -123,12 +124,17 @@ class TorchBatchNorm(nn.Module):
         return scale, self.bias - self.running_mean * scale
 
 
-def _band_conv_route(module, weight) -> bool:
-    """Whether an eval 3x3 stride-1 block with this OIHW ``weight`` runs as
-    K6: eval mode and at most ``BAND_CONV_MAX_CHANNELS`` channels in and
-    out."""
+def band_conv_route(ci: int, co: int, dtype) -> bool:
+    """Whether an eval 3x3 stride-1 conv + BatchNorm + ReLU of ``ci`` input
+    and ``co`` output channels in ``dtype`` runs as K6."""
+    return max(ci, co) <= BAND_CONV_MAX_CHANNELS.get(dtype, 0)
+
+
+def _band_conv_route(module, weight, dtype) -> bool:
+    """Whether an eval-mode block with this OIHW ``weight`` (stride 1) on
+    activations of ``dtype`` runs as K6: a 3x3 kernel on its route."""
     return (not module.training and tuple(weight.shape[2:]) == (3, 3)
-            and max(weight.shape[:2]) <= BAND_CONV_MAX_CHANNELS)
+            and band_conv_route(weight.shape[1], weight.shape[0], dtype))
 
 
 class ConvBnReLU(nn.Module):
@@ -143,7 +149,7 @@ class ConvBnReLU(nn.Module):
         self.stride = stride
 
     def forward(self, x, view_groups: int = 1):
-        if self.stride == 1 and _band_conv_route(self, self.conv.weight):
+        if self.stride == 1 and _band_conv_route(self, self.conv.weight, x.dtype):
             return band_conv(x.contiguous(), self.conv.weight, *self.bn.folded())
         x = conv2d_nhwc(x, self.conv.weight, stride=self.stride,
                         padding=self.conv.weight.shape[-1] // 2)
@@ -171,7 +177,7 @@ class ConvBnReLU3D(nn.Module):
         kd, kh, kw = self.kernel
         sd, sh, sw = self.stride
         w = self.conv.weight
-        if kd == 1 and self.stride == (1, 1, 1) and _band_conv_route(self, w[:, :, 0]):
+        if kd == 1 and self.stride == (1, 1, 1) and _band_conv_route(self, w[:, :, 0], x.dtype):
             return band_conv(x.contiguous(), w[:, :, 0], *self.bn.folded())
         if kd == 1 and sd == 1:
             x = conv2d_nhwc(x, w[:, :, 0], stride=(sh, sw), padding=(kh // 2, kw // 2))

@@ -30,8 +30,8 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 _DTYPES = (torch.float32, torch.bfloat16)
 # the (D, G) that the register kernel is instantiated for (csrc/attn_fuse.cu
 # in_registers); any other takes the workspace kernel
-_REGISTER_DEPTHS = (2, 4, 8)
-_REGISTER_GROUPS = (1, 2, 4, 8)
+REGISTER_DEPTHS = (2, 4, 8)
+REGISTER_GROUPS = (1, 2, 4, 8)
 
 
 def attn_fuse_ref(cors, attn_temp: float, channels: int) -> torch.Tensor:
@@ -84,7 +84,7 @@ def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
         raise ValueError("attn_fuse: plane too large or cors not 16-byte aligned")
     out = torch.empty((B, D, H, W, G), dtype=cors.dtype, device=cors.device)
     acc = norm = None
-    if D not in _REGISTER_DEPTHS or G not in _REGISTER_GROUPS:
+    if D not in REGISTER_DEPTHS or G not in REGISTER_GROUPS:
         acc = torch.empty((B, D, H, W, G), dtype=torch.float32, device=cors.device)
         norm = torch.empty((B, D, H, W), dtype=torch.float32, device=cors.device)
     status = _lib()(

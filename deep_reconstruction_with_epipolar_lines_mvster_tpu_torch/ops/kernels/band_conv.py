@@ -1,6 +1,10 @@
 """K6: 3x3 stride-1 convolution with a fused scale, bias and ReLU
-(``csrc/band_conv.cu``), the eval-mode ``ConvBnReLU`` of the small-channel
-layers once the BatchNorm is folded (``models/layers.py``).
+(``csrc/band_conv.cu``), the eval-mode ``ConvBnReLU`` of the layers on its
+route once the BatchNorm is folded (``models/layers.py``).
+
+In bf16 with Ci and Co at most 64 it runs on the tensor cores (an implicit
+GEMM on ``mma.sync`` that builds its weight fragments from the float32
+weight); in float32, and wider, the direct form on the CUDA cores.
 
 ``band_conv`` launches the CUDA kernel on a CUDA tensor and uses the plain
 PyTorch version ``band_conv_ref`` only for a tensor on the CPU.
@@ -28,6 +32,11 @@ launches = 0
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 tensor-core route's widths: Ci padded to one of these, Co to a
+# multiple of 8 in 8 x (1, 2, 4, 8); wider layers and float32 take the
+# direct form
+MMA_CIP = (8, 16, 32, 64)
+MMA_NT = (1, 2, 4, 8)
 
 
 def band_conv_ref(x, weight, scale, bias) -> torch.Tensor:
@@ -41,10 +50,18 @@ def band_conv_ref(x, weight, scale, bias) -> torch.Tensor:
     return torch.relu(acc.permute(0, 2, 3, 1) * scale.float() + bias.float()).to(dt)
 
 
+def mma_widths(ci: int, co: int):
+    """``(cip, nt)`` of the bf16 tensor-core route for ``ci`` input and
+    ``co`` output channels, or None where it has no instance (over 64)."""
+    cip = next((c for c in MMA_CIP if c >= ci), None)
+    nt = next((n for n in MMA_NT if 8 * n >= co), None)
+    return None if cip is None or nt is None else (cip, nt)
+
+
 def _lib():
     lib = _build.load("band_conv")
     fn = lib.band_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,9 +98,13 @@ def band_conv(x, weight, scale, bias) -> torch.Tensor:
     if min(N, H, W, Ci, Co) < 1 or N >= 2 ** 16:
         raise ValueError(f"band_conv: N={N}, H={H}, W={W}, Ci={Ci}, Co={Co} not supported")
     out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
+    widths = mma_widths(Ci, Co) if x.dtype == torch.bfloat16 else None
+    if widths is not None and x.data_ptr() % 16:
+        raise ValueError("band_conv: x must be 16-byte aligned")
+    cip, nt = widths or (0, 0)
     status = _lib()(
         x.data_ptr(), weight.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        N, H, W, Ci, Co, int(x.dtype == torch.bfloat16),
+        N, H, W, Ci, Co, int(x.dtype == torch.bfloat16), cip, nt,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "band_conv")

@@ -8,7 +8,12 @@ under autograd: the differentiable chain is ``ops/topdown_chain.py``.
 the kernel skips the 3x3 and the write of ``o``.
 
 Weights come in the PyTorch layouts the port's modules hold: ``wi [Ci, Cs,
-1, 1]``, ``bi [Ci]``, ``wo [Co, Ci, 3, 3]``, with Ci = 64.
+1, 1]``, ``bi [Ci]``, ``wo [Co, Ci, 3, 3]``, with Ci = 8 x the FPN base.
+
+Two routes on the card, chosen by shape and dtype: bf16 at the widths of
+FPN base 8 (Ci = 64, Cs and Co in {8, 16, 32}) runs on the tensor cores;
+every other shape, and every float32 call, runs the generic kernel (any Ci
+that is a multiple of 8, any Cs and Co).
 """
 
 from __future__ import annotations
@@ -31,15 +36,15 @@ launches = 0
 # difference may flip either rounding by one ulp (2^-7), so two ulps.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
-CI = 64
 _DTYPES = (torch.float32, torch.bfloat16)
-_SKIP_CHANNELS = (8, 16, 32)
-_OUT_CHANNELS = (8, 16, 32)
+# the shapes of the bf16 tensor-core route; every other takes the generic kernel
+MMA_CI = 64
+MMA_CHANNELS = (8, 16, 32)
 
 
 def topdown_level_ref(intra, skip, wi, bi, wo, with_u: bool = False, u_only: bool = False):
-    """Plain PyTorch version. ``intra [N,Hh,Wh,64]`` and ``skip [N,H,W,Cs]``
-    (NHWC, H = 2·Hh, W = 2·Wh) -> ``o [N,H,W,Co]`` (and ``u [N,H,W,64]``
+    """Plain PyTorch version. ``intra [N,Hh,Wh,Ci]`` and ``skip [N,H,W,Cs]``
+    (NHWC, H = 2·Hh, W = 2·Wh) -> ``o [N,H,W,Co]`` (and ``u [N,H,W,Ci]``
     with ``with_u``; ``u`` alone with ``u_only``), in the dtype of
     ``intra``:
 
@@ -89,16 +94,16 @@ def _fragment_kn(K: int, N: int):
 @functools.lru_cache(maxsize=16)
 def _fragment_index(kind: str, C: int, device: torch.device) -> torch.Tensor:
     """Flat indices that gather a weight into the bf16 route's B fragments
-    (``torch.take``). ``"wo"``: ``wo [Co, 64, 3, 3]`` as 9 taps of ``[K =
+    (``torch.take``), Ci = ``MMA_CI``. ``"wo"``: ``wo [Co, 64, 3, 3]`` as 9 taps of ``[K =
     64, N = Co]``, ``[9, 4, Co/8, 32, 4]``. ``"wi"``: ``wi [64, Cs, 1, 1]``
     as ``[K = Cs, N = 64]``, K padded to 16 (a padded k reads k - 8, which
     the kernel multiplies by 0) and N permuted so that column ``8j + 2t +
     e`` is channel ``16t + 2j + e``, ``[max(Cs/16, 1), 8, 32, 4]``."""
     if kind == "wo":
-        k, n = _fragment_kn(CI, C)
-        idx = (n * CI + k)[None] * 9 + np.arange(9)[:, None, None, None, None]
+        k, n = _fragment_kn(MMA_CI, C)
+        idx = (n * MMA_CI + k)[None] * 9 + np.arange(9)[:, None, None, None, None]
     else:
-        k, n = _fragment_kn(max(C, 16), CI)
+        k, n = _fragment_kn(max(C, 16), MMA_CI)
         ch = 16 * ((n % 8) // 2) + 2 * (n // 8) + n % 2
         idx = ch * C + np.where(k < C, k, k - 8)
     return torch.as_tensor(np.ascontiguousarray(idx), dtype=torch.int64, device=device)
@@ -107,7 +112,7 @@ def _fragment_index(kind: str, C: int, device: torch.device) -> torch.Tensor:
 def _lib():
     lib = _build.load("topdown")
     fn = lib.topdown_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -131,39 +136,49 @@ def topdown_level(intra, skip, wi, bi, wo, with_u: bool = False, u_only: bool = 
     if intra.dtype not in _DTYPES or skip.dtype != intra.dtype:
         raise ValueError(f"topdown_level: dtypes {intra.dtype}/{skip.dtype} not supported")
     if (
-        Ci != CI or skip.shape[0] != N or (H, W) != (2 * Hh, 2 * Wh)
-        or tuple(wi.shape) != (CI, Cs, 1, 1) or tuple(bi.shape) != (CI,)
-        or tuple(wo.shape) != (Co, CI, 3, 3)
+        skip.shape[0] != N or (H, W) != (2 * Hh, 2 * Wh)
+        or tuple(wi.shape) != (Ci, Cs, 1, 1) or tuple(bi.shape) != (Ci,)
+        or tuple(wo.shape) != (Co, Ci, 3, 3)
     ):
         raise ValueError(
             f"topdown_level: shapes intra {tuple(intra.shape)} skip "
             f"{tuple(skip.shape)} wi {tuple(wi.shape)} wo {tuple(wo.shape)}"
         )
-    if Cs not in _SKIP_CHANNELS or Co not in _OUT_CHANNELS:
-        raise ValueError(f"topdown_level: Cs={Cs}, Co={Co} not supported")
+    if Ci % 8 or min(N, Hh, Wh, Cs, Co) < 1:
+        raise ValueError(f"topdown_level: Ci={Ci} (a multiple of 8), Cs={Cs}, Co={Co} "
+                         "not supported")
     if intra.data_ptr() % 16 or skip.data_ptr() % 16:
         raise ValueError("topdown_level: intra and skip must be 16-byte aligned")
     dt = intra.dtype
-    if dt == torch.bfloat16:
+    mma = dt == torch.bfloat16 and Ci == MMA_CI and Cs in MMA_CHANNELS and Co in MMA_CHANNELS
+    ncb = 1 if Co <= 8 else 2 if Co <= 16 else 4
+    if mma:
         # the tensor-core route reads B fragments, gathered in one take each
         wi_k = torch.take(wi, _fragment_index("wi", Cs, intra.device)).to(dt)
         wo_k = None if u_only else torch.take(wo, _fragment_index("wo", Co, intra.device)).to(dt)
     else:
-        wi_k = wi[:, :, 0, 0].float().t().contiguous()                      # [Cs, 64]
-        wo_k = None if u_only else wo.float().permute(2, 3, 1, 0).contiguous()  # [3,3,64,Co]
+        # the generic kernel: float32 weights rounded to the storage dtype,
+        # wo as [passes][3][3][Ci][8 ncb], zero past Co
+        wi_k = wi[:, :, 0, 0].to(dt).float().t().contiguous()             # [Cs, Ci]
+        wo_k = None
+        if not u_only:
+            cob = 8 * ncb
+            passes = -(-Co // cob)
+            wpad = F.pad(wo.to(dt).float(), (0, 0, 0, 0, 0, 0, 0, passes * cob - Co))
+            wo_k = wpad.reshape(passes, cob, Ci, 3, 3).permute(0, 3, 4, 2, 1).contiguous()
     bi_k = bi.float().contiguous()
     if bi_k.data_ptr() % 16:                # the kernels read it in 16-byte vectors
         bi_k = bi_k.clone()
     hidx, hw0, hw1 = _taps(H, Hh, intra.device)
     widx, ww0, ww1 = _taps(W, Wh, intra.device)
     out = None if u_only else torch.empty((N, H, W, Co), dtype=dt, device=intra.device)
-    u = torch.empty((N, H, W, CI), dtype=dt, device=intra.device) if with_u or u_only else None
+    u = torch.empty((N, H, W, Ci), dtype=dt, device=intra.device) if with_u or u_only else None
     status = _lib()(
         intra.data_ptr(), skip.data_ptr(), wi_k.data_ptr(), bi_k.data_ptr(),
         None if wo_k is None else wo_k.data_ptr(), hidx.data_ptr(), hw0.data_ptr(),
         hw1.data_ptr(), widx.data_ptr(), ww0.data_ptr(), ww1.data_ptr(),
         None if out is None else out.data_ptr(), None if u is None else u.data_ptr(),
-        N, H, W, Hh, Wh, Cs, Co, int(dt == torch.bfloat16),
+        N, H, W, Hh, Wh, Ci, Cs, Co, int(dt == torch.bfloat16), int(mma), ncb,
         torch.cuda.current_stream(intra.device).cuda_stream,
     )
     _build.check(status, "topdown_level")

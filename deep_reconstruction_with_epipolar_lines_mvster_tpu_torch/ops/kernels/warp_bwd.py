@@ -27,7 +27,9 @@ launches = 0
 TOLERANCE = {torch.float32: 3e-5, torch.bfloat16: 3e-5}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_CHANNELS = (8, 16, 32, 64)
+# C % 4 == 0 takes the float4-atomic instance; any other C the same kernel
+# with scalar atomics (csrc/warp_bwd.cu)
+FAST_CHANNEL_MULTIPLE = 4
 
 
 def warp_bwd_ref(g, rel_proj, hypo, src_shape) -> torch.Tensor:
@@ -74,7 +76,7 @@ def _lib():
 
 def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
     """``(g [B,D,H,W,C] f32/bf16, rel_proj [B,4,4] f32, hypo [B,D,H,W] f32,
-    src_shape (B,Hs,Ws,C)) -> dsrc [B,Hs,Ws,C]`` float32; the caller casts
+    src_shape (B,Hs,Ws,C)) -> dsrc [B,Hs,Ws,C]`` float32, any C; the caller casts
     it to the source dtype. Same function as the JAX package's
     ``warp_tiles_pallas_xband_bwd_ik`` where its bands cover the taps."""
     if g.device.type == "cpu":
@@ -102,8 +104,8 @@ def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
             f"warp_bwd: shapes g {tuple(g.shape)} rel {tuple(rel_proj.shape)} "
             f"hypo {tuple(hypo.shape)} src {tuple(src_shape)}"
         )
-    if C not in _CHANNELS:
-        raise ValueError(f"warp_bwd: C={C} not supported")
+    if min(B, C, D, Hs, Ws) < 1:
+        raise ValueError(f"warp_bwd: C={C}, source {tuple(src_shape)} not supported")
     if max(H * W * C, Hs * Ws * C) >= 2 ** 31 or B >= 2 ** 16:
         raise ValueError("warp_bwd: plane or grid too large for the kernel's indices")
     dsrc = torch.zeros((B, Hs, Ws, C), dtype=torch.float32, device=g.device)

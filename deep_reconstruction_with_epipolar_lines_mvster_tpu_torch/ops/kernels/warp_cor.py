@@ -25,8 +25,10 @@ launches = 0
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_CHANNELS = (8, 16, 32, 64)
-_GROUPS = (1, 2, 4, 8)
+# the (C, G) with a compile-time instance (the stages of FPN base 8); any
+# other C and G dividing it takes the generic instance (csrc/warp_cor.cu)
+FAST_CHANNELS = (8, 16, 32, 64)
+FAST_GROUPS = (1, 2, 4, 8)
 
 
 def group_correlate(wf: torch.Tensor, ref: torch.Tensor, g: int) -> torch.Tensor:
@@ -57,7 +59,8 @@ def warp_cor(src, ref, rel_proj, hypo, groups: int, out=None) -> torch.Tensor:
     """``(src [B,Hs,Ws,C], ref [B,H,W,C], rel_proj [B,4,4] f32,
     hypo [B,D,H,W] f32, groups) -> [B,D,H,W,G]`` in the dtype of ``src``,
     float32 accumulation. Same function as JAX
-    ``correlate_view(impl="gather", group_cor=True)``. ``out``, a contiguous
+    ``correlate_view(impl="gather", group_cor=True)``, for any C and any G
+    that divides it. ``out``, a contiguous
     ``[B,D,H,W,G]`` tensor of that dtype (a view's slot of a larger buffer),
     receives the result in place of a new tensor."""
     if src.device.type == "cpu":
@@ -84,7 +87,7 @@ def warp_cor(src, ref, rel_proj, hypo, groups: int, out=None) -> torch.Tensor:
             f"warp_cor: shapes src {tuple(src.shape)} ref {tuple(ref.shape)} "
             f"rel {tuple(rel_proj.shape)} hypo {tuple(hypo.shape)}"
         )
-    if C not in _CHANNELS or groups not in _GROUPS or C % groups:
+    if min(B, C, D, H, W, Hs, Ws) < 1 or groups < 1 or C % groups:
         raise ValueError(f"warp_cor: C={C}, groups={groups} not supported")
     if src.data_ptr() % 16 or ref.data_ptr() % 16:
         raise ValueError("warp_cor: src and ref must be 16-byte aligned")

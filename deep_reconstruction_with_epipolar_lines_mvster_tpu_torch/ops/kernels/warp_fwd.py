@@ -26,7 +26,9 @@ launches = 0
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_CHANNELS = (8, 16, 32, 64)
+# the channel counts with a compile-time instance (the stages of FPN base
+# 8); any other C takes the generic instance (csrc/warp_fwd.cu)
+FAST_CHANNELS = (8, 16, 32, 64)
 
 
 def warp_fwd_ref(src, rel_proj, hypo) -> torch.Tensor:
@@ -46,7 +48,7 @@ def _lib():
 
 def warp_fwd(src, rel_proj, hypo) -> torch.Tensor:
     """``(src [B,Hs,Ws,C] f32/bf16, rel_proj [B,4,4] f32, hypo [B,D,H,W]
-    f32) -> [B,D,H,W,C]`` in the dtype of ``src``, float32 arithmetic. Same
+    f32) -> [B,D,H,W,C]`` in the dtype of ``src``, any C, float32 arithmetic. Same
     function as JAX ``grid_sample_2d(src, warp_coords(rel, hypo))`` and, where
     their bands cover the taps, as the banded Pallas warps
     ``warp_tiles_pallas_v3`` (no ``ref``), ``warp_tiles_pallas_xband`` and
@@ -72,8 +74,8 @@ def warp_fwd(src, rel_proj, hypo) -> torch.Tensor:
             f"warp_fwd: shapes src {tuple(src.shape)} rel {tuple(rel_proj.shape)} "
             f"hypo {tuple(hypo.shape)}"
         )
-    if C not in _CHANNELS:
-        raise ValueError(f"warp_fwd: C={C} not supported")
+    if min(B, C, D, Hs, Ws) < 1:
+        raise ValueError(f"warp_fwd: C={C}, shape {tuple(src.shape)} not supported")
     if src.data_ptr() % 16:
         raise ValueError("warp_fwd: src must be 16-byte aligned")
     out = torch.empty((B, D, H, W, C), dtype=src.dtype, device=src.device)

@@ -3,22 +3,27 @@
 one card, in turn.
 
     python ab_eval_forward.py --repo A=DIR --repo B=DIR [--order ABBA]
-                              [--rounds 7] [--reps 5] [--path eval|train]
+                              [--rounds 7] [--reps 5] [--path eval|train|pipeline]
 
 Each letter of ``--order`` runs that checkout in a process of its own, so
 that two versions of the package never share an interpreter. A process
 builds the flagship model in bf16 (the config of ``chip_smoke.py``'s eval
-phase; seeded weights and BatchNorm statistics); its checkout builds its
+phase; seeded weights and BatchNorm statistics) for the eval and train
+paths; its checkout builds its
 kernels from its own sources at first use, during the warm-up. With
 ``--path eval`` (the default) it makes B=4 plane scenes of V=4 views at
 512x640 and times forwards in eval; with ``--path train`` it makes B=6
 scenes of V=5 views and times the DTU recipe's train step (``train/step``:
-recipe loss, Adam lr 1e-3, wd 1e-4). It warms up with two calls, times
+recipe loss, Adam lr 1e-3, wd 1e-4); with ``--path pipeline`` it builds the
+eval pipeline's model instead (``checks.eval_dtu_config()``, the
+scripts/eval_dtu.sh model in float32) and times its eval forward on one
+reference view of V=4 at 512x640, the forward that the eval CLI runs per
+view. It warms up with two calls, times
 ``--rounds`` rounds of ``--reps`` calls with CUDA events, and adds the
 device time of one call under ``torch.profiler``. It uses only what every
-version of the port since the train step has: ``ModelConfig``,
+version of the port since the eval pipeline has: ``ModelConfig``,
 ``MVS4Net(cfg, device=, generator=)``, ``data.synthetic``,
-``checks.RECIPE_LOSS`` and ``train.step``.
+``checks.RECIPE_LOSS``, ``checks.eval_dtu_config`` and ``train.step``.
 
 Prints the card's name and power limit, one JSON line per process and a
 last JSON line with, per checkout, the median round of each of its
@@ -35,7 +40,7 @@ import sys
 
 PKG = "deep_reconstruction_with_epipolar_lines_mvster_tpu_torch"
 H, W = 512, 640
-SHAPES = {"eval": (4, 4), "train": (6, 5)}      # (B, V) of each path
+SHAPES = {"eval": (4, 4), "train": (6, 5), "pipeline": (1, 4)}   # (B, V) of each path
 
 
 def measure(repo: str, rounds: int, reps: int, path: str) -> dict:
@@ -54,11 +59,14 @@ def measure(repo: str, rounds: int, reps: int, path: str) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = config.ModelConfig(
-        group_cor=True, group_cor_dim=(8, 8, 4, 4), inverse_depth=True, mono=True,
-        attn_temp=2.0, dtype="bfloat16", pack_conv=True, warp_impl="mxu_v3",
-        warp_band=12, fused_topdown=True,
-    )
+    if path == "pipeline":
+        cfg = importlib.import_module(f"{PKG}.checks").eval_dtu_config()
+    else:
+        cfg = config.ModelConfig(
+            group_cor=True, group_cor_dim=(8, 8, 4, 4), inverse_depth=True, mono=True,
+            attn_temp=2.0, dtype="bfloat16", pack_conv=True, warp_impl="mxu_v3",
+            warp_band=12, fused_topdown=True,
+        )
     gen = torch.Generator().manual_seed(0)
     model = models.MVS4Net(cfg, device="cpu", generator=gen)
     with torch.no_grad():
@@ -73,7 +81,7 @@ def measure(repo: str, rounds: int, reps: int, path: str) -> dict:
     B, V = SHAPES[path]
     scenes = [synthetic.make_plane_scene(V=V, H=H, W=W, seed=i) for i in range(B)]
     batch = synthetic.batch_to_torch(synthetic.batch_samples(scenes), "cuda")
-    if path == "eval":
+    if path in ("eval", "pipeline"):
         model.eval()
         args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
 

@@ -111,26 +111,33 @@ def test_eval_blocks_through_band_conv_match_flax(case):
 
 
 def test_route_follows_mode_shape_and_width():
-    """K6's route is fixed by the module's shape and mode: an eval 3x3 or
-    (1,3,3) stride-1 block with at most ``BAND_CONV_MAX_CHANNELS`` (16)
-    channels in and out takes it; the same block in training (batch
-    statistics), a 32-channel block, a stride-2 or 5x5 block and a 3x3x3
-    block do not, and their outputs are the unfused route's."""
-    assert tl.BAND_CONV_MAX_CHANNELS == 16
+    """K6's route is fixed by the module's shape and mode and the
+    activations' dtype: an eval 3x3 or (1,3,3) stride-1 block with at most
+    ``BAND_CONV_MAX_CHANNELS[dtype]`` channels in and out (32 in float32, 64
+    in bf16) takes it; the same block in training (batch statistics), a
+    wider block, a stride-2 or 5x5 block and a 3x3x3 block do not, and
+    their outputs are the unfused route's."""
+    assert tl.BAND_CONV_MAX_CHANNELS == {torch.float32: 32, torch.bfloat16: 64}
     rng = np.random.default_rng(2)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        (tl.ConvBnReLU(8, 16, 3), (2, 8, 8, 8), True),
-        (tl.ConvBnReLU3D(4, 8, (1, 3, 3)), (4, 8, 8, 4), True),
-        (tl.ConvBnReLU(16, 32, 3), (2, 8, 8, 16), False),
-        (tl.ConvBnReLU(32, 16, 3), (2, 8, 8, 32), False),
-        (tl.ConvBnReLU(8, 8, 3, 2), (2, 8, 8, 8), False),
-        (tl.ConvBnReLU(8, 8, 5), (2, 8, 8, 8), False),
-        (tl.ConvBnReLU3D(8, 8, (1, 3, 3), (1, 2, 2)), (4, 8, 8, 8), False),
-        (tl.ConvBnReLU3D(8, 8, depth=2), (4, 8, 8, 8), False),
+        (tl.ConvBnReLU(8, 16, 3), (2, 8, 8, 8), f32, True),
+        (tl.ConvBnReLU3D(4, 8, (1, 3, 3)), (4, 8, 8, 4), f32, True),
+        (tl.ConvBnReLU(16, 32, 3), (2, 8, 8, 16), f32, True),
+        (tl.ConvBnReLU(32, 64, 3), (2, 8, 8, 32), f32, False),
+        (tl.ConvBnReLU(64, 16, 3), (2, 8, 8, 64), f32, False),
+        (tl.ConvBnReLU(8, 8, 3, 2), (2, 8, 8, 8), f32, False),
+        (tl.ConvBnReLU(8, 8, 5), (2, 8, 8, 8), f32, False),
+        (tl.ConvBnReLU3D(8, 8, (1, 3, 3), (1, 2, 2)), (4, 8, 8, 8), f32, False),
+        (tl.ConvBnReLU3D(8, 8, depth=2), (4, 8, 8, 8), f32, False),
+        (tl.ConvBnReLU(32, 32, 3), (2, 8, 8, 32), bf16, True),
+        (tl.ConvBnReLU(64, 64, 3), (2, 8, 8, 64), bf16, True),
+        (tl.ConvBnReLU(64, 96, 3), (2, 8, 8, 64), bf16, False),
+        (tl.ConvBnReLU(32, 64, 5, 2), (2, 8, 8, 32), bf16, False),
     ]
-    for module, shape, on_route in cases:
+    for module, shape, dtype, on_route in cases:
         module.conv.reset_parameters(torch.Generator().manual_seed(0))
-        x = _t(rng.standard_normal(shape).astype(np.float32))
+        x = _t(rng.standard_normal(shape).astype(np.float32)).to(dtype)
         for training in (True, False):
             module.train(training)
             with mock.patch.object(tl, "band_conv", wraps=tl.band_conv) as spy, \

@@ -31,6 +31,9 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic imp
     batch_samples,
     make_plane_scene,
 )
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
+    band_conv_route,
+)
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     attn_fuse as k5,
 )
@@ -54,6 +57,14 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.warp_cor impor
 )
 
 pytestmark = pytest.mark.cuda
+
+
+def _k6_per_forward(dtype) -> int:
+    """K6's launches per eval forward at the flagship widths (FPN base 8):
+    the stem's four 3x3 layers of at most 16 channels and Reg2D.conv0 at four
+    stages, and the stem's two 32- and two 64-channel layers where the route
+    rule (``models/layers.band_conv_route``) takes them in ``dtype``."""
+    return (8 + 2 * band_conv_route(32, 32, dtype) + 2 * band_conv_route(64, 64, dtype))
 
 
 @pytest.fixture
@@ -182,14 +193,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     hypo = torch.ones((1, 2, 8, 8), device=dev)
     rel = torch.eye(4, device=dev)[None]
     with pytest.raises(ValueError, match="not supported"):
-        k1.warp_cor(src, src, rel, hypo, 4)
+        k1.warp_cor(src, src, rel, hypo, 5)                       # G does not divide C
     intra = torch.zeros((1, 4, 4, 64), device=dev)
     skip = torch.zeros((1, 8, 8, 8), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         k2.topdown_level(intra, skip, torch.zeros((64, 8, 1, 1), device=dev),
                          torch.zeros(64, device=dev), torch.zeros((8, 64, 3, 3), device=dev))
     with pytest.raises(ValueError, match="not supported"):
-        k4.warp_fwd(src, rel, hypo)                               # C = 12
+        k4.warp_fwd(src.half(), rel, hypo)
     with pytest.raises(ValueError, match="not supported"):
         k5.attn_fuse(torch.zeros((3, 1, 3, 8, 8, 4), device=dev, dtype=torch.float16), 2.0, 8)
     with pytest.raises(ValueError, match="contiguous"):
@@ -203,8 +214,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shapes"):
         k6.band_conv(torch.zeros((1, 8, 8, 4), device=dev), w6, s6, s6)
     g3 = torch.zeros((1, 2, 8, 8, 12), device=dev)
-    with pytest.raises(ValueError, match="not supported"):
-        k3.warp_bwd(g3, rel, hypo, (1, 8, 8, 12))                 # C = 12
+    with pytest.raises(ValueError, match="shapes"):
+        k3.warp_bwd(g3, rel, hypo, (1, 8, 8, 10))                 # C of g and source differ
     with pytest.raises(ValueError, match="not supported"):
         k3.warp_bwd(g3[..., :8].half().contiguous(), rel, hypo, (1, 8, 8, 8))
     with pytest.raises(ValueError, match="aligned"):
@@ -220,6 +231,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k2.topdown_level(intra.half(), torch.zeros((1, 8, 8, 8), device=dev).half(),
                          torch.zeros((64, 8, 1, 1), device=dev), torch.zeros(64, device=dev),
                          torch.zeros((8, 64, 3, 3), device=dev))
+    with pytest.raises(ValueError, match="not supported"):                 # Ci = 12
+        k2.topdown_level(torch.zeros((1, 4, 4, 12), device=dev),
+                         torch.zeros((1, 8, 8, 8), device=dev),
+                         torch.zeros((12, 8, 1, 1), device=dev), torch.zeros(12, device=dev),
+                         torch.zeros((8, 12, 3, 3), device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -394,11 +410,12 @@ def test_eval_pipeline_matches_cpu(dev):
     filter, the fused cloud) on the card against the CPU, by
     ``checks.check_pipeline``: depth equal at >= 99% of each view's pixels,
     final masks agreeing at >= 99%, point counts within 1%. Each view's
-    forward launches K1 12, K2 3 and K5 4 times."""
+    forward launches K1 12, K2 3, K5 4 times and K6 as its float32 route
+    rule gives."""
     before = (k1.launches, k2.launches, k5.launches, k6.launches)
     checks.check_pipeline(dev)
     assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2],
-            k6.launches - before[3]) == (48, 12, 16, 32)
+            k6.launches - before[3]) == (48, 12, 16, 4 * _k6_per_forward(torch.float32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -475,10 +492,13 @@ def test_kernel_wrappers_raise_under_autograd(dev):
 # K6 at the flagship eval forward's shapes (B4 V4 512x640: the FPN stem's
 # conv0.0, conv0.1, conv1.1/conv1.2, Reg2D.conv0 at stages 1-4) with N cut
 # to 2, then at odd sizes: 37x97 (tiles cut on both axes), Ci 3, and Ci, Co
-# over 16 (the chunk loops)
+# over 16 (the chunk loops); the stem's 32- and 64-channel layers (the bf16
+# tensor-core route's widest instances, CIP 32 and 64, NT 4 and 8); Ci and
+# Co over 64 (the direct form in bf16 too)
 K6_SHAPES = [(512, 640, 3, 8), (512, 640, 8, 8), (256, 320, 16, 16), (64, 80, 8, 8),
              (128, 160, 8, 8), (256, 320, 4, 8), (512, 640, 4, 8),
-             (37, 97, 3, 8), (37, 97, 16, 16), (37, 97, 5, 7), (19, 33, 20, 24)]
+             (37, 97, 3, 8), (37, 97, 16, 16), (37, 97, 5, 7), (19, 33, 20, 24),
+             (128, 160, 32, 32), (64, 80, 64, 64), (19, 33, 96, 16), (21, 35, 8, 72)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -503,9 +523,10 @@ def test_band_conv_kernel_matches_plain(dev, dtype, H, W, Ci, Co):
 def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
     """One epoch of the train CLI on the card (``synthetic://64x128/2``, B1,
     V3, the DTU recipe's model in bf16): the two train steps launch K4 and
-    K3 8 times each and K6 never; the two validation batches launch K6 8
-    times each (the FPN stem's four small 3x3 layers, Reg2D.conv0 at four
-    stages); the losses in ``metrics.jsonl`` are finite."""
+    K3 8 times each and K6 never; the two validation batches launch K6 as
+    its bf16 route rule gives (the FPN stem's 3x3 stride-1 layers on the
+    route, Reg2D.conv0 at four stages); the losses in ``metrics.jsonl`` are
+    finite."""
     before = (k3.launches, k4.launches, k6.launches)
     logdir = str(tmp_path / "run")
     state = train_cli.main([
@@ -516,6 +537,136 @@ def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
     torch.cuda.synchronize()
     assert state.step == 2
     assert (k3.launches - before[0], k4.launches - before[1], k6.launches - before[2]) == (
-        16, 16, 16)
+        16, 16, 2 * _k6_per_forward(torch.bfloat16))
     with open(f"{logdir}/metrics.jsonl") as f:
         assert all(np.isfinite(json.loads(line)["loss"]) for line in f)
+
+
+# ------------------------------------------------------------------------
+# The generic instances: every channel and group count that the JAX package
+# takes (any --fpn_base_channel, any --group_cor_dim entry dividing its
+# stage's C), outside the compile-time sets of the fast instances. FPN base
+# 4 carries C = 32/16/8/4, base 16 C = 128/64/32/16 (G up to 16); odd bases
+# give C that are not multiples of 4 or 8.
+
+
+def _sweep(dev, B, H, W, D, C, seed, src_hw=None):
+    rng = np.random.default_rng(seed)
+    batch = batch_samples([make_plane_scene(V=2, H=H, W=W, seed=i) for i in range(B)])
+    pr = torch.from_numpy(batch["proj_matrices"]["stage4"]).to(dev)
+    rel = relative_projection(pr[:, 1], pr[:, 0]).contiguous()
+    inv = np.linspace(1 / 935.0, 1 / 425.0, D)[None, :, None, None]
+    inv = inv * (1 + 0.02 * rng.standard_normal((B, D, H, W)))
+    hypo = torch.from_numpy((1.0 / inv).astype(np.float32)).to(dev)
+    hs, ws = src_hw or (H, W)
+    src = rng.standard_normal((B, hs, ws, C)).astype(np.float32)
+    return rng, rel, hypo, torch.from_numpy(src)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,G", [(4, 2), (128, 16), (64, 16), (32, 16), (12, 3), (3, 1), (6, 2)])
+def test_warp_cor_generic_instance_matches_plain(dev, dtype, C, G):
+    """K1's generic instance (C or G outside {8, 16, 32, 64} x {1, 2, 4, 8})
+    against ``warp_cor_ref`` (``TOLERANCE``), one launch each; its loads
+    are 8, 4 or 1 channels wide as C allows."""
+    assert C not in k1.FAST_CHANNELS or G not in k1.FAST_GROUPS
+    B, H, W, D = 2, 24, 40, 4
+    rng, rel, hypo, src = _sweep(dev, B, H, W, D, C, C * 10 + G, (20, 28))
+    ref = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
+    args = (src.to(dev, dtype), ref.to(dev, dtype), rel, hypo, G)
+    before = k1.launches
+    got = k1.warp_cor(*args)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1 and got.shape == (B, D, H, W, G)
+    _close(got, k1.warp_cor_ref(*args), k1.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [4, 128, 12, 6, 3])
+def test_warp_fwd_generic_instance_matches_plain(dev, dtype, C):
+    """K4's generic instance (C outside {8, 16, 32, 64}; a thread per 8, 4
+    or 1 channels) against ``warp_fwd_ref`` (``TOLERANCE``)."""
+    assert C not in k4.FAST_CHANNELS
+    B, H, W, D = 2, 24, 40, 4
+    _, rel, hypo, src = _sweep(dev, B, H, W, D, C, C + 5)
+    src = src.to(dev, dtype)
+    before = k4.launches
+    got = k4.warp_fwd(src, rel, hypo)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and got.shape == (B, D, H, W, C)
+    _close(got, k4.warp_fwd_ref(src, rel, hypo), k4.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [4, 128, 12, 6, 3, 1])
+def test_warp_bwd_generic_instance_matches_plain(dev, dtype, C):
+    """K3 at the widths of other FPN bases: float4 atomics where C % 4 == 0
+    (4, 12, 128), scalar atomics otherwise (6, 3, 1), against
+    ``warp_bwd_ref`` (``TOLERANCE``)."""
+    B, H, W, D = 2, 24, 40, 4
+    rng, rel, hypo, _ = _sweep(dev, B, H, W, D, C, C + 7)
+    g = torch.from_numpy(rng.standard_normal((B, D, H, W, C)).astype(np.float32)).to(dev, dtype)
+    before = k3.launches
+    got = k3.warp_bwd(g, rel, hypo, (B, H, W, C))
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    _close(got, k3.warp_bwd_ref(g, rel, hypo, (B, H, W, C)), k3.TOLERANCE[dtype])
+
+
+# (Ci, Cs, Co): the three levels of FPN base 4 and of base 16, an odd base
+# (3), a Co that is not a multiple of 4, and one that takes two passes
+K2_GENERIC = [(32, 16, 16), (32, 8, 8), (32, 4, 4), (128, 64, 64), (128, 32, 32),
+              (128, 16, 16), (24, 3, 3), (64, 8, 12), (64, 32, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,cs,co", K2_GENERIC)
+def test_topdown_generic_instance_matches_plain(dev, dtype, ci, cs, co):
+    """K2's generic kernel (every float32 shape; in bf16 every shape off the
+    tensor-core route) against ``topdown_level_ref`` (``TOLERANCE``) on a
+    ragged 2 x 18 x 42 image: ``with_u`` (both outputs), ``o`` alone equal
+    to it, and ``u_only`` equal to its ``u``, one launch each."""
+    rng = np.random.default_rng(ci * 100 + cs * 10 + co)
+    N, Hh, Wh = 2, 9, 21
+    intra = torch.from_numpy(rng.standard_normal((N, Hh, Wh, ci)).astype(np.float32))
+    skip = torch.from_numpy(rng.standard_normal((N, 2 * Hh, 2 * Wh, cs)).astype(np.float32))
+    wi = torch.from_numpy((rng.standard_normal((ci, cs, 1, 1)) * cs ** -0.5).astype(np.float32))
+    bi = torch.from_numpy((rng.standard_normal((ci,)) * 0.1).astype(np.float32))
+    wo = torch.from_numpy((rng.standard_normal((co, ci, 3, 3)) * (9 * ci) ** -0.5)
+                          .astype(np.float32))
+    args = (intra.to(dev, dtype), skip.to(dev, dtype), wi.to(dev), bi.to(dev), wo.to(dev))
+    before = k2.launches
+    o, u = k2.topdown_level(*args, with_u=True)
+    o_only = k2.topdown_level(*args)
+    u_only = k2.topdown_level(*args, u_only=True)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 3
+    o_ref, u_ref = k2.topdown_level_ref(*args, with_u=True)
+    assert o.shape == (N, 2 * Hh, 2 * Wh, co) and u.shape == (N, 2 * Hh, 2 * Wh, ci)
+    _close(o, o_ref, k2.TOLERANCE[dtype])
+    _close(u, u_ref, k2.TOLERANCE[dtype])
+    assert torch.equal(o, o_only) and torch.equal(u, u_only)
+
+
+@pytest.mark.parametrize("base,groups", [(4, (8, 8, 4, 2)), (16, (16, 8, 4, 4))])
+def test_eval_forward_at_other_fpn_widths_matches_cpu(dev, base, groups):
+    """The float32 eval forward at FPN base 4 and 16 (``--fpn_base_channel``,
+    ``--group_cor_dim``) on the card against the CPU, by
+    ``checks.check_forward``: every stage's attention within 1e-3 and depth
+    equal at >= 99% of pixels, through K1 (8 launches: 2 source views at 4
+    stages), K2 (3), K5 (4)."""
+    before = (k1.launches, k2.launches, k5.launches)
+    checks.check_forward(dev, base, groups)
+    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2]) == (
+        8, 3, 4)
+
+
+def test_small_train_step_at_fpn_base_4_matches_cpu(dev):
+    """One float32 train step at FPN base 4, ``group_cor_dim`` (8, 8, 4, 2),
+    on the card against the CPU by ``checks.check_train_step``: K4 and K3
+    at C = 32/16/8/4 (the last on K4's generic instance), K2's generic
+    kernel at Ci = 32 forward and backward."""
+    before = (k2.launches, k3.launches, k4.launches)
+    checks.check_train_step(dev, base=4, group_cor_dim=(8, 8, 4, 2))
+    assert (k2.launches - before[0], k3.launches - before[1], k4.launches - before[2]) == (
+        6, 8, 8)
