@@ -8,7 +8,12 @@
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
    flagship paths give it, in float32 (TF32 off) and in bf16, and times
-   both with CUDA events: K1 (warp + group correlation), K5 (attention
+   both with CUDA events (back to back from the host, which adds the
+   host's time per launch where that is longer; beside it the kernel's and
+   its library yardstick's device time: 20 launches captured in one CUDA
+   graph and replayed): K1 (warp + group correlation, on
+   the eval forward's own hypotheses and on the full inverse range at every
+   stage, and in float32 at one view of the B1 pipeline), K5 (attention
    accumulation) and K6 (3x3 conv + folded BatchNorm + ReLU, beside
    ``F.conv2d`` + ``relu_`` on the folded weights and the unfused conv +
    BatchNorm + ReLU it replaces, at every 3x3 stride-1 layer of the stem and
@@ -18,9 +23,10 @@
    ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
    (warp backward) at the train step's on two sets of hypotheses (the full
    inverse range at every stage, as PR 4 timed it, and the train path's
-   windows around a depth map), and K4 (warp forward) at the train step's,
-   beside their library
+   windows around a depth map), and K4 (warp forward) at the train step's
+   on the same two sets, beside their library
    yardsticks ``aten.grid_sampler_2d_backward`` and ``F.grid_sample``.
+   K1's and K4's rows name the launch shape they took (``plan``).
    Then every kernel at the widths of FPN base 4 and 16 (``OTHER_WIDTHS``,
    the same checks at those widths): K1, K5 and K2 at the eval forward's
    shapes, K3 and K4 at the train step's, each row naming the instance it took (the
@@ -192,6 +198,36 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _time_graph_ms(fn, reps, rounds=3):
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph (after a warm-up call), the graph replayed ``rounds`` times
+    between CUDA events, the median round over ``reps``. Unlike
+    ``_time_ms`` it leaves out the host's time per call (the wrappers'
+    checks, ctypes and Python, ~20-40 us), which hid the device time of
+    every launch shorter than that."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[rounds // 2]
+
+
 def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -216,9 +252,13 @@ def _record(rows, kernel, path, shape, dtype, err, tol, per_run, run, run_ref, n
     """One ``kernel_shapes`` row: the kernel against its plain version, and,
     when ``timed`` (by default in bf16, the paths' dtype), their times, the
     bound, the library yardstick's time and, where given, the time of the
-    unfused route the kernel replaces. ``row_set`` names the sum the row
-    belongs to on the ``kernels`` line (by default its path). Raises when
-    the difference exceeds the tolerance."""
+    unfused route the kernel replaces, each timed back to back from the host
+    (``_time_ms``: ``kernel_ms``, ``plain_ms``, ``library_ms``,
+    ``unfused_ms``); beside them the kernel's and the library call's device
+    time (``_time_graph_ms``: ``kernel_device_ms``, ``library_device_ms``).
+    ``row_set`` names
+    the sum the row belongs to on the ``kernels`` line (by default its
+    path). Raises when the difference exceeds the tolerance."""
     import torch
 
     row = {
@@ -231,6 +271,8 @@ def _record(rows, kernel, path, shape, dtype, err, tol, per_run, run, run_ref, n
         row.update(
             kernel_ms=_time_ms(run, 20), plain_ms=_time_ms(run_ref, 3),
             library_ms=None if run_library is None else _time_ms(run_library, 20),
+            kernel_device_ms=_time_graph_ms(run, 20),
+            library_device_ms=None if run_library is None else _time_graph_ms(run_library, 20),
             **({} if run_unfused is None else {"unfused_ms": _time_ms(run_unfused, 20)}),
             bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -265,50 +307,71 @@ def _stage_channels(base, s):
     return (8 * base) >> s
 
 
-def check_kernels(dev, batch, base=8, groups=(8, 8, 4, 4), row_set="eval"):
-    """K1 and K5 against their plain versions at the eval forward's shapes
-    at FPN base ``base`` and ``groups`` (the stages' C and G), in float32
-    and bf16, times in bf16 (the forward's dtype). A row's ``instance``
-    names the instance its shape takes: K1's compile-time (``fast``) or
-    generic one, K5's register or workspace form."""
+def _k1_rows(rows, dev, batch, gen, base, groups, dtype, hyps, row_set, timed):
+    """K1 against ``warp_cor_ref`` at the four stages of the eval forward
+    (B and the stage's D, C and G at FPN base ``base``, 3 source views, one
+    launch each), on the path's own hypotheses (``hyps == "path"``:
+    ``_path_hypotheses`` from the batch's depth) or the full inverse range
+    at every stage, jittered (``"full_range"``). A row's ``instance`` is
+    the launch shape the kernel takes (``warp_cor.plan``)."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
         relative_projection,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        attn_fuse as k5,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         warp_cor as k1,
+    )
+
+    cfg = _dtu_model_config()
+    nb = batch["depth_values"].shape[0]
+    path_hypos = _path_hypotheses(batch, cfg) if hyps == "path" else None
+    for s in range(4):
+        h, w = H >> (3 - s), W >> (3 - s)
+        C, G, D = _stage_channels(base, s), groups[s], cfg.ndepths[s]
+        projs = batch["proj_matrices"][f"stage{s + 1}"]
+        rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+        hypo = path_hypos[s] if hyps == "path" else _jittered_hypo(
+            batch["depth_values"], D, h, w, gen)
+        src = torch.randn((nb, h, w, C), generator=gen, device=dev).to(dtype)
+        ref = torch.randn((nb, h, w, C), generator=gen, device=dev).to(dtype)
+        args = (src, ref, rel, hypo, G)
+        got, want = k1.warp_cor(*args), k1.warp_cor_ref(*args)
+        torch.cuda.synchronize()
+        out_bytes = got.numel() * got.element_size()
+        nbytes = sum(t.numel() * t.element_size() for t in args[:4]) + out_bytes
+        _record(rows, "warp_cor", "eval", [nb, D, h, w, C, G], dtype, _max_err(got, want),
+                k1.TOLERANCE[dtype] * _scale(want), V - 1,
+                lambda a=args: k1.warp_cor(*a), lambda a=args: k1.warp_cor_ref(*a),
+                nbytes, nb * D * h * w * (28 + 9 * C + G), FP32_FLOPS, row_set=row_set,
+                timed=timed, hypotheses=hyps, instance=k1.plan(nb, D, h, w, C, G))
+
+
+def check_kernels(dev, batch, base=8, groups=(8, 8, 4, 4), row_set="eval",
+                  k1_sets=(("path", "eval"), ("full_range", "eval_full_range"))):
+    """K1 and K5 against their plain versions at the eval forward's shapes
+    at FPN base ``base`` and ``groups`` (the stages' C and G), in float32
+    and bf16, times in bf16 (the forward's dtype). K1 on each ``(hypotheses,
+    row set)`` of ``k1_sets`` (``_k1_rows``); K5 in ``row_set``, a row's
+    ``instance`` naming its register or workspace form."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        attn_fuse as k5,
     )
 
     cfg = _dtu_model_config()
     gen = torch.Generator(device=dev).manual_seed(SEED + base)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        # K1 at each stage: C and G of the stage, D hypotheses, 3 source views
+        for hyps, k1_set in k1_sets:
+            _k1_rows(rows, dev, batch, gen, base, groups, dtype, hyps, k1_set,
+                     dtype == torch.bfloat16)
         for s in range(4):
-            h, w = H >> (3 - s), W >> (3 - s)
-            C, G, D = _stage_channels(base, s), groups[s], cfg.ndepths[s]
-            projs = batch["proj_matrices"][f"stage{s + 1}"]
-            rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
-            hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
-            src = torch.randn((B, h, w, C), generator=gen, device=dev).to(dtype)
-            ref = torch.randn((B, h, w, C), generator=gen, device=dev).to(dtype)
-            args = (src, ref, rel, hypo, G)
-            got, want = k1.warp_cor(*args), k1.warp_cor_ref(*args)
-            torch.cuda.synchronize()
-            out_bytes = got.numel() * got.element_size()
-            nbytes = sum(t.numel() * t.element_size() for t in args[:4]) + out_bytes
-            fast = C in k1.FAST_CHANNELS and G in k1.FAST_GROUPS
-            _record(rows, "warp_cor", "eval", [B, D, h, w, C, G], dtype, _max_err(got, want),
-                    k1.TOLERANCE[dtype] * _scale(want), V - 1,
-                    lambda a=args: k1.warp_cor(*a), lambda a=args: k1.warp_cor_ref(*a),
-                    nbytes, B * D * h * w * (28 + 9 * C + G), FP32_FLOPS, row_set=row_set,
-                    instance="fast" if fast else "generic")
             # K5 at each stage: the V-1 volumes of the stage's (D, G), the
             # 1/sqrt(C) of its features; one launch per forward
+            h, w = H >> (3 - s), W >> (3 - s)
+            C, G, D = _stage_channels(base, s), groups[s], cfg.ndepths[s]
             cors = (torch.randn((V - 1, B, D, h, w, G), generator=gen, device=dev) * 0.5).to(dtype)
             args5 = (cors, cfg.attn_temp, C)
             got, want = k5.attn_fuse(*args5), k5.attn_fuse_ref(*args5)
@@ -324,6 +387,19 @@ def check_kernels(dev, batch, base=8, groups=(8, 8, 4, 4), row_set="eval"):
                     lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
                     nbytes, ops, FP32_FLOPS, row_set=row_set,
                     instance="register" if reg else "workspace")
+    return rows
+
+
+def check_warp_cor_pipeline(dev):
+    """K1 at one view of the float32 pipeline (B1, the eval_dtu.sh model's
+    (C, G) = (64, 8), (32, 8), (16, 4), (8, 4), 3 source views) on a B1
+    scene's own hypotheses, timed in float32: set ``pipeline_float32``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = []
+    _k1_rows(rows, dev, _scene(1, V, H, W, dev), gen, 8, (8, 8, 4, 4), torch.float32, "path",
+             "pipeline_float32", True)
     return rows
 
 
@@ -462,12 +538,13 @@ def check_band_conv(dev):
     return rows
 
 
-def _train_hypotheses(batch, cfg):
-    """The four stages' hypotheses as the train path makes them from a
-    depth map: stage 1 the full inverse range (``init_inverse_range``),
-    each later stage ``schedule_inverse_range`` around the scene's depth at
-    the previous stage, +- ``depth_inter_r`` of that stage's spacing, as
-    ``models/stagenet.py`` and ``models/mvs4net.py`` compute it."""
+def _path_hypotheses(batch, cfg):
+    """The four stages' hypotheses as the train and eval paths make them
+    from a depth map (the batch's B): stage 1 the full inverse range
+    (``init_inverse_range``), each later stage ``schedule_inverse_range``
+    around the scene's depth at the previous stage, +- ``depth_inter_r`` of
+    that stage's spacing, as ``models/stagenet.py`` and
+    ``models/mvs4net.py`` compute it."""
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.hypothesis import (
         init_inverse_range,
         schedule_inverse_range,
@@ -490,7 +567,7 @@ def check_warp_bwd(dev, batch, base=8, hypotheses=("full_range", "train"), suffi
     in float32 and bf16, on the ``hypotheses`` sets (row set: the name and
     ``suffix``): ``full_range`` (the full inverse range at every stage,
     jittered, the worst case for the footprint) and the train path's
-    (``train``: ``_train_hypotheses``); a row's ``instance`` names K3's
+    (``train``: ``_path_hypotheses``); a row's ``instance`` names K3's
     float4 or scalar atomics; in bf16 the times
     of the kernel, of the plain version and of the library yardstick
     ``aten.grid_sampler_2d_backward`` (bilinear, zeros, align_corners, the
@@ -511,7 +588,7 @@ def check_warp_bwd(dev, batch, base=8, hypotheses=("full_range", "train"), suffi
     gen = torch.Generator(device=dev).manual_seed(SEED + 2 + base)
     rows, library_diff = [], {}
     Bt = TRAIN_B
-    train_hypos = _train_hypotheses(batch, cfg)
+    train_hypos = _path_hypotheses(batch, cfg)
     for hyps in hypotheses:
         row_set = hyps + suffix
         for dtype in (torch.float32, torch.bfloat16):
@@ -557,11 +634,15 @@ def check_warp_bwd(dev, batch, base=8, hypotheses=("full_range", "train"), suffi
     return rows, library_diff
 
 
-def check_warp_fwd(dev, batch, base=8, row_set="train"):
+def check_warp_fwd(dev, batch, base=8, sets=(("train", "train"), ("full_range", "full_range"))):
     """K4 against ``warp_fwd_ref`` at the train step's four stages (B=6,
     the stage's C at FPN base ``base`` and D, 4 source views each), in
-    float32 and bf16; a row's ``instance`` names K4's compile-time
-    (``fast``) or generic instance; in bf16
+    float32 and bf16, on each ``(hypotheses, row set)`` of ``sets``: the
+    train path's (``train``: ``_path_hypotheses``) or the full inverse range
+    at every stage, jittered (``full_range``, the widest footprint). Raises
+    unless K4 equals its plain version bit for bit (``bit_equal``) and is
+    within the tolerance. A row's ``instance`` is the launch shape the kernel takes
+    (``warp_fwd.plan``); in bf16
     the times of the kernel, the plain version and the library yardstick
     ``F.grid_sample`` (bilinear, zeros, align_corners; the source permuted
     to NCHW and the grid normalised beforehand, the D planes stacked as
@@ -582,40 +663,50 @@ def check_warp_fwd(dev, batch, base=8, row_set="train"):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4 + base)
     rows, library_diff = [], {}
     Bt = TRAIN_B
-    for dtype in (torch.float32, torch.bfloat16):
-        for s in range(4):
-            h, w = H >> (3 - s), W >> (3 - s)
-            C, D = _stage_channels(base, s), cfg.ndepths[s]
-            projs = batch["proj_matrices"][f"stage{s + 1}"]
-            rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
-            hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
-            src = torch.randn((Bt, h, w, C), generator=gen, device=dev).to(dtype)
-            got, want = k4.warp_fwd(src, rel, hypo), k4.warp_fwd_ref(src, rel, hypo)
-            torch.cuda.synchronize()
-            run_library = None
-            if dtype == torch.bfloat16:
-                xy = warp_coords(rel, hypo).reshape(Bt, D * h, w, 2)
-                grid = torch.stack([xy[..., 0] * (2.0 / (w - 1)) - 1.0,
-                                    xy[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
-                nchw = src.float().permute(0, 3, 1, 2).contiguous()
+    path_hypos = _path_hypotheses(batch, cfg)
+    for hyps, row_set in sets:
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in range(4):
+                h, w = H >> (3 - s), W >> (3 - s)
+                C, D = _stage_channels(base, s), cfg.ndepths[s]
+                projs = batch["proj_matrices"][f"stage{s + 1}"]
+                rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+                if hyps == "train":
+                    hypo = path_hypos[s]
+                else:
+                    hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)
+                src = torch.randn((Bt, h, w, C), generator=gen, device=dev).to(dtype)
+                got, want = k4.warp_fwd(src, rel, hypo), k4.warp_fwd_ref(src, rel, hypo)
+                torch.cuda.synchronize()
+                run_library = None
+                if dtype == torch.bfloat16:
+                    xy = warp_coords(rel, hypo).reshape(Bt, D * h, w, 2)
+                    grid = torch.stack([xy[..., 0] * (2.0 / (w - 1)) - 1.0,
+                                        xy[..., 1] * (2.0 / (h - 1)) - 1.0], dim=-1)
+                    nchw = src.float().permute(0, 3, 1, 2).contiguous()
 
-                def run_library(nchw=nchw, grid=grid):
-                    return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                                         align_corners=True)
+                    def run_library(nchw=nchw, grid=grid):
+                        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                             align_corners=True)
 
-                lib = run_library().reshape(Bt, C, D, h, w).permute(0, 2, 3, 4, 1)
-                library_diff[f"{row_set} stage{s + 1}"] = _max_err(lib, want)
-            # the source, hypotheses and projection read once, the warped
-            # volume written once; per output element 4 products and 3 sums,
-            # per pixel the coordinates (~28 operations, as K1's)
-            nbytes = src.numel() * src.element_size() + hypo.numel() * 4 + rel.numel() * 4 \
-                + got.numel() * got.element_size()
-            _record(rows, "warp_fwd", "train", [Bt, D, h, w, C], dtype, _max_err(got, want),
-                    k4.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
-                    lambda a=(src, rel, hypo): k4.warp_fwd(*a),
-                    lambda a=(src, rel, hypo): k4.warp_fwd_ref(*a),
-                    nbytes, Bt * D * h * w * (28 + 7 * C), FP32_FLOPS, run_library,
-                    row_set=row_set, instance="fast" if C in k4.FAST_CHANNELS else "generic")
+                    lib = run_library().reshape(Bt, C, D, h, w).permute(0, 2, 3, 4, 1)
+                    library_diff[f"{row_set} stage{s + 1}"] = _max_err(lib, want)
+                # the source, hypotheses and projection read once, the warped
+                # volume written once; per output element 4 products and 3 sums,
+                # per pixel the coordinates (~28 operations, as K1's)
+                nbytes = src.numel() * src.element_size() + hypo.numel() * 4 \
+                    + rel.numel() * 4 + got.numel() * got.element_size()
+                bit_equal = bool(torch.equal(got, want))
+                if not bit_equal:
+                    raise AssertionError(f"warp_fwd {[Bt, D, h, w, C]} {dtype} {row_set}: "
+                                         "not bit-equal to warp_fwd_ref")
+                _record(rows, "warp_fwd", "train", [Bt, D, h, w, C], dtype,
+                        _max_err(got, want), k4.TOLERANCE[dtype] * _scale(want), TRAIN_V - 1,
+                        lambda a=(src, rel, hypo): k4.warp_fwd(*a),
+                        lambda a=(src, rel, hypo): k4.warp_fwd_ref(*a),
+                        nbytes, Bt * D * h * w * (28 + 7 * C), FP32_FLOPS, run_library,
+                        row_set=row_set, hypotheses=hyps, bit_equal=bit_equal,
+                        instance=k4.plan(Bt, D, h, w, C))
     return rows, library_diff
 
 
@@ -905,9 +996,10 @@ def drive_train_cli(counters):
 
 def _per_run(rows):
     """Sums over the timed rows of each set, per run of the set's path
-    (times the rows' launches per run): the kernel's time, the plain
-    version's, the bound and its parts, the library yardstick's (None if a
-    row has none)."""
+    (times the rows' launches per run): the kernel's time back to back from
+    the host (``ms``) and its device time (``device_ms``), the plain
+    version's, the bound and its parts, the library yardstick's from the
+    host and on the device (None if a row has none)."""
     sums = {}
     for row_set in {r["set"] for r in rows}:
         timed = [r for r in rows if r["set"] == row_set and "kernel_ms" in r]
@@ -917,11 +1009,13 @@ def _per_run(rows):
         def total(key, timed=timed):
             return sum(r[key] * r["launches_per_run"] for r in timed)
 
-        entry = {"ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        lib = not any(r["library_ms"] is None for r in timed)
+        entry = {"ms": total("kernel_ms"), "device_ms": total("kernel_device_ms"),
+                 "plain_ms": total("plain_ms"),
                  "bound_ms": total("bound_ms"), "bytes": total("bytes"), "ops": total("ops"),
                  "bound_by": "operations" if total("ops_ms") > total("bytes_ms") else "bytes",
-                 "library_ms": None if any(r["library_ms"] is None for r in timed)
-                 else total("library_ms")}
+                 "library_ms": total("library_ms") if lib else None,
+                 "library_device_ms": total("library_device_ms") if lib else None}
         sums[row_set] = entry
     return sums
 
@@ -983,14 +1077,17 @@ def main() -> int:
 
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
-    rows = check_kernels(dev, batch) + check_topdown(dev) + check_band_conv(dev)
+    rows = check_kernels(dev, batch) + check_warp_cor_pipeline(dev) + check_topdown(dev) \
+        + check_band_conv(dev)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows
-    # every kernel at FPN base 4 and 16: the generic instances
+    # every kernel at FPN base 4 and 16: the generic instances; K1 and K4
+    # on the full-range hypotheses
     for base, groups in OTHER_WIDTHS:
-        rows += check_kernels(dev, batch, base, groups, f"eval_base{base}")
-        rows += check_warp_fwd(dev, train_batch, base, f"train_base{base}")[0]
+        rows += check_kernels(dev, batch, base, groups, f"eval_base{base}",
+                              (("full_range", f"eval_base{base}"),))
+        rows += check_warp_fwd(dev, train_batch, base, (("full_range", f"train_base{base}"),))[0]
         rows += check_warp_bwd(dev, train_batch, base, ("train",), f"_base{base}")[0]
     print(json.dumps({"kernel_shapes": rows,
                       "warp_bwd_library_max_abs_diff": bwd_library_diff,
@@ -1093,6 +1190,10 @@ def main() -> int:
             "timed_per": "eval forward" if row_set == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            # the device time of the same launches and library calls (20 of
+            # each captured in one CUDA graph): ``ms`` includes the host's
+            # time per call where that is longer than the launch
+            "device_ms": main["device_ms"], "library_device_ms": main["library_device_ms"],
         }
         if name == "band_conv":
             # the route it replaces, and the least time of its sums on the
@@ -1105,9 +1206,14 @@ def main() -> int:
             # one view of the float32 pipeline
             entry["train_step"] = sums["train"]
             entry["pipeline_float32_view"] = sums["pipeline_float32"]
-        if name == "warp_bwd":
-            # PR 4's hypotheses: the full inverse range at every stage
+        if name in ("warp_bwd", "warp_fwd"):
+            # the full inverse range at every stage
             entry["full_range"] = sums["full_range"]
+        if name == "warp_cor":
+            # the full inverse range at every stage, and one
+            # view of the float32 pipeline (B1) on its own hypotheses
+            entry["full_range"] = sums["eval_full_range"]
+            entry["pipeline_float32_view"] = sums["pipeline_float32"]
         if name == "band_conv":
             # the float32 rows: the pipeline's route
             entry["float32_forward"] = sums["eval_float32"]

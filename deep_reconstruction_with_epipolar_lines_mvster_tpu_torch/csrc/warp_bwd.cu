@@ -60,11 +60,12 @@
 // kernel with one channel a thread and scalar float atomics (VW = 1).
 //
 // Kept from the first design: coordinates and taps from common.cuh's
-// plane_taps, the same device code as K1 and K4, so forward and backward
-// read and write the same corners with the same weights, and each product
-// w * g is the plain version's, bit for bit; the range test comes before
-// any float -> int cast (in plane_taps), so a NaN or huge coordinate gives
-// no taps. The order of the float32 sums (a run's in registers, then the
+// pixel_rows (once per pixel) and depth_taps (once per plane), the same
+// device code as K1 and K4, so forward and backward read and write the same
+// corners with the same weights, and each product w * g is the plain
+// version's, bit for bit; the range test comes before any float -> int cast
+// (in depth_taps), so a NaN or huge coordinate gives no taps. The order
+// of the float32 sums (a run's in registers, then the
 // atomics from threads in any order) changes from run to run.
 
 #include <stdint.h>
@@ -74,7 +75,9 @@
 namespace {
 
 using port::loadv;
-using port::plane_taps;
+using port::depth_taps;
+using port::pixel_rows;
+using port::PixelRows;
 using port::Taps;
 
 constexpr int THREADS = 256;
@@ -133,7 +136,7 @@ __global__ void __launch_bounds__(THREADS) warp_bwd_kernel(
     const int q = i % NG, p = i / NG;
     const int x = p % W, y = p / W;
     const int b = blockIdx.y;
-    const float* m = rel + 16 * b;
+    const PixelRows pr = pixel_rows(rel + 16 * b, x, y);
     const long long plane = (long long)H * W;
     const float* hyp = hypo + (long long)b * D * plane + p;
     const T* gp = g + ((long long)b * D * plane + p) * C + VW * q;
@@ -143,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) warp_bwd_kernel(
     bool open = false;
     for (int d = 0; d < D; ++d) {
         Taps tp;
-        if (!plane_taps(m, x, y, __ldg(hyp + d * plane), Hs, Ws, tp)) continue;
+        if (!depth_taps(pr, __ldg(hyp + d * plane), Hs, Ws, tp)) continue;
         float gv[VW];
         loadv<VW>(gp + d * plane * C, gv);
         if (open && tp.xa == r.xa && tp.xb == r.xb && tp.ya == r.ya && tp.yb == r.yb) {

@@ -55,6 +55,24 @@ def _lib():
     return fn
 
 
+def plan(B: int, D: int, H: int, W: int, C: int, G: int, Hs: int | None = None,
+         Ws: int | None = None) -> str:
+    """The launch shape the kernel takes for ``[B, D, H, W]`` at ``(C, G)``
+    (a source of ``Hs x Ws``, by default ``H x W``), as a ``kernel_shapes``
+    row's ``instance``: the compile-time (``fast``) or generic instance, the
+    lanes a pixel and channels a lane, the CTA's threads along x by rows,
+    and the planes a CTA walks (``csrc/warp_cor.cu:warp_cor_plan``). Loads
+    the kernel's library."""
+    fn = _build.load("warp_cor").warp_cor_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = (ctypes.c_int * 6)()
+    if fn(B, D, H, W, Hs or H, Ws or W, C, G, ctypes.addressof(p)):
+        raise ValueError(f"warp_cor: shape {(B, D, H, W, C, G)} exceeds the grid's limits")
+    return (f"{'fast' if p[0] else 'generic'} lanes {p[1]}x{p[2]} cta {p[3]}x{p[4]} "
+            f"planes {p[5]}/{D}")
+
+
 def warp_cor(src, ref, rel_proj, hypo, groups: int, out=None) -> torch.Tensor:
     """``(src [B,Hs,Ws,C], ref [B,H,W,C], rel_proj [B,4,4] f32,
     hypo [B,D,H,W] f32, groups) -> [B,D,H,W,G]`` in the dtype of ``src``,

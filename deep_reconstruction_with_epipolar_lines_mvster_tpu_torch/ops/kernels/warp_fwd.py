@@ -46,6 +46,24 @@ def _lib():
     return fn
 
 
+def plan(B: int, D: int, H: int, W: int, C: int, Hs: int | None = None,
+         Ws: int | None = None) -> str:
+    """The launch shape the kernel takes for ``[B, D, H, W, C]`` (a source
+    of ``Hs x Ws``, by default ``H x W``), as a ``kernel_shapes`` row's
+    ``instance``: the compile-time (``fast``) or generic instance, the lanes
+    a pixel and channels a lane, the CTA's threads along x by rows, and the
+    planes a CTA walks (``csrc/warp_fwd.cu:warp_fwd_plan``). Loads the
+    kernel's library."""
+    fn = _build.load("warp_fwd").warp_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = (ctypes.c_int * 6)()
+    if fn(B, D, H, W, Hs or H, Ws or W, C, ctypes.addressof(p)):
+        raise ValueError(f"warp_fwd: shape {(B, D, H, W, C)} exceeds the grid's limits")
+    return (f"{'fast' if p[0] else 'generic'} lanes {p[1]}x{p[2]} cta {p[3]}x{p[4]} "
+            f"planes {p[5]}/{D}")
+
+
 def warp_fwd(src, rel_proj, hypo) -> torch.Tensor:
     """``(src [B,Hs,Ws,C] f32/bf16, rel_proj [B,4,4] f32, hypo [B,D,H,W]
     f32) -> [B,D,H,W,C]`` in the dtype of ``src``, any C, float32 arithmetic. Same

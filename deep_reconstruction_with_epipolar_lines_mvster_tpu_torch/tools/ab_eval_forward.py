@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the eval forward (or the train step) of two checkouts of the port on
-one card, in turn.
+"""Time the eval forward (or the train step, or the warp kernels) of two
+checkouts of the port on one card, in turn.
 
     python ab_eval_forward.py --repo A=DIR --repo B=DIR [--order ABBA]
-                              [--rounds 7] [--reps 5] [--path eval|train|pipeline]
+                              [--rounds 7] [--reps 5]
+                              [--path eval|train|pipeline|kernels]
 
 Each letter of ``--order`` runs that checkout in a process of its own, so
 that two versions of the package never share an interpreter. A process
@@ -25,9 +26,23 @@ version of the port since the eval pipeline has: ``ModelConfig``,
 ``MVS4Net(cfg, device=, generator=)``, ``data.synthetic``,
 ``checks.RECIPE_LOSS``, ``checks.eval_dtu_config`` and ``train.step``.
 
+With ``--path kernels`` a process times the warp kernels of its checkout
+stage by stage, on the inputs and with the timers of ``chip_smoke.py``'s
+kernel rows (that file is taken from the checkout this script lies in;
+its helpers import the package, so they reach the process's checkout):
+the device time of 20 launches captured in one CUDA graph, the median of
+``--rounds`` replays (``rows``), and the same launches back to back from
+the host (``eager``). K1 (``warp_cor``) at the eval forward's four stages
+on the path's hypotheses (``eval``), on the full inverse range (``eval_
+full_range``, and at FPN base 4 and 16: ``eval_base4/16``) and in float32
+at one B1 pipeline view (``pipeline_float32``); K4 (``warp_fwd``) at the
+train step's on the path's (``train``) and the full range (``full_range``,
+``train_base4/16``); K3 (``warp_bwd``) on the train path's. The
+hypotheses' depths and windows come from the checkout's ``ModelConfig``.
+
 Prints the card's name and power limit, one JSON line per process and a
 last JSON line with, per checkout, the median round of each of its
-processes. Needs one CUDA card.
+processes (per kernel row for ``--path kernels``). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -41,6 +56,83 @@ import sys
 PKG = "deep_reconstruction_with_epipolar_lines_mvster_tpu_torch"
 H, W = 512, 640
 SHAPES = {"eval": (4, 4), "train": (6, 5), "pipeline": (1, 4)}   # (B, V) of each path
+PATHS = sorted(SHAPES) + ["kernels"]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` of the checkout this script lies in, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def measure_kernels(rounds: int) -> dict:
+    """The warp kernels' rows of the process's checkout (module docstring):
+    ms per launch on the device (``rows``) and from the host (``eager``)."""
+    import importlib
+
+    import torch
+
+    smoke = _chip_smoke()
+    k1, k3, k4 = (importlib.import_module(f"{PKG}.ops.kernels.{n}")
+                  for n in ("warp_cor", "warp_bwd", "warp_fwd"))
+    geometry = importlib.import_module(f"{PKG}.core.geometry")
+    cfg = smoke._dtu_model_config()
+    dev = torch.device("cuda")
+    rows, eager = {}, {}
+
+    def timed(key, fn):
+        rows[key] = smoke._time_graph_ms(fn, 20, rounds)
+        eager[key] = smoke._time_ms(fn, 20)
+
+    def rel_of(batch, s):
+        projs = batch["proj_matrices"][f"stage{s + 1}"]
+        return geometry.relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+
+    def stages(batch, base, hyps, gen):
+        """(s, h, w, C, hypo) of the four stages on ``hyps``"""
+        path = smoke._path_hypotheses(batch, cfg) if hyps == "path" else None
+        for s in range(4):
+            h, w = smoke.H >> (3 - s), smoke.W >> (3 - s)
+            hypo = path[s] if hyps == "path" else smoke._jittered_hypo(
+                batch["depth_values"], cfg.ndepths[s], h, w, gen)
+            yield s, h, w, smoke._stage_channels(base, s), hypo
+
+    eval_batch = smoke._scene(smoke.B, smoke.V, smoke.H, smoke.W, dev)
+    train_batch = smoke._scene(smoke.TRAIN_B, smoke.TRAIN_V, smoke.H, smoke.W, dev)
+    widths = [(b, g, "full_range", f"_base{b}") for b, g in smoke.OTHER_WIDTHS]
+    with torch.no_grad():
+        for name, batch, base, groups, hyps, dtype in (
+            ("eval", eval_batch, 8, cfg.group_cor_dim, "path", torch.bfloat16),
+            ("eval_full_range", eval_batch, 8, cfg.group_cor_dim, "full_range", torch.bfloat16),
+            *((f"eval{sfx}", eval_batch, b, g, h, torch.bfloat16) for b, g, h, sfx in widths),
+            ("pipeline_float32", smoke._scene(1, smoke.V, smoke.H, smoke.W, dev), 8, cfg.group_cor_dim,
+             "path", torch.float32),
+        ):
+            gen = torch.Generator(device=dev).manual_seed(smoke.SEED + base)
+            nb = batch["depth_values"].shape[0]
+            for s, h, w, C, hypo in stages(batch, base, hyps, gen):
+                src = torch.randn((nb, h, w, C), generator=gen, device=dev).to(dtype)
+                ref = torch.randn((nb, h, w, C), generator=gen, device=dev).to(dtype)
+                a = (src, ref, rel_of(batch, s), hypo, groups[s])
+                timed(f"warp_cor {name} stage{s + 1}", lambda a=a: k1.warp_cor(*a))
+        for name, base, hyps in (("train", 8, "path"), ("full_range", 8, "full_range"),
+                                 *((f"train{sfx}", b, h) for b, _, h, sfx in widths)):
+            gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 4 + base)
+            for s, h, w, C, hypo in stages(train_batch, base, hyps, gen):
+                nb, rel = smoke.TRAIN_B, rel_of(train_batch, s)
+                src = torch.randn((nb, h, w, C), generator=gen, device=dev).to(torch.bfloat16)
+                timed(f"warp_fwd {name} stage{s + 1}", lambda a=(src, rel, hypo): k4.warp_fwd(*a))
+                if name == "train":
+                    g = torch.randn((nb, hypo.shape[1], h, w, C), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                    a = (g, rel, hypo, (nb, h, w, C))
+                    timed(f"warp_bwd train stage{s + 1}", lambda a=a: k3.warp_bwd(*a))
+    return {"rows": rows, "eager": eager}
 
 
 def measure(repo: str, rounds: int, reps: int, path: str) -> dict:
@@ -59,6 +151,8 @@ def measure(repo: str, rounds: int, reps: int, path: str) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if path == "kernels":
+        return {"repo": repo, "path": path, **measure_kernels(rounds)}
     if path == "pipeline":
         cfg = importlib.import_module(f"{PKG}.checks").eval_dtu_config()
     else:
@@ -125,7 +219,7 @@ def main() -> int:
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--path", choices=sorted(SHAPES), default="eval")
+    ap.add_argument("--path", choices=PATHS, default="eval")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
@@ -136,7 +230,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0])
-    medians = {k: [] for k in repos}
+    medians = {k: {} if a.path == "kernels" else [] for k in repos}
     for letter in a.order:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", repos[letter],
@@ -147,7 +241,11 @@ def main() -> int:
             raise SystemExit(f"{letter} ({repos[letter]}) exited {res.returncode}")
         row = json.loads(res.stdout.strip().splitlines()[-1])
         print(json.dumps({"checkout": letter, **row}), flush=True)
-        medians[letter].append(row["median_ms"])
+        if a.path == "kernels":
+            for key, ms in row["rows"].items():
+                medians[letter].setdefault(key, []).append(ms)
+        else:
+            medians[letter].append(row["median_ms"])
     print(json.dumps({"path": a.path, "order": a.order, "median_ms_per_process": medians}))
     return 0
 

@@ -80,15 +80,25 @@ def _close(got, want, tol):
     assert err <= tol * scale, (err, tol * scale)
 
 
+# (B, H, W, D) of the depth sweep's launch shapes (csrc/common.cuh:
+# sweep_plan): the first case; a ragged row (W 80, as at stage 1, and W 72:
+# x tiles that the row does not fill) with H 20 and an odd H 21; one plane
+# and 16 planes (planes split between CTAs, or walked by one lane group
+# in blocks); B*H above 65535 at a narrow W (rows on grid.x, no plane split)
+SWEEP_SHAPES = [(2, 48, 64, 4), (2, 20, 80, 4), (2, 21, 72, 4), (2, 16, 40, 1),
+                (2, 16, 40, 16), (1, 70000, 8, 2)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,G,src_hw", [
     (8, 4, None), (16, 4, None), (32, 8, None), (64, 8, None), (8, 2, (20, 28)),
 ])
-def test_warp_cor_kernel_matches_plain(dev, dtype, C, G, src_hw):
+@pytest.mark.parametrize("B,H,W,D", SWEEP_SHAPES)
+def test_warp_cor_kernel_matches_plain(dev, dtype, C, G, src_hw, B, H, W, D):
     """K1 against ``warp_cor_ref`` on the card (tolerance: ``TOLERANCE``
     of the kernel module), on the four stages' (C, G) and on a source
-    smaller than the reference, so that the sweep leaves the image."""
-    B, H, W, D = 2, 48, 64, 4
+    smaller than the reference, so that the sweep leaves the image, at each
+    of ``SWEEP_SHAPES``."""
     rng = np.random.default_rng(C + G)
     batch = batch_samples([make_plane_scene(V=2, H=H, W=W, seed=i) for i in range(B)])
     pr = torch.from_numpy(batch["proj_matrices"]["stage4"]).to(dev)
@@ -105,6 +115,13 @@ def test_warp_cor_kernel_matches_plain(dev, dtype, C, G, src_hw):
     torch.cuda.synchronize()
     assert k1.launches == before + 1
     _close(got, k1.warp_cor_ref(*args), k1.TOLERANCE[dtype])
+    # the same launch into a slot of a larger buffer that starts one element
+    # past a 16-byte line: the lane's group means stored one by one
+    buf = torch.zeros(got.numel() + 1, dtype=dtype, device=dev)
+    slot = buf[1:].view(got.shape)
+    k1.warp_cor(*args, out=slot)
+    torch.cuda.synchronize()
+    assert torch.equal(slot, got) and buf[0].item() == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -324,11 +341,13 @@ def test_warp_bwd_kernel_footprints_match_plain(dev, dtype, case, C):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,src_hw", [(8, None), (16, None), (32, None), (64, None), (8, (20, 28))])
-def test_warp_fwd_kernel_matches_plain(dev, dtype, C, src_hw):
-    """K4 against ``warp_fwd_ref`` on the card (tolerance: ``TOLERANCE`` of
-    the kernel module), on the four stages' widths and on a source smaller
-    than the reference, so that the sweep leaves the image."""
-    B, H, W, D = 2, 48, 64, 4
+@pytest.mark.parametrize("B,H,W,D", SWEEP_SHAPES)
+def test_warp_fwd_kernel_matches_plain(dev, dtype, C, src_hw, B, H, W, D):
+    """K4 against ``warp_fwd_ref`` on the card, bit for bit (the same
+    coordinates, weights and order of the four products; within
+    ``TOLERANCE`` of the kernel module a fortiori), on the four stages'
+    widths and on a source smaller than the reference, so that the sweep
+    leaves the image, at each of ``SWEEP_SHAPES``."""
     rng = np.random.default_rng(C + 1)
     batch = batch_samples([make_plane_scene(V=2, H=H, W=W, seed=i) for i in range(B)])
     pr = torch.from_numpy(batch["proj_matrices"]["stage4"]).to(dev)
@@ -343,7 +362,9 @@ def test_warp_fwd_kernel_matches_plain(dev, dtype, C, src_hw):
     torch.cuda.synchronize()
     assert k4.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, D, H, W, C)
-    _close(got, k4.warp_fwd_ref(src, rel, hypo), k4.TOLERANCE[dtype])
+    want = k4.warp_fwd_ref(src, rel, hypo)
+    _close(got, want, k4.TOLERANCE[dtype])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -563,14 +584,19 @@ def _sweep(dev, B, H, W, D, C, seed, src_hw=None):
     return rng, rel, hypo, torch.from_numpy(src)
 
 
+# (B, H, W, D) of the generic instances' cases: the first; a ragged row,
+# an odd H and 16 planes; B*H above 65535 at a narrow W
+GENERIC_SHAPES = [(2, 24, 40, 4), (2, 21, 72, 16), (1, 70000, 8, 2)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,G", [(4, 2), (128, 16), (64, 16), (32, 16), (12, 3), (3, 1), (6, 2)])
-def test_warp_cor_generic_instance_matches_plain(dev, dtype, C, G):
+@pytest.mark.parametrize("B,H,W,D", GENERIC_SHAPES)
+def test_warp_cor_generic_instance_matches_plain(dev, dtype, C, G, B, H, W, D):
     """K1's generic instance (C or G outside {8, 16, 32, 64} x {1, 2, 4, 8})
     against ``warp_cor_ref`` (``TOLERANCE``), one launch each; its loads
     are 8, 4 or 1 channels wide as C allows."""
     assert C not in k1.FAST_CHANNELS or G not in k1.FAST_GROUPS
-    B, H, W, D = 2, 24, 40, 4
     rng, rel, hypo, src = _sweep(dev, B, H, W, D, C, C * 10 + G, (20, 28))
     ref = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
     args = (src.to(dev, dtype), ref.to(dev, dtype), rel, hypo, G)
@@ -583,18 +609,21 @@ def test_warp_cor_generic_instance_matches_plain(dev, dtype, C, G):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C", [4, 128, 12, 6, 3])
-def test_warp_fwd_generic_instance_matches_plain(dev, dtype, C):
-    """K4's generic instance (C outside {8, 16, 32, 64}; a thread per 8, 4
-    or 1 channels) against ``warp_fwd_ref`` (``TOLERANCE``)."""
+@pytest.mark.parametrize("B,H,W,D", GENERIC_SHAPES)
+def test_warp_fwd_generic_instance_matches_plain(dev, dtype, C, B, H, W, D):
+    """K4's generic instance (C outside {8, 16, 32, 64}; lanes of 8, 4 or 1
+    channels, up to 32 lanes a pixel) against ``warp_fwd_ref``, bit for bit
+    as the compile-time instances."""
     assert C not in k4.FAST_CHANNELS
-    B, H, W, D = 2, 24, 40, 4
     _, rel, hypo, src = _sweep(dev, B, H, W, D, C, C + 5)
     src = src.to(dev, dtype)
     before = k4.launches
     got = k4.warp_fwd(src, rel, hypo)
     torch.cuda.synchronize()
     assert k4.launches == before + 1 and got.shape == (B, D, H, W, C)
-    _close(got, k4.warp_fwd_ref(src, rel, hypo), k4.TOLERANCE[dtype])
+    want = k4.warp_fwd_ref(src, rel, hypo)
+    _close(got, want, k4.TOLERANCE[dtype])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
