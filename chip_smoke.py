@@ -14,11 +14,12 @@
    graph and replayed): K1 (warp + group correlation, on
    the eval forward's own hypotheses and on the full inverse range at every
    stage, and in float32 at one view of the B1 pipeline), K5 (attention
-   accumulation) and K6 (3x3 conv + folded BatchNorm + ReLU, beside
-   ``F.conv2d`` + ``relu_`` on the folded weights and the unfused conv +
-   BatchNorm + ReLU it replaces, at every 3x3 stride-1 layer of the stem and
-   Reg2D.conv0, timed in both dtypes, the rows that back its route rule in
-   ``models/layers.py``) at the eval forward's shapes; K2 (FPN top-down level) at the eval
+   accumulation, also in float32 at one B1 pipeline view) and K6 (3x3 conv
+   + folded BatchNorm + ReLU, beside ``F.conv2d`` + ``relu_`` on the folded
+   weights and the unfused conv + BatchNorm + ReLU it replaces, at every 3x3
+   stride-1 layer of the stem and Reg2D.conv0, timed in both dtypes, the
+   rows that back its route rule in ``models/layers.py``, and in float32 at
+   one B1 pipeline view) at the eval forward's shapes; K2 (FPN top-down level) at the eval
    forward's, the train step's (its 3 forward launches and the backward's 3
    ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
    (warp backward) at the train step's on two sets of hypotheses (the full
@@ -26,12 +27,14 @@
    windows around a depth map), and K4 (warp forward) at the train step's
    on the same two sets, beside their library
    yardsticks ``aten.grid_sampler_2d_backward`` and ``F.grid_sample``.
-   K1's and K4's rows name the launch shape they took (``plan``).
+   K1's, K4's, K5's and K6's rows name the launch shape they took
+   (``plan``).
    Then every kernel at the widths of FPN base 4 and 16 (``OTHER_WIDTHS``,
    the same checks at those widths): K1, K5 and K2 at the eval forward's
    shapes, K3 and K4 at the train step's, each row naming the instance it took (the
    generic instances: K1 at C 4 and 128 and G 16, K4 at C 4 and 128, K2 at
-   Ci 32 and 128; K5's workspace form at G 16).
+   Ci 32 and 128; K5 at G 16 on its register kernel), and K5's workspace
+   kernel (D over 32 or G over 16: ``K5_WORKSPACE``, set ``workspace``).
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
@@ -142,34 +145,41 @@ TRAIN_CLI_FLAGS = [
 # train steps of --mode profile: the first call, one warm-up, five timed
 # (train/profiler.profile_step_fn) and one traced
 PROFILE_STEPS = 8
-# K6 at the eval forward's 3x3 stride-1 conv + BatchNorm + ReLU layers (B4
-# V4 512x640: N = B*V in the FPN stem, B*D in Reg2D.conv0 with D = 8, 8, 4,
-# 4): (name, N, H, W, Ci, Co, layers of that shape per forward). A row's
-# launches per forward are its layers where models/layers.band_conv_route
-# puts the shape on K6's route in the row's dtype, else 0; every row is
-# timed in both dtypes beside the unfused route, so that the rule rests on
-# the rows of the same call.
-BAND_CONV_LAYERS = (
-    ("stem conv0.0", B * V, H, W, 3, 8, 1),
-    ("stem conv0.1", B * V, H, W, 8, 8, 1),
-    ("stem conv1.1, conv1.2", B * V, H // 2, W // 2, 16, 16, 2),
-    ("stem conv2.1, conv2.2", B * V, H // 4, W // 4, 32, 32, 2),
-    ("stem conv3.1, conv3.2", B * V, H // 8, W // 8, 64, 64, 2),
-    ("Reg2D.conv0 stage1", B * 8, H // 8, W // 8, 8, 8, 1),
-    ("Reg2D.conv0 stage2", B * 8, H // 4, W // 4, 8, 8, 1),
-    ("Reg2D.conv0 stage3", B * 4, H // 2, W // 2, 4, 8, 1),
-    ("Reg2D.conv0 stage4", B * 4, H, W, 4, 8, 1),
-)
+# K6 at the eval forward's 3x3 stride-1 conv + BatchNorm + ReLU layers at
+# batch b (V4 512x640: N = b*V in the FPN stem, b*D in Reg2D.conv0 with D =
+# 8, 8, 4, 4): (name, N, H, W, Ci, Co, layers of that shape per forward). A
+# row's launches per forward are its layers where
+# models/layers.band_conv_route puts the shape on K6's route in the row's
+# dtype, else 0; every row is timed beside the unfused route, so that the
+# rule rests on the rows of the same call.
+def _band_conv_layers(b):
+    return (
+        ("stem conv0.0", b * V, H, W, 3, 8, 1),
+        ("stem conv0.1", b * V, H, W, 8, 8, 1),
+        ("stem conv1.1, conv1.2", b * V, H // 2, W // 2, 16, 16, 2),
+        ("stem conv2.1, conv2.2", b * V, H // 4, W // 4, 32, 32, 2),
+        ("stem conv3.1, conv3.2", b * V, H // 8, W // 8, 64, 64, 2),
+        ("Reg2D.conv0 stage1", b * 8, H // 8, W // 8, 8, 8, 1),
+        ("Reg2D.conv0 stage2", b * 8, H // 4, W // 4, 8, 8, 1),
+        ("Reg2D.conv0 stage3", b * 4, H // 2, W // 2, 4, 8, 1),
+        ("Reg2D.conv0 stage4", b * 4, H, W, 4, 8, 1),
+    )
+
+
+# K6's row sets: (set, batch, dtype); the B4 eval forward in both dtypes and
+# one view of the float32 pipeline (B1)
+BAND_CONV_SETS = (("eval_float32", B, "float32"), ("eval", B, "bfloat16"),
+                  ("pipeline_float32", 1, "float32"))
 
 
 def _k6_launches(dtype) -> int:
     """K6's launches per eval forward of the flagship model (FPN base 8) in
-    ``dtype``: the layers of ``BAND_CONV_LAYERS`` on its route."""
+    ``dtype``: the layers of ``_band_conv_layers(B)`` on its route."""
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
         band_conv_route,
     )
 
-    return sum(n for _, _, _, _, ci, co, n in BAND_CONV_LAYERS
+    return sum(n for _, _, _, _, ci, co, n in _band_conv_layers(B)
                if band_conv_route(ci, co, dtype))
 
 
@@ -352,54 +362,113 @@ def check_kernels(dev, batch, base=8, groups=(8, 8, 4, 4), row_set="eval",
     """K1 and K5 against their plain versions at the eval forward's shapes
     at FPN base ``base`` and ``groups`` (the stages' C and G), in float32
     and bf16, times in bf16 (the forward's dtype). K1 on each ``(hypotheses,
-    row set)`` of ``k1_sets`` (``_k1_rows``); K5 in ``row_set``, a row's
-    ``instance`` naming its register or workspace form."""
+    row set)`` of ``k1_sets`` (``_k1_rows``); K5 in ``row_set``
+    (``_k5_rows``)."""
     import torch
 
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        attn_fuse as k5,
-    )
-
-    cfg = _dtu_model_config()
     gen = torch.Generator(device=dev).manual_seed(SEED + base)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for hyps, k1_set in k1_sets:
             _k1_rows(rows, dev, batch, gen, base, groups, dtype, hyps, k1_set,
                      dtype == torch.bfloat16)
-        for s in range(4):
-            # K5 at each stage: the V-1 volumes of the stage's (D, G), the
-            # 1/sqrt(C) of its features; one launch per forward
-            h, w = H >> (3 - s), W >> (3 - s)
-            C, G, D = _stage_channels(base, s), groups[s], cfg.ndepths[s]
-            cors = (torch.randn((V - 1, B, D, h, w, G), generator=gen, device=dev) * 0.5).to(dtype)
-            args5 = (cors, cfg.attn_temp, C)
+        _k5_rows(rows, dev, gen, B, base, groups, dtype, row_set, dtype == torch.bfloat16)
+    return rows
+
+
+def _attn_fuse_args(dev, gen, batch, s, base, groups, dtype):
+    """K5's inputs at stage ``s`` of the eval forward (B ``batch``, FPN base
+    ``base``): the V-1 volumes of the stage's (D, G), scaled as a group
+    correlation, attn_temp and the stage's C."""
+    import torch
+
+    cfg = _dtu_model_config()
+    h, w = H >> (3 - s), W >> (3 - s)
+    D, G = cfg.ndepths[s], groups[s]
+    cors = (torch.randn((V - 1, batch, D, h, w, G), generator=gen, device=dev) * 0.5).to(dtype)
+    return cors, cfg.attn_temp, _stage_channels(base, s)
+
+
+def _k5_rows(rows, dev, gen, batch, base, groups, dtype, row_set, timed):
+    """K5 against ``attn_fuse_ref`` at the four stages (one launch each per
+    forward); a row's ``instance`` is its launch shape (``attn_fuse.plan``)."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        attn_fuse as k5,
+    )
+
+    for s in range(4):
+        args5 = _attn_fuse_args(dev, gen, batch, s, base, groups, dtype)
+        cors = args5[0]
+        S, nb, D, h, w, G = cors.shape
+        got, want = k5.attn_fuse(*args5), k5.attn_fuse_ref(*args5)
+        torch.cuda.synchronize()
+        # the volumes read once and the fused volume written once; per
+        # (view, pixel, d) G adds for the group sum, ~8 for the softmax
+        # and the weights, 2G for the accumulation; G divides at the end
+        nbytes = (cors.numel() + got.numel()) * cors.element_size()
+        ops = S * nb * D * h * w * (3 * G + 8) + nb * D * h * w * G
+        _record(rows, "attn_fuse", "eval", list(cors.shape), dtype, _max_err(got, want),
+                k5.TOLERANCE[dtype] * _scale(want), 1,
+                lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
+                nbytes, ops, FP32_FLOPS, row_set=row_set, timed=timed,
+                instance=k5.plan(nb, D, h, w, G, dtype))
+
+
+# K5's workspace kernel (D over 32 or G over 16), off every path the repo's
+# configurations run: (D, G) at the base-16 stage-1 volumes (B4, 64x80,
+# three source views), one past the register kernel's depths and one past
+# its groups; set "workspace", one launch per row
+K5_WORKSPACE = ((40, 16), (8, 20))
+
+
+def check_attn_fuse_workspace(dev):
+    """K5's workspace kernel against ``attn_fuse_ref`` at ``K5_WORKSPACE``
+    in float32 and bf16, timed in bf16; fails if a row did not take the
+    workspace kernel (``attn_fuse.plan``)."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        attn_fuse as k5,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    h, w, C = H >> 3, W >> 3, _stage_channels(16, 0)
+    temp = _dtu_model_config().attn_temp
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for D, G in K5_WORKSPACE:
+            cors = (torch.randn((V - 1, B, D, h, w, G), generator=gen, device=dev)
+                    * 0.5).to(dtype)
+            args5 = (cors, temp, C)
+            instance = k5.plan(B, D, h, w, G, dtype)
+            if instance != "workspace":
+                raise AssertionError(f"attn_fuse D {D} G {G}: took {instance}, not the workspace")
             got, want = k5.attn_fuse(*args5), k5.attn_fuse_ref(*args5)
             torch.cuda.synchronize()
-            # the volumes read once and the fused volume written once; per
-            # (view, pixel, d) G adds for the group sum, ~8 for the softmax
-            # and the weights, 2G for the accumulation; G divides at the end
             nbytes = (cors.numel() + got.numel()) * cors.element_size()
             ops = (V - 1) * B * D * h * w * (3 * G + 8) + B * D * h * w * G
-            reg = D in k5.REGISTER_DEPTHS and G in k5.REGISTER_GROUPS
-            _record(rows, "attn_fuse", "eval", [V - 1, B, D, h, w, G], dtype, _max_err(got, want),
+            _record(rows, "attn_fuse", "eval", list(cors.shape), dtype, _max_err(got, want),
                     k5.TOLERANCE[dtype] * _scale(want), 1,
                     lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
-                    nbytes, ops, FP32_FLOPS, row_set=row_set,
-                    instance="register" if reg else "workspace")
+                    nbytes, ops, FP32_FLOPS, row_set="workspace",
+                    timed=dtype == torch.bfloat16, instance=instance)
     return rows
 
 
 def check_warp_cor_pipeline(dev):
-    """K1 at one view of the float32 pipeline (B1, the eval_dtu.sh model's
-    (C, G) = (64, 8), (32, 8), (16, 4), (8, 4), 3 source views) on a B1
-    scene's own hypotheses, timed in float32: set ``pipeline_float32``."""
+    """K1 and K5 at one view of the float32 pipeline (B1, the eval_dtu.sh
+    model's (C, G) = (64, 8), (32, 8), (16, 4), (8, 4), 3 source views), K1
+    on a B1 scene's own hypotheses, timed in float32: set
+    ``pipeline_float32``."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     rows = []
     _k1_rows(rows, dev, _scene(1, V, H, W, dev), gen, 8, (8, 8, 4, 4), torch.float32, "path",
              "pipeline_float32", True)
+    _k5_rows(rows, dev, gen, 1, 8, (8, 8, 4, 4), torch.float32, "pipeline_float32", True)
     return rows
 
 
@@ -475,19 +544,42 @@ def check_topdown(dev):
     return rows
 
 
+def _band_conv_args(dev, gen, n, h, w, ci, co, dtype):
+    """K6's inputs at one layer: x, a random weight and an eval BatchNorm
+    with random statistics folded into scale and bias; and that BatchNorm
+    (the unfused route's)."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
+        TorchBatchNorm,
+    )
+
+    x = torch.randn((n, h, w, ci), generator=gen, device=dev).to(dtype)
+    wt = torch.randn((co, ci, 3, 3), generator=gen, device=dev) * (9 * ci) ** -0.5
+    bn = TorchBatchNorm(co).to(dev).eval()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(co, generator=gen, device=dev) * 1.5 + 0.5)
+        bn.bias.copy_(torch.randn(co, generator=gen, device=dev) * 0.2)
+        bn.running_mean.copy_(torch.randn(co, generator=gen, device=dev) * 0.2)
+        bn.running_var.copy_(torch.rand(co, generator=gen, device=dev) * 1.5 + 0.5)
+        scale, bias = bn.folded()
+    return (x, wt, scale, bias), bn
+
+
 def check_band_conv(dev):
-    """K6 against ``band_conv_ref`` at ``BAND_CONV_LAYERS``, in float32 and
-    bf16, with random weights, folded scale and bias; in bf16 the times of
-    the kernel, the plain version, the library yardstick (``F.conv2d`` on the
-    folded weight and bias, then in-place ``relu_``) and the unfused route K6
-    replaces (cuDNN conv, ``TorchBatchNorm`` in eval, ``F.relu``). The bound
-    counts x read and the output written once; operations at the bf16
-    tensor-core rate."""
+    """K6 against ``band_conv_ref`` at every layer of ``_band_conv_layers``
+    in each of ``BAND_CONV_SETS``, with random weights, folded scale and
+    bias, and the times of the kernel, the plain version, the library
+    yardstick (``F.conv2d`` on the folded weight and bias, then in-place
+    ``relu_``) and the unfused route K6 replaces (cuDNN conv,
+    ``TorchBatchNorm`` in eval, ``F.relu``). The bound counts x read and
+    the output written once; operations at the bf16 tensor-core rate in
+    bf16, at the float32 CUDA-core rate in float32. A row's ``instance`` is
+    its route and launch shape (``band_conv.plan``)."""
     import torch
     import torch.nn.functional as F
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
-        TorchBatchNorm,
         band_conv_route,
         conv2d_nhwc,
     )
@@ -497,19 +589,12 @@ def check_band_conv(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, n, h, w, ci, co, layers in BAND_CONV_LAYERS:
+    for row_set, batch, dtype_name in BAND_CONV_SETS:
+        dtype = getattr(torch, dtype_name)
+        for name, n, h, w, ci, co, layers in _band_conv_layers(batch):
             per_run = layers if band_conv_route(ci, co, dtype) else 0
-            x = torch.randn((n, h, w, ci), generator=gen, device=dev).to(dtype)
-            wt = torch.randn((co, ci, 3, 3), generator=gen, device=dev) * (9 * ci) ** -0.5
-            bn = TorchBatchNorm(co).to(dev).eval()
-            with torch.no_grad():
-                bn.weight.copy_(torch.rand(co, generator=gen, device=dev) * 1.5 + 0.5)
-                bn.bias.copy_(torch.randn(co, generator=gen, device=dev) * 0.2)
-                bn.running_mean.copy_(torch.randn(co, generator=gen, device=dev) * 0.2)
-                bn.running_var.copy_(torch.rand(co, generator=gen, device=dev) * 1.5 + 0.5)
-                scale, bias = bn.folded()
-            args = (x, wt, scale, bias)
+            args, bn = _band_conv_args(dev, gen, n, h, w, ci, co, dtype)
+            x, wt, scale, bias = args
             got, want = k6.band_conv(*args), k6.band_conv_ref(*args)
             torch.cuda.synchronize()
             x_nchw = x.permute(0, 3, 1, 2)
@@ -530,10 +615,8 @@ def check_band_conv(dev):
                         lambda a=args: k6.band_conv(*a), lambda a=args: k6.band_conv_ref(*a),
                         nbytes, 2 * n * h * w * co * 9 * ci,
                         BF16_TENSOR_FLOPS if is_bf16 else FP32_FLOPS, run_library,
-                        run_unfused, row_set="eval" if is_bf16 else "eval_float32",
-                        timed=True, layers=layers,
-                        route="tensor cores" if is_bf16 and k6.mma_widths(ci, co)
-                        else "direct")
+                        run_unfused, row_set=row_set, timed=True, layers=layers,
+                        instance=k6.plan(n, h, w, ci, co, dtype))
             rows[-1]["layer"] = name
     return rows
 
@@ -1078,7 +1161,7 @@ def main() -> int:
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch) + check_warp_cor_pipeline(dev) + check_topdown(dev) \
-        + check_band_conv(dev)
+        + check_band_conv(dev) + check_attn_fuse_workspace(dev)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows
@@ -1215,8 +1298,15 @@ def main() -> int:
             entry["full_range"] = sums["eval_full_range"]
             entry["pipeline_float32_view"] = sums["pipeline_float32"]
         if name == "band_conv":
-            # the float32 rows: the pipeline's route
+            # the float32 rows: the pipeline's route at B4, and one view of
+            # the pipeline (B1)
             entry["float32_forward"] = sums["eval_float32"]
+            entry["pipeline_float32_view"] = sums["pipeline_float32"]
+        if name == "attn_fuse":
+            # one view of the float32 pipeline (B1), and the workspace
+            # kernel's rows (per call of each K5_WORKSPACE shape)
+            entry["pipeline_float32_view"] = sums["pipeline_float32"]
+            entry["workspace"] = sums["workspace"]
         # the same path at FPN base 4 and 16, through the generic instances
         entry["other_widths"] = {k: v for k, v in sums.items() if "_base" in k}
         kernel_line.append(entry)

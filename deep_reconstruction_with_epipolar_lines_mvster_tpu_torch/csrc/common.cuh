@@ -2,7 +2,7 @@
 // pixel as one 16-byte load (bf16) or two (float32), widened to float32,
 // and the 8-, 4- and 1-wide loads and stores of the generic instances (any
 // channel count), one float32 value stored in the tensor's dtype, the PTX
-// of the tensor-core routes (cp.async, ldmatrix, mma.sync), and the plane-sweep
+// of the staged routes (cp.async, ldmatrix, mma.sync), and the plane-sweep
 // bilinear taps (a per-pixel part, a per-depth part and the depth sweep
 // that shares them between the lanes of a pixel) that the warp kernels (K1
 // and K4 forward, K3 backward) all use, so that they agree with each other
@@ -419,7 +419,7 @@ inline bool sweep_plan(int B, int D, int H, int W, int Hs, int Ws, int C, int nl
     return true;
 }
 
-// ---------------------------------------- the tensor-core routes' PTX (K2, K6)
+// ---------------------------------------- the staged routes' PTX (K2, K6)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
@@ -429,6 +429,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes from global to shared memory, or 4 zero bytes when !valid: one
+// element to any shared address, so that a copy can transpose as it lands
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {

@@ -11,6 +11,7 @@ VJP: the train path keeps the autograd-tracked PyTorch attention
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -28,10 +29,33 @@ launches = 0
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the (D, G) that the register kernel is instantiated for (csrc/attn_fuse.cu
-# in_registers); any other takes the workspace kernel
-REGISTER_DEPTHS = (2, 4, 8)
-REGISTER_GROUPS = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, D: int, HW: int, G: int, is_bf16: int) -> tuple:
+    """``csrc/attn_fuse.cu:attn_fuse_plan`` for a shape: (on the register
+    kernel, G instance, pixels a lane, lanes a pixel group, CTAs)."""
+    fn = _build.load("attn_fuse").attn_fuse_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = (ctypes.c_longlong * 5)()
+    fn(B, D, HW, G, is_bf16, ctypes.addressof(p))
+    return tuple(p)
+
+
+def plan(B: int, D: int, H: int, W: int, G: int, dtype) -> str:
+    """The launch shape of a call on ``[S,B,D,H,W,G]`` in ``dtype``, as a
+    ``kernel_shapes`` row's ``instance``, as the kernel's library chooses
+    it (``csrc/attn_fuse.cu:attn_fuse_plan``): the register kernel's G
+    instance (G rounded up to a power of two), the pixels a lane (16-byte
+    loads where G fills less and H*W allows), the lanes a pixel group (D
+    rounded up to a power of two) and its CTAs; or the workspace kernel
+    (D over 32 or G over 16). Loads the kernel's library."""
+    reg, gm, px, lanes, ctas = _plan(B, D, H * W, G, int(dtype == torch.bfloat16))
+    if not reg:
+        return "workspace"
+    return (f"register g {gm}{'' if gm == G else f' (G {G})'} px {px} lanes {lanes} "
+            f"ctas {ctas}")
 
 
 def attn_fuse_ref(cors, attn_temp: float, channels: int) -> torch.Tensor:
@@ -63,9 +87,10 @@ def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
     """``cors [S,B,D,H,W,G]`` f32/bf16 -> ``[B,D,H,W,G]`` in the same dtype,
     float32 inside, for any D and G. Same function as JAX
     ``attn_fuse_native`` (on its native ``[B,D,T,TR,G,W]`` layout) and as
-    the XLA chain of ``epipolar_aggregate(attn_fuse_d=True)``. The stages'
-    (D, G) run in registers; any other (D, G) through a float32 workspace
-    allocated here (``csrc/attn_fuse.cu``), with the same result."""
+    the XLA chain of ``epipolar_aggregate(attn_fuse_d=True)``. D up to 32
+    and G up to 16 run in registers (a lane per pixel and d); a larger D or
+    G through a float32 workspace allocated here where the kernel's plan
+    says so (``csrc/attn_fuse.cu``), with the same result."""
     if cors.device.type == "cpu":
         return attn_fuse_ref(cors, attn_temp, channels)
     if cors.device.type != "cuda":
@@ -78,13 +103,13 @@ def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
         raise ValueError("attn_fuse: cors is not contiguous")
     if cors.dtype not in _DTYPES:
         raise ValueError(f"attn_fuse: dtype {cors.dtype} not supported")
-    if min(S, B, D, G) < 1:
+    if min(S, B, D, G) < 1 or B >= 2 ** 16:
         raise ValueError(f"attn_fuse: S={S}, B={B}, D={D}, G={G} not supported")
     if H * W >= 2 ** 31 or cors.data_ptr() % 16:
         raise ValueError("attn_fuse: plane too large or cors not 16-byte aligned")
     out = torch.empty((B, D, H, W, G), dtype=cors.dtype, device=cors.device)
     acc = norm = None
-    if D not in REGISTER_DEPTHS or G not in REGISTER_GROUPS:
+    if not _plan(B, D, H * W, G, int(cors.dtype == torch.bfloat16))[0]:
         acc = torch.empty((B, D, H, W, G), dtype=torch.float32, device=cors.device)
         norm = torch.empty((B, D, H, W), dtype=torch.float32, device=cors.device)
     status = _lib()(

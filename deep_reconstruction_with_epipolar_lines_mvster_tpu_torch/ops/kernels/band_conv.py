@@ -4,7 +4,11 @@ route once the BatchNorm is folded (``models/layers.py``).
 
 In bf16 with Ci and Co at most 64 it runs on the tensor cores (an implicit
 GEMM on ``mma.sync`` that builds its weight fragments from the float32
-weight); in float32, and wider, the direct form on the CUDA cores.
+weight), wider bf16 layers on the direct form; float32 at any width on the
+CUDA cores, register-blocked (a thread's 4 pixels x 2 rows, 1 row where a
+launch has few tiles, x 8 output channels) over persistent CTAs that copy
+the next unit of (tile, input channels) by TMA while they compute this one. :func:`plan` names the launch shape a call
+takes.
 
 ``band_conv`` launches the CUDA kernel on a CUDA tensor and uses the plain
 PyTorch version ``band_conv_ref`` only for a tensor on the CPU.
@@ -33,10 +37,11 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the bf16 tensor-core route's widths: Ci padded to one of these, Co to a
-# multiple of 8 in 8 x (1, 2, 4, 8); wider layers and float32 take the
-# direct form
+# multiple of 8 in 8 x (1, 2, 4, 8); wider bf16 layers take the direct form
 MMA_CIP = (8, 16, 32, 64)
 MMA_NT = (1, 2, 4, 8)
+# the float32 route's copy modes (csrc/band_conv.cu F32Mode)
+F32_COPY = ("cp.async", "tma 4d", "tma 3d")
 
 
 def band_conv_ref(x, weight, scale, bias) -> torch.Tensor:
@@ -56,6 +61,28 @@ def mma_widths(ci: int, co: int):
     cip = next((c for c in MMA_CIP if c >= ci), None)
     nt = next((n for n in MMA_NT if 8 * n >= co), None)
     return None if cip is None or nt is None else (cip, nt)
+
+
+def plan(N: int, H: int, W: int, Ci: int, Co: int, dtype) -> str:
+    """The route and launch shape of a call on ``[N,H,W,Ci] -> Co`` in
+    ``dtype`` (x and the weight 16-byte aligned, as PyTorch allocates them),
+    as a ``kernel_shapes`` row's ``instance``: the tensor-core widths (Ci
+    padded, n-tiles), the bf16 direct form, or, as the kernel's library
+    chooses them (``csrc/band_conv.cu:band_conv_plan``), the float32
+    route's channel groups, tile, input channels a unit, work items (tile,
+    pass), staged units and copy mode. In float32 it loads the kernel's
+    library."""
+    if dtype == torch.bfloat16:
+        widths = mma_widths(Ci, Co)
+        return "bf16 direct" if widths is None else "tensor cores cip {} nt {}".format(*widths)
+    fn = _build.load("band_conv").band_conv_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = (ctypes.c_int * 5)()
+    _build.check(fn(N, H, W, Ci, Co, 1, ctypes.addressof(p)), "band_conv plan")
+    cog, rows, cic, items, mode = p
+    return (f"float32 cog {cog} tile {rows}x64 ci/unit {cic} items {items} "
+            f"units {items * -(-Ci // cic)} copy {F32_COPY[mode]}")
 
 
 def _lib():

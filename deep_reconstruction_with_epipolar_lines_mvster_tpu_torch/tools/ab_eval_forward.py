@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the eval forward (or the train step, or the warp kernels) of two
+"""Time the eval forward (or the train step, or the kernels) of two
 checkouts of the port on one card, in turn.
 
     python ab_eval_forward.py --repo A=DIR --repo B=DIR [--order ABBA]
@@ -26,17 +26,21 @@ version of the port since the eval pipeline has: ``ModelConfig``,
 ``MVS4Net(cfg, device=, generator=)``, ``data.synthetic``,
 ``checks.RECIPE_LOSS``, ``checks.eval_dtu_config`` and ``train.step``.
 
-With ``--path kernels`` a process times the warp kernels of its checkout
-stage by stage, on the inputs and with the timers of ``chip_smoke.py``'s
-kernel rows (that file is taken from the checkout this script lies in;
-its helpers import the package, so they reach the process's checkout):
-the device time of 20 launches captured in one CUDA graph, the median of
-``--rounds`` replays (``rows``), and the same launches back to back from
-the host (``eager``). K1 (``warp_cor``) at the eval forward's four stages
-on the path's hypotheses (``eval``), on the full inverse range (``eval_
+With ``--path kernels`` a process times the kernels of its checkout row by
+row, on the inputs and with the timers of ``chip_smoke.py``'s kernel rows
+(that file is taken from the checkout this script lies in; its helpers
+import the package, so they reach the process's checkout): the device time
+of 20 launches captured in one CUDA graph, the median of ``--rounds``
+replays (``rows``), and the same launches back to back from the host
+(``eager``). K1 (``warp_cor``) at the eval forward's four stages on the
+path's hypotheses (``eval``), on the full inverse range (``eval_
 full_range``, and at FPN base 4 and 16: ``eval_base4/16``) and in float32
-at one B1 pipeline view (``pipeline_float32``); K4 (``warp_fwd``) at the
-train step's on the path's (``train``) and the full range (``full_range``,
+at one B1 pipeline view (``pipeline_float32``); K5 (``attn_fuse``) at the
+eval forward's four stages (``eval``, bf16) and at one B1 pipeline view
+(``pipeline_float32``); K6 (``band_conv``) in float32 at every 3x3 layer
+of the B4 forward (``eval_float32``) and of one B1 pipeline view
+(``pipeline_float32``); K4 (``warp_fwd``) at the train step's on the
+path's (``train``) and the full range (``full_range``,
 ``train_base4/16``); K3 (``warp_bwd``) on the train path's. The
 hypotheses' depths and windows come from the checkout's ``ModelConfig``.
 
@@ -71,15 +75,15 @@ def _chip_smoke():
 
 
 def measure_kernels(rounds: int) -> dict:
-    """The warp kernels' rows of the process's checkout (module docstring):
+    """The kernels' rows of the process's checkout (module docstring):
     ms per launch on the device (``rows``) and from the host (``eager``)."""
     import importlib
 
     import torch
 
     smoke = _chip_smoke()
-    k1, k3, k4 = (importlib.import_module(f"{PKG}.ops.kernels.{n}")
-                  for n in ("warp_cor", "warp_bwd", "warp_fwd"))
+    k1, k3, k4, k5, k6 = (importlib.import_module(f"{PKG}.ops.kernels.{n}")
+                          for n in ("warp_cor", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv"))
     geometry = importlib.import_module(f"{PKG}.core.geometry")
     cfg = smoke._dtu_model_config()
     dev = torch.device("cuda")
@@ -132,6 +136,17 @@ def measure_kernels(rounds: int) -> dict:
                                     device=dev).to(torch.bfloat16)
                     a = (g, rel, hypo, (nb, h, w, C))
                     timed(f"warp_bwd train stage{s + 1}", lambda a=a: k3.warp_bwd(*a))
+        for name, nb, dtype in (("eval", smoke.B, torch.bfloat16),
+                                ("pipeline_float32", 1, torch.float32)):
+            gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 5)
+            for s in range(4):
+                a = smoke._attn_fuse_args(dev, gen, nb, s, 8, cfg.group_cor_dim, dtype)
+                timed(f"attn_fuse {name} stage{s + 1}", lambda a=a: k5.attn_fuse(*a))
+        for name, nb in (("eval_float32", smoke.B), ("pipeline_float32", 1)):
+            gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 6)
+            for layer, n, h, w, ci, co, _ in smoke._band_conv_layers(nb):
+                a = smoke._band_conv_args(dev, gen, n, h, w, ci, co, torch.float32)[0]
+                timed(f"band_conv {name} {layer}", lambda a=a: k6.band_conv(*a))
     return {"rows": rows, "eager": eager}
 
 

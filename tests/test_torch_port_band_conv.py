@@ -144,3 +144,43 @@ def test_route_follows_mode_shape_and_width():
                     torch.no_grad():
                 module(x)
             assert spy.call_count == int(on_route and not training), (module, shape, training)
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((16, 64, 80, 64, 64), torch.bfloat16, "tensor cores cip 64 nt 8"),
+    ((16, 64, 80, 3, 8), torch.bfloat16, "tensor cores cip 8 nt 1"),
+    ((2, 19, 33, 96, 16), torch.bfloat16, "bf16 direct"),
+    ((2, 19, 33, 16, 72), torch.bfloat16, "bf16 direct"),
+])
+def test_plan_names_the_route_and_launch_shape(shape, dtype, want):
+    """``band_conv.plan`` names the bf16 route a call takes: the tensor
+    cores with Ci padded to 8, 16, 32 or 64 and Co to 8 n-tiles at most,
+    else the direct form. (The float32 launch shape comes from the kernel's
+    library: ``tests/test_torch_port_cuda.py::
+    test_band_conv_plan_names_the_float32_launch_shape``.)"""
+    assert k6.plan(*shape, dtype) == want
+
+
+def test_f32_variant_tool_still_matches_the_kernel_source():
+    """``tools/k6_f32_variants.py`` makes its variants by rewriting the
+    float32 plan, its dispatch and its copy mode in ``csrc/band_conv.cu``:
+    every text it rewrites is still in the source, ``cur`` is the source,
+    ``a``, ``b`` and ``c`` force their plan through one dispatch over every
+    instance they take, and ``cpasync`` never picks the 3-D TMA map."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.tools import (
+        k6_f32_variants as tool,
+    )
+
+    src = (_build.CSRC_DIR / "band_conv.cu").read_text()
+    variants = tool.variant_sources(src)
+    assert sorted(variants) == ["a", "b", "c", "cpasync", "cur"]
+    assert variants["cur"] == src
+    for name, rule in tool.FORCED.items():
+        text = variants[name]
+        assert rule in text and tool.RULE not in text and tool.DISPATCH not in text
+        for c, q, t in tool.INSTANCES:
+            assert f"return launch_f32<{c}, {q}, {t}>(" in text
+    assert tool.TMA3 not in variants["cpasync"]
+    assert variants["cpasync"].replace(": false ? F32_TMA3", tool.TMA3) == src
+

@@ -367,29 +367,66 @@ def test_warp_fwd_kernel_matches_plain(dev, dtype, C, src_hw, B, H, W, D):
     assert torch.equal(got, want)
 
 
+# K5's cases (S, D, G, H, W): the flagship stages' (D, G) at three source
+# views; other view counts (1-5: the register kernel loads up to 4 views at
+# once), depths (D 1, 3, 16, 32: lanes a pixel group 1, 4, 16, 32) and
+# groups (G 1, 2, 16, and G 3, 5 cut from the G 4 and 8 instances); H*W 960
+# (not a multiple of a CTA's pixels at any D) and odd 943 (one pixel a lane
+# where G 4 bf16 or G 2 would take 2 or 4); D 40 and G 20, past the register
+# kernel, on the workspace kernel
+K5_SHAPES = [(3, 8, 8, 24, 40), (3, 4, 4, 24, 40), (2, 2, 1, 24, 40), (1, 4, 2, 24, 40),
+             (3, 16, 8, 24, 40), (2, 3, 4, 24, 40), (1, 32, 2, 24, 40), (2, 4, 16, 24, 40),
+             (4, 4, 16, 24, 40), (4, 1, 4, 24, 40), (5, 8, 8, 24, 40), (3, 4, 4, 23, 41),
+             (3, 8, 2, 23, 41), (2, 4, 3, 24, 40), (3, 3, 5, 23, 41), (2, 40, 2, 24, 40),
+             (1, 4, 20, 24, 40)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,D,G", [(3, 8, 8), (3, 4, 4), (2, 2, 1), (1, 4, 2),
-                                   (3, 16, 8), (2, 3, 4), (1, 32, 2), (2, 4, 16)])
-def test_attn_fuse_kernel_matches_plain(dev, dtype, S, D, G):
+@pytest.mark.parametrize("S,D,G,H,W", K5_SHAPES)
+def test_attn_fuse_kernel_matches_plain(dev, dtype, S, D, G, H, W):
     """K5 against ``attn_fuse_ref`` on the card (tolerance: ``TOLERANCE`` of
-    the kernel module), on the flagship stages' (D, G) at three source views,
-    on other view counts, depths and groups of the register kernel, and on
-    (D, G) that take the workspace kernel (D 16, 3 and 32, G 16)."""
-    rng = np.random.default_rng(S * 100 + D * 10 + G)
-    cors = torch.from_numpy((rng.standard_normal((S, 2, D, 24, 40, G)) * 0.7)
+    the kernel module) at ``K5_SHAPES``, one launch per call."""
+    rng = np.random.default_rng(S * 100 + D * 10 + G + H)
+    cors = torch.from_numpy((rng.standard_normal((S, 2, D, H, W, G)) * 0.7)
                             .astype(np.float32)).to(dev, dtype)
     before = k5.launches
     got = k5.attn_fuse(cors, 2.0, 16)
     torch.cuda.synchronize()
     assert k5.launches == before + 1
-    assert got.dtype == dtype and got.shape == (2, D, 24, 40, G)
+    assert got.dtype == dtype and got.shape == (2, D, H, W, G)
     _close(got, k5.attn_fuse_ref(cors, 2.0, 16), k5.TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    # the eval forward's stages (B4 bf16, D 8/8/4/4, G 8/8/4/4): 16-byte
+    # loads take 2 pixels a lane at G 4
+    ((4, 8, 64, 80, 8), torch.bfloat16, "register g 8 px 1 lanes 8 ctas 640"),
+    ((4, 4, 512, 640, 4), torch.bfloat16, "register g 4 px 2 lanes 4 ctas 10240"),
+    # the pipeline's float32 stage 4 (B1): G 4 already fills 16 bytes
+    ((1, 4, 512, 640, 4), torch.float32, "register g 4 px 1 lanes 4 ctas 5120"),
+    # an odd H*W keeps one pixel a lane; G 3 takes the G 4 instance cut to 3;
+    # D 3 rounds up to 4 lanes, D 32 fills the warp
+    ((2, 4, 23, 41, 4), torch.bfloat16, "register g 4 px 1 lanes 4 ctas 30"),
+    ((2, 3, 24, 40, 3), torch.float32, "register g 4 (G 3) px 1 lanes 4 ctas 30"),
+    ((2, 32, 24, 40, 2), torch.bfloat16, "register g 2 px 4 lanes 32 ctas 60"),
+    ((2, 4, 24, 40, 16), torch.float32, "register g 16 px 1 lanes 4 ctas 30"),
+    # beyond 32 depths or 16 groups: the workspace kernel
+    ((2, 40, 24, 40, 2), torch.float32, "workspace"),
+    ((2, 4, 24, 40, 20), torch.bfloat16, "workspace"),
+])
+def test_attn_fuse_plan_names_the_launch_shape(dev, shape, dtype, want):
+    """``attn_fuse.plan`` names the kernel and launch shape the library
+    chooses for a call: G rounded up to a power of two, the pixels a lane
+    (16-byte loads where G fills less and H*W is a multiple), the lanes a
+    pixel group (D rounded up to a power of two) and the CTAs of 8 warps;
+    the workspace kernel past 32 depths or 16 groups."""
+    assert k5.plan(*shape, dtype) == want
 
 
 @pytest.mark.parametrize("D,G", [(16, 8), (16, 4), (3, 4)])
 def test_eval_aggregate_at_any_depth_matches_cpu(dev, D, G):
-    """The eval aggregation (K1 into one buffer, then K5) at depths outside
-    K5's register instantiations (an ``--ndepths`` of 16, an odd D) on the
+    """The eval aggregation (K1 into one buffer, then K5) at depths other
+    than the flagship's (an ``--ndepths`` of 16, an odd D) on the
     card against the same call on the CPU (plain versions), float32: within
     1e-4 of max(1, max|plain|), K1 and K5 each within 1e-5 of theirs and the
     weights' exponentials carrying K1's differences into the sums."""
@@ -510,25 +547,33 @@ def test_kernel_wrappers_raise_under_autograd(dev):
     torch.cuda.synchronize()
 
 
-# K6 at the flagship eval forward's shapes (B4 V4 512x640: the FPN stem's
-# conv0.0, conv0.1, conv1.1/conv1.2, Reg2D.conv0 at stages 1-4) with N cut
-# to 2, then at odd sizes: 37x97 (tiles cut on both axes), Ci 3, and Ci, Co
-# over 16 (the chunk loops); the stem's 32- and 64-channel layers (the bf16
-# tensor-core route's widest instances, CIP 32 and 64, NT 4 and 8); Ci and
-# Co over 64 (the direct form in bf16 too)
-K6_SHAPES = [(512, 640, 3, 8), (512, 640, 8, 8), (256, 320, 16, 16), (64, 80, 8, 8),
-             (128, 160, 8, 8), (256, 320, 4, 8), (512, 640, 4, 8),
-             (37, 97, 3, 8), (37, 97, 16, 16), (37, 97, 5, 7), (19, 33, 20, 24),
-             (128, 160, 32, 32), (64, 80, 64, 64), (19, 33, 96, 16), (21, 35, 8, 72)]
+# K6 (N, H, W, Ci, Co) at the flagship eval forward's shapes (B4 V4
+# 512x640: the FPN stem's conv0.0, conv0.1, conv1.1/conv1.2, Reg2D.conv0 at
+# stages 1-4) with N cut to 2, then at odd sizes: 37x97 (tiles cut on both
+# axes: W not a multiple of the float32 route's 4-column strip or 64-column
+# tile, H of its 32, 16, 8 or 4 tile rows), Ci 3, 5 and 20 (units of 4 or 8
+# input channels cut), Co 7 and 24 (channel groups cut); the stem's 32- and
+# 64-channel layers (the bf16 tensor-core route's widest instances, CIP 32
+# and 64, NT 4 and 8); Ci and Co over 64 (the direct form in bf16, passes
+# of 64 output channels in float32: Co 72); W 3 and 1 (one strip, cut);
+# N 1500 of 16x70 (3000 work items: each persistent CTA walks many tiles);
+# Reg2D.conv0 stage 1 of one pipeline view and conv2.x at N 4 (few work
+# items: the float32 route's shorter tiles)
+K6_SHAPES = [(2, 512, 640, 3, 8), (2, 512, 640, 8, 8), (2, 256, 320, 16, 16),
+             (2, 64, 80, 8, 8), (2, 128, 160, 8, 8), (2, 256, 320, 4, 8), (2, 512, 640, 4, 8),
+             (2, 37, 97, 3, 8), (2, 37, 97, 16, 16), (2, 37, 97, 5, 7), (2, 19, 33, 20, 24),
+             (2, 128, 160, 32, 32), (2, 64, 80, 64, 64), (2, 19, 33, 96, 16), (2, 21, 35, 8, 72),
+             (2, 37, 97, 20, 24), (2, 45, 130, 3, 72), (2, 9, 3, 5, 7), (3, 5, 1, 3, 8),
+             (1500, 16, 70, 5, 7), (8, 64, 80, 8, 8), (4, 128, 160, 32, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,Ci,Co", K6_SHAPES)
-def test_band_conv_kernel_matches_plain(dev, dtype, H, W, Ci, Co):
+@pytest.mark.parametrize("N,H,W,Ci,Co", K6_SHAPES)
+def test_band_conv_kernel_matches_plain(dev, dtype, N, H, W, Ci, Co):
     """K6 against ``band_conv_ref`` on the card (tolerance: ``TOLERANCE`` of
-    the kernel module), one launch per call."""
+    the kernel module) at ``K6_SHAPES``, one launch per call."""
     rng = np.random.default_rng(H + W + Ci * 10 + Co)
-    x = torch.from_numpy(rng.standard_normal((2, H, W, Ci)).astype(np.float32)).to(dev, dtype)
+    x = torch.from_numpy(rng.standard_normal((N, H, W, Ci)).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((rng.standard_normal((Co, Ci, 3, 3)) * (9 * Ci) ** -0.5)
                          .astype(np.float32)).to(dev)
     s = torch.from_numpy(rng.uniform(0.5, 2.0, Co).astype(np.float32)).to(dev)
@@ -537,8 +582,56 @@ def test_band_conv_kernel_matches_plain(dev, dtype, H, W, Ci, Co):
     got = k6.band_conv(x, w, s, b)
     torch.cuda.synchronize()
     assert k6.launches == before + 1
-    assert got.dtype == dtype and got.shape == (2, H, W, Co)
+    assert got.dtype == dtype and got.shape == (N, H, W, Co)
     _close(got, k6.band_conv_ref(x, w, s, b), k6.TOLERANCE[dtype])
+
+
+def _f32_tile_rows(N, H, W, Co):
+    """The float32 route's tile rows and work items for a shape, as stated
+    here independently of the library: CTAs of 4 warps (8 at Co over 32)
+    over COG = the fewest groups of 8 output channels (at most 8), a warp 4
+    rows of one group (16 / COG tile rows, at least 4), or 2 rows where
+    that gives fewer work items (tile, pass) than two a SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cog = next(g for g in (1, 2, 4, 8) if 8 * g >= Co or g == 8)
+
+    def items(r):
+        return N * -(-H // r) * -(-W // 64) * -(-Co // (8 * cog))
+
+    rows = max(4, 16 // cog)
+    if items(rows) < 2 * sms:
+        rows //= 2
+    return rows, items(rows)
+
+
+@pytest.mark.parametrize("shape,copy", [
+    # the pipeline's float32 layers at B4: conv0.0 (Ci 3, Co 8), conv1.x
+    # (16), conv2.x (32); Co 72 loops over two passes of 64, Ci 20 over 3
+    # units; Reg2D.conv0 stage 1 of one pipeline view (few tiles of 32 rows:
+    # shorter tiles); odd Ci takes 4-byte cp.async
+    ((16, 512, 640, 3, 8), "tma 3d"),
+    ((16, 256, 320, 16, 16), "tma 4d"),
+    ((16, 128, 160, 32, 32), "tma 4d"),
+    ((4, 128, 160, 32, 32), "tma 4d"),
+    ((2, 21, 35, 20, 72), "tma 4d"),
+    ((8, 64, 80, 8, 8), "tma 4d"),
+    ((2, 37, 97, 16, 16), "tma 4d"),
+    ((2, 37, 97, 5, 7), "cp.async"),
+])
+def test_band_conv_plan_names_the_float32_launch_shape(dev, shape, copy):
+    """``band_conv.plan`` names the float32 launch the library chooses: the
+    fewest 8-channel groups that cover Co (at most 8 a pass), the tile rows
+    of ``_f32_tile_rows`` by 64 columns, 4 or 8 input channels a staged
+    unit, the work items and units counted from the shape, and the copy
+    mode (TMA at Ci % 4 == 0 and at Ci <= 3 with W*Ci % 4 == 0, else
+    cp.async)."""
+    N, H, W, Ci, Co = shape
+    cog = next(g for g in (1, 2, 4, 8) if 8 * g >= Co or g == 8)
+    cic = 4 if cog == 1 else 8
+    rows, items = _f32_tile_rows(N, H, W, Co)
+    assert k6.plan(*shape, torch.float32) == (
+        f"float32 cog {cog} tile {rows}x64 ci/unit {cic} items {items} "
+        f"units {items * -(-Ci // cic)} copy {copy}")
 
 
 def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
