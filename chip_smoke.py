@@ -79,14 +79,25 @@
    and ``--mode profile`` (a Chrome trace); the counters are set to 0 before
    each part and read after it (per train step K4 16, K3 16, K2 6, K6 0; per
    validation batch K1 16, K2 3, K5 4, K6 12).
+10. Drives every model variant (``checks.VARIANTS``: the flagship with one
+   change, pos-enc sine and learned, reg3d, the CAM/DCAM/PAM/PDAM mid
+   blocks, GroupNorm, ASFF, the two ConvNeXt pyramids, DCN heads with
+   BatchNorm and with GroupNorm; ``drive_variants``): per variant, the
+   counters set to 0 just before one B4 V4 512x640 bf16 eval forward and
+   read just after, held to its launches (K1 12, K2 3, K5 4, K6 from the
+   route rule over its layers, ``_k6_launches``), three rounds of five
+   timed forwards and one profiled; the same around one DTU train step
+   (K4 16, K3 16, K2 6, K6 0) and three timed steps; then the small
+   float32 forward and train step against the CPU. K6's rows also hold
+   ASFF's ``expand`` convs (sets ``asff_eval``, ``asff_eval_float32``).
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
 one forward by kernel), a ``forward`` line, a ``forward_other_widths``
 line, a ``chain_backward`` line, a ``small_train_step`` line, a
 ``small_train_step_other_width`` line, a ``train`` line, a ``train_profile`` line, a
-``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line and a
-``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
+``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line, a
+``variant`` line per variant, a ``variants`` line and a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
 non-zero and prints no result.
 """
@@ -166,20 +177,51 @@ def _band_conv_layers(b):
     )
 
 
+def _asff_band_conv_layers(b):
+    """ASFF's ``expand`` conv + BatchNorm + ReLU per stage, at the stage's
+    resolution and width (64, 32, 16, 8 at FPN base 8), the views folded
+    into the batch: one layer per forward each."""
+    return tuple((f"ASFF.expand stage{s + 1}", b * V, H >> (3 - s), W >> (3 - s),
+                  64 >> s, 64 >> s, 1) for s in range(4))
+
+
 # K6's row sets: (set, batch, dtype); the B4 eval forward in both dtypes and
-# one view of the float32 pipeline (B1)
+# one view of the float32 pipeline (B1); ASFF's rows at B4 make the sets
+# asff_eval and asff_eval_float32
 BAND_CONV_SETS = (("eval_float32", B, "float32"), ("eval", B, "bfloat16"),
                   ("pipeline_float32", 1, "float32"))
 
 
-def _k6_launches(dtype) -> int:
-    """K6's launches per eval forward of the flagship model (FPN base 8) in
-    ``dtype``: the layers of ``_band_conv_layers(B)`` on its route."""
+def _variant_k6_layers(b, variant):
+    """The 3x3 stride-1 conv + BatchNorm + ReLU layers of an eval forward
+    of the flagship model with the ``variant``'s fields (``checks.
+    VARIANTS``), rows as ``_band_conv_layers``: the stem's where it is
+    BatchNorm (all of FPN4's, the ConvNeXt pyramids' two ``conv0``),
+    Reg2D.conv0 with reg2d, ASFF's ``expand`` with asff."""
+    convnext = variant.get("arch_mode", "fpn") != "fpn"
+    rows = []
+    for row in _band_conv_layers(b):
+        if row[0].startswith("stem"):
+            if variant.get("gn") or (convnext and not row[0].startswith("stem conv0")):
+                continue
+        elif variant.get("reg_mode", "reg2d") != "reg2d":
+            continue
+        rows.append(row)
+    if variant.get("asff"):
+        rows += _asff_band_conv_layers(b)
+    return rows
+
+
+def _k6_launches(dtype, variant=None) -> int:
+    """K6's launches per eval forward of the flagship model (FPN base 8),
+    or of its ``variant``, in ``dtype``: the layers of
+    ``_variant_k6_layers(B, variant)`` on its route
+    (``models/layers.band_conv_route``)."""
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
         band_conv_route,
     )
 
-    return sum(n for _, _, _, _, ci, co, n in _band_conv_layers(B)
+    return sum(n for _, _, _, _, ci, co, n in _variant_k6_layers(B, variant or {})
                if band_conv_route(ci, co, dtype))
 
 
@@ -591,7 +633,10 @@ def check_band_conv(dev):
     rows = []
     for row_set, batch, dtype_name in BAND_CONV_SETS:
         dtype = getattr(torch, dtype_name)
-        for name, n, h, w, ci, co, layers in _band_conv_layers(batch):
+        layers_of = [(row_set, r) for r in _band_conv_layers(batch)]
+        if row_set.startswith("eval"):
+            layers_of += [(f"asff_{row_set}", r) for r in _asff_band_conv_layers(batch)]
+        for rset, (name, n, h, w, ci, co, layers) in layers_of:
             per_run = layers if band_conv_route(ci, co, dtype) else 0
             args, bn = _band_conv_args(dev, gen, n, h, w, ci, co, dtype)
             x, wt, scale, bias = args
@@ -615,7 +660,7 @@ def check_band_conv(dev):
                         lambda a=args: k6.band_conv(*a), lambda a=args: k6.band_conv_ref(*a),
                         nbytes, 2 * n * h * w * co * 9 * ci,
                         BF16_TENSOR_FLOPS if is_bf16 else FP32_FLOPS, run_library,
-                        run_unfused, row_set=row_set, timed=True, layers=layers,
+                        run_unfused, row_set=rset, timed=True, layers=layers,
                         instance=k6.plan(n, h, w, ci, co, dtype))
             rows[-1]["layer"] = name
     return rows
@@ -976,6 +1021,115 @@ def drive_pipeline(dev, counters, kernels):
     }, counts
 
 
+def drive_variants(dev, batch, train_batch, counters, kernels):
+    """Every model variant of ``checks.VARIANTS`` (the flagship with one
+    change) on the card, one JSON line each:
+
+    1. the eval forward at B4 V4 512x640 bf16 (weights and BatchNorm
+       statistics from ``checks.seeded_model``): the counters set to 0 just
+       before one forward and read just after, held to the variant's
+       launches (K1 12, K2 3, K5 4, K6 by ``_k6_launches``); finite depth of
+       the expected shape; three rounds of five timed forwards, the peak
+       memory, and the device time of one forward by ``profile_run``;
+    2. the DTU train step (B6 V5 512x640 bf16, recipe loss, Adam): the
+       counters around one step, held to ``TRAIN_LAUNCHES``; a finite,
+       present gradient on every parameter; a warm-up step and three timed
+       steps, the peak memory;
+    3. the small float32 checks against the CPU: ``checks.check_forward``
+       and ``checks.check_train_step`` with the variant.
+
+    Returns the launches of each kernel summed over the counted forwards
+    and steps."""
+    import dataclasses
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    totals = {name: 0 for name in counters}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in counters.items()}
+        for name, n in counts.items():
+            totals[name] += n
+        return out, counts
+
+    for name, variant in checks.VARIANTS:
+        cfg = dataclasses.replace(_dtu_model_config(), **variant)
+        want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant)}
+        model = checks.seeded_model(cfg, SEED, dev)
+        with torch.inference_mode():
+            model(*args)                                       # warm-up
+            out, counts = counted(lambda: model(*args))        # the variant's path
+            if counts != want:
+                raise AssertionError(f"{name}: launches per forward {counts}, want {want}")
+            depth = out["stage4"]["depth"]
+            if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
+                raise AssertionError(f"{name}: stage-4 depth {tuple(depth.shape)} not "
+                                     "finite/shaped")
+            del out, depth
+            torch.cuda.reset_peak_memory_stats()
+            round_ms = [_time_ms(lambda: model(*args), 5) for _ in range(3)]
+            eval_peak = torch.cuda.max_memory_allocated() / 1e9
+            prof = profile_run(lambda: model(*args), {
+                k: (f"{k}_kernel",) for k in kernels}, CONV_LIBRARY)
+        del model
+        torch.cuda.empty_cache()
+
+        model = MVS4Net(cfg, device=dev, generator=torch.Generator().manual_seed(SEED + 5))
+        step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
+                               lambda i: 1e-3)
+        torch.cuda.reset_peak_memory_stats()
+        scalars, train_counts = counted(lambda: step(train_batch))   # the variant's path
+        if train_counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"{name}: launches per train step {train_counts}, "
+                                 f"want {TRAIN_LAUNCHES}")
+        for pname, p in model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"{name} {pname}: gradient missing or not finite")
+        losses = [scalars["loss"].item(), step(train_batch)["loss"].item()]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        timed = [step(train_batch)["loss"] for _ in range(3)]
+        end.record()
+        end.synchronize()
+        losses += [x.item() for x in timed]
+        if not all(x == x and abs(x) != float("inf") for x in losses):
+            raise AssertionError(f"{name}: train losses not finite: {losses}")
+        train_peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, step, scalars
+        torch.cuda.empty_cache()
+
+        print(json.dumps({"variant": {
+            "name": name, "fields": variant,
+            "eval": {"B": B, "V": V, "H": H, "W": W, "dtype": "bfloat16",
+                     "ms_per_forward": sorted(round_ms)[1], "ms_per_forward_rounds": round_ms,
+                     "device_ms": prof["device_ms"],
+                     "device_busy_share": prof["device_busy_share"],
+                     "top": prof["top"][:5], "launches_per_forward": counts,
+                     "peak_memory_gb": eval_peak},
+            "train": {"B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
+                      "ms_per_step": start.elapsed_time(end) / 3, "loss_per_step": losses,
+                      "launches_per_step": train_counts, "peak_memory_gb": train_peak},
+            "small_forward_vs_cpu_float32": checks.check_forward(dev, seed=SEED + 1,
+                                                                 variant=variant),
+            "small_train_step_vs_cpu_float32": checks.check_train_step(dev, variant=variant),
+        }}), flush=True)
+    return totals
+
+
 def _read_records(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
@@ -1245,6 +1399,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cli = drive_train_cli(counters)
     print(json.dumps({"train_cli": train_cli}))
+    torch.cuda.empty_cache()
+    batch = _scene(B, V, H, W, dev)
+    train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
+    t0 = time.perf_counter()
+    variant_counts = drive_variants(dev, batch, train_batch, counters, kernels)
+    print(json.dumps({"variants": {"count": len(checks.VARIANTS),
+                                   "wall_s": time.perf_counter() - t0,
+                                   "launches": variant_counts}}))
+    del batch, train_batch
 
     kernel_line = []
     for name, src, replaces, also_serves, row_set in (
@@ -1266,9 +1429,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": f"{JAX_PKG_OPS}/{replaces}",
             "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
-            "launches": counts[name] + train_counts[name] + pipeline_counts[name],
+            "launches": (counts[name] + train_counts[name] + pipeline_counts[name]
+                         + variant_counts[name]),
             "launches_eval": counts[name], "launches_train": train_counts[name],
             "launches_pipeline": pipeline_counts[name],
+            "launches_variants": variant_counts[name],
             "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
             "timed_per": "eval forward" if row_set == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
@@ -1302,6 +1467,10 @@ def main() -> int:
             # the pipeline (B1)
             entry["float32_forward"] = sums["eval_float32"]
             entry["pipeline_float32_view"] = sums["pipeline_float32"]
+            # ASFF's expand convs (the asff variant's forward; float32: the
+            # layers its route takes)
+            entry["asff_expand"] = sums["asff_eval"]
+            entry["asff_expand_float32"] = sums["asff_eval_float32"]
         if name == "attn_fuse":
             # one view of the float32 pipeline (B1), and the workspace
             # kernel's rows (per call of each K5_WORKSPACE shape)

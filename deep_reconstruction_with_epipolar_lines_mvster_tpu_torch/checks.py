@@ -36,6 +36,14 @@ correlation and K3 make them) and the parameters of the top-down chain
 (K2's backward) and of the mono decoder. The weights of the stem and of the
 Reg2D nets, which no kernel of the port differentiates, are held to a
 limit that a lost, doubled or sign-flipped gradient breaks.
+
+The model variants (``variant``: ``ModelConfig`` fields) take the same
+checks. ASFF's weights are ill-conditioned as the stem's are, and with ASFF
+the pyramid's outputs become cuts as well: their gradients come back
+through ASFF's ReLUs and train-mode BatchNorm, so the device takes the
+CPU's there and they are held to the loose limit. The card also starts from
+parameters that a trained network would hold (``seeded_params``): a
+ConvNeXt layer scale of order 1, DCN offsets between pixels.
 """
 
 from __future__ import annotations
@@ -66,8 +74,27 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_EACH = 1e-3
 TRAIN_GRAD_ILL_EACH = 0.5
 
-# parameters whose float32 gradient is ill-conditioned (see above)
-ILL_CONDITIONED = ("feature.conv", "reg.")
+# parameters whose float32 gradient is ill-conditioned (see above; ASFF's
+# as the stem's)
+ILL_CONDITIONED = ("feature.conv", "reg.", "asff.")
+
+# the model variants, each the flagship with the ``ModelConfig`` fields
+# given changed: the variants of ``MVS4Net`` that the JAX package builds
+VARIANTS = (
+    ("pos_enc_sine", {"pos_enc": 1}),
+    ("pos_enc_learned", {"pos_enc": 2}),
+    ("reg3d", {"reg_mode": "reg3d"}),
+    ("agg_cam", {"agg_type": "ConvBnReLU3D_CAM"}),
+    ("agg_dcam", {"agg_type": "ConvBnReLU3D_DCAM"}),
+    ("agg_pam", {"agg_type": "ConvBnReLU3D_PAM"}),
+    ("agg_pdam", {"agg_type": "ConvBnReLU3D_PDAM"}),
+    ("gn", {"gn": True}),
+    ("asff", {"asff": True}),
+    ("fpn_convnext", {"arch_mode": "fpn_convnext"}),
+    ("fpn_convnext4", {"arch_mode": "fpn_convnext4"}),
+    ("dcn", {"dcn": True}),
+    ("gn_dcn", {"gn": True, "dcn": True}),
+)
 
 # the DTU recipe's loss (scripts/train_dtu.sh: --l1ce_lw 0.003,1, mono,
 # inverse depth, 3 Sinkhorn iterations)
@@ -154,15 +181,20 @@ def check_chain_backward(leaves, grads) -> Dict[str, object]:
 
 
 def small_step_model(seed: int = 3, perturb: float = 0.0, perturb_seed: int = 0,
-                     base: int = 8, group_cor_dim=(8, 8, 4, 4)):
-    """The flagship configuration in float32 on the CPU, weights drawn from
-    ``seed``, at FPN base ``base`` and ``group_cor_dim``; ``perturb`` moves
-    every weight by that relative amount (normal, from ``perturb_seed``)."""
+                     base: int = 8, group_cor_dim=(8, 8, 4, 4),
+                     variant: Optional[Dict[str, object]] = None):
+    """The flagship configuration in float32 on the CPU, with the
+    ``ModelConfig`` fields of ``variant`` changed, weights drawn from
+    ``seed`` (``seeded_params``), at FPN base ``base`` and
+    ``group_cor_dim``; ``perturb`` moves every weight by that relative
+    amount (normal, from ``perturb_seed``)."""
     from .models import MVS4Net
 
     cfg = ModelConfig(group_cor=True, group_cor_dim=tuple(group_cor_dim), inverse_depth=True,
-                      mono=True, attn_temp=2.0, dtype="float32", fpn_base_channel=base)
-    model = MVS4Net(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+                      mono=True, attn_temp=2.0, dtype="float32", fpn_base_channel=base,
+                      **(variant or {}))
+    gen = torch.Generator().manual_seed(seed)
+    model = seeded_params(MVS4Net(cfg, device="cpu", generator=gen), gen)
     if perturb:
         gen = torch.Generator().manual_seed(perturb_seed)
         with torch.no_grad():
@@ -191,8 +223,8 @@ def train_step_grads(model, batch, pin: Optional[Dict[str, list]] = None):
     from .models import mvs4net as net
     from .train.step import make_optimizer, make_train_step
 
-    seen: Dict[str, list] = {"hypo": [], "cuts": []}
     acts: Dict[str, torch.Tensor] = {}
+    seen: Dict[str, object] = {"hypo": [], "cuts": [], "acts": acts}
 
     def pinned(schedule):
         def fn(*args, **kwargs):
@@ -213,8 +245,19 @@ def train_step_grads(model, batch, pin: Optional[Dict[str, list]] = None):
 
         t.register_hook(swap)
 
+    # with ASFF, the pyramid's outputs are cuts too: ASFF's ReLUs and
+    # train-mode BatchNorm over small grids stand between them and the
+    # stage features, as the stem's stand before them
+    feature_cut = getattr(model, "asff", None) is not None
+
     def keep(name, t):
-        t.register_hook(lambda g: acts.__setitem__(name, g.detach().float().cpu()))
+        def swap(g):
+            acts[name] = g.detach().float().cpu()
+            if feature_cut and pin is not None:
+                return pin["acts"][name].to(g.device, g.dtype)
+            return None
+
+        t.register_hook(swap)
 
     hooks = [reg.register_forward_hook(lambda m, i, o: cut(i[0])) for reg in model.reg]
     hooks.append(model.mono_depth_decoder.register_forward_hook(
@@ -234,7 +277,7 @@ def train_step_grads(model, batch, pin: Optional[Dict[str, list]] = None):
     # a parameter that autograd never reached reads as a zero gradient
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
              for n, p in model.named_parameters()}
-    return {"loss": loss, "grads": grads, "acts": acts, "seen": seen}
+    return {"loss": loss, "grads": grads, "acts": acts, "seen": seen, "feature_cut": feature_cut}
 
 
 def grad_gaps(want: Dict[str, torch.Tensor], got: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -247,13 +290,20 @@ def grad_gaps(want: Dict[str, torch.Tensor], got: Dict[str, torch.Tensor]) -> Di
 
 def train_step_gaps(cpu: Dict, dev: Dict) -> Dict[str, Dict[str, float]]:
     """The gaps of run ``dev`` from run ``cpu``, by group: ``acts`` (the
-    FPN outputs' gradients), ``kernel_fed`` (the top-down chain's and the
-    mono decoder's parameters), ``ill`` (the stem's and the Reg2D nets')."""
+    FPN outputs' gradients), ``kernel_fed`` (the top-down chain's, the mono
+    decoder's and the other variants' parameters), ``ill`` (the stem's, the
+    regularizers' and ASFF's, and, where the pyramid's outputs are cuts,
+    their gradients)."""
     gaps = grad_gaps(cpu["grads"], dev["grads"])
+    acts = grad_gaps(cpu["acts"], dev["acts"])
+    ill = {n: v for n, v in gaps.items() if n.startswith(ILL_CONDITIONED)}
+    if cpu["feature_cut"]:
+        ill.update({f"{n} (pyramid output)": v for n, v in acts.items()})
+        return {"kernel_fed": {n: v for n, v in gaps.items() if n not in ill}, "ill": ill}
     return {
-        "acts": grad_gaps(cpu["acts"], dev["acts"]),
-        "kernel_fed": {n: v for n, v in gaps.items() if not n.startswith(ILL_CONDITIONED)},
-        "ill": {n: v for n, v in gaps.items() if n.startswith(ILL_CONDITIONED)},
+        "acts": acts,
+        "kernel_fed": {n: v for n, v in gaps.items() if n not in ill},
+        "ill": ill,
     }
 
 
@@ -283,15 +333,15 @@ def compare_train_step(cpu: Dict, dev: Dict, what: str = "device") -> Dict[str, 
     return out
 
 
-def check_train_step(device, seed: int = 3, base: int = 8,
-                     group_cor_dim=(8, 8, 4, 4)) -> Dict[str, object]:
+def check_train_step(device, seed: int = 3, base: int = 8, group_cor_dim=(8, 8, 4, 4),
+                     variant: Optional[Dict[str, object]] = None) -> Dict[str, object]:
     """One float32 train step of ``small_step_model(seed, base=base,
-    group_cor_dim=group_cor_dim)`` on ``small_step_batch`` on ``device``,
-    pinned to the same step on the CPU and held to it by
+    group_cor_dim=group_cor_dim, variant=variant)`` on ``small_step_batch``
+    on ``device``, pinned to the same step on the CPU and held to it by
     ``compare_train_step``; ``device`` is set up by ``config.setup_device``
     (TF32 off)."""
     device = setup_device(device)
-    kw = {"base": base, "group_cor_dim": group_cor_dim}
+    kw = {"base": base, "group_cor_dim": group_cor_dim, "variant": variant}
     cpu = train_step_grads(small_step_model(seed, **kw), small_step_batch("cpu"))
     dev = train_step_grads(small_step_model(seed, **kw).to(device), small_step_batch(device),
                            pin=cpu["seen"])
@@ -308,9 +358,11 @@ FORWARD_DEPTH_AGREEMENT = 0.99
 
 
 def check_forward(device, base: int = 8, group_cor_dim=(8, 8, 4, 4), seed: int = 1,
-                  hw=(64, 128), views: int = 3) -> Dict[str, object]:
+                  hw=(64, 128), views: int = 3,
+                  variant: Optional[Dict[str, object]] = None) -> Dict[str, object]:
     """The float32 eval forward of the flagship model (group correlation,
-    inverse depth, attn_temp 2, mono) at FPN base ``base`` and
+    inverse depth, attn_temp 2, mono), with the ``ModelConfig`` fields of
+    ``variant`` changed, at FPN base ``base`` and
     ``group_cor_dim``, weights and BatchNorm statistics from ``seed``
     (``seeded_model``), on a plane scene of ``views`` views at ``hw``, on
     ``device`` (``config.setup_device``) against the CPU: per stage the
@@ -320,7 +372,8 @@ def check_forward(device, base: int = 8, group_cor_dim=(8, 8, 4, 4), seed: int =
 
     device = setup_device(device)
     cfg = ModelConfig(group_cor=True, group_cor_dim=tuple(group_cor_dim), inverse_depth=True,
-                      mono=True, attn_temp=2.0, dtype="float32", fpn_base_channel=base)
+                      mono=True, attn_temp=2.0, dtype="float32", fpn_base_channel=base,
+                      **(variant or {}))
     scene = batch_samples([make_plane_scene(V=views, H=hw[0], W=hw[1], seed=0)])
     outs = []
     for dev in ("cpu", device):
@@ -339,7 +392,8 @@ def check_forward(device, base: int = 8, group_cor_dim=(8, 8, 4, 4), seed: int =
         attn = (g["attn_weight"] - w["attn_weight"]).abs().max().item()
         same = torch.isclose(g["depth"], w["depth"], rtol=1e-5, atol=0).float().mean().item()
         if attn > FORWARD_ATTN_ATOL or same < FORWARD_DEPTH_AGREEMENT:
-            raise AssertionError(f"base {base} {tuple(group_cor_dim)} stage{s} on {device}: "
+            raise AssertionError(f"base {base} {tuple(group_cor_dim)} {variant or ''} stage{s} "
+                                 f"on {device}: "
                                  f"attn diff {attn}, depth agreement {same}")
         worst[f"stage{s}"] = {"attn_max_abs_diff": attn, "depth_agreement": same}
     return {"base": base, "group_cor_dim": list(group_cor_dim), **worst}
@@ -391,21 +445,44 @@ def eval_dtu_config(dtype: str = "float32") -> ModelConfig:
                        dtype=dtype)
 
 
-def seeded_model(cfg: ModelConfig, seed: int, device):
-    """``MVS4Net(cfg)`` with weights drawn from ``seed`` and its BatchNorm
-    affine parameters and running statistics drawn away from identity (as
-    a trained network's are), built on the CPU and moved to ``device``."""
-    from .models import MVS4Net
-    from .models.layers import TorchBatchNorm
+def seeded_params(model, gen: torch.Generator):
+    """``model`` with the parameters that start at a constant drawn from
+    ``gen`` instead, as a trained network's are: the ConvNeXt blocks'
+    layer scale ``gamma`` in [0.5, 1] (at its initial 1e-6 every pyramid
+    output is ~1e-6, and the argmax over near-equal scores breaks by
+    rounding), and the DCN heads' offset convs at a fraction of a pixel (at
+    zero every tap sits on a pixel centre)."""
+    from .models.fpn import ConvNeXtBlock, DeformConv2d
 
-    gen = torch.Generator().manual_seed(seed)
-    model = MVS4Net(cfg, device="cpu", generator=gen)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, TorchBatchNorm):
+            if isinstance(m, ConvNeXtBlock):
+                m.gamma.copy_(torch.rand(m.gamma.shape, generator=gen) * 0.5 + 0.5)
+            if isinstance(m, DeformConv2d):
+                w, b = m.conv_offset.weight, m.conv_offset.bias
+                fan_in = w[0].numel()
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.3 * fan_in ** -0.5)
+                b.copy_(torch.randn(b.shape, generator=gen) * 0.3)
+    return model
+
+
+def seeded_model(cfg: ModelConfig, seed: int, device):
+    """``MVS4Net(cfg)`` with weights drawn from ``seed`` (``seeded_params``)
+    and its BatchNorm, GroupNorm and LayerNorm affine parameters and
+    running statistics drawn away from identity (as a trained network's
+    are), built on the CPU and moved to ``device``."""
+    from .models import MVS4Net
+    from .models.layers import GroupNorm, LayerNorm, TorchBatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    model = seeded_params(MVS4Net(cfg, device="cpu", generator=gen), gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (TorchBatchNorm, GroupNorm, LayerNorm)):
                 c = m.weight.shape[0]
                 m.weight.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
                 m.bias.copy_(torch.randn(c, generator=gen) * 0.2)
+            if isinstance(m, TorchBatchNorm):
                 m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
                 m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
     return model.to(device)

@@ -1,9 +1,21 @@
 """MVS4Net, the 4-stage cascaded MVSTER network: eval and train forward.
 
 Counterpart of the JAX package's ``models/mvs4net.py`` (reference
-``models/MVS4Net.py:16-193``) for ``arch_mode="fpn"``, ``reg_mode="reg2d"``
-with ``ConvBnReLU3D`` mid blocks, and no asff/dcn/pos-enc/GroupNorm. The
-FPN runs once over all views folded into the batch; stages are unrolled.
+``models/MVS4Net.py:16-193``), with every variant it builds:
+
+- ``arch_mode``: ``fpn`` (``FPN4``), ``fpn_convnext`` or ``fpn_convnext4``
+  (``FPN4ConvNeXt``); any other raises ``ValueError``;
+- ``gn``: GroupNorm in the pyramid's stem and DCN heads; ``dcn``: the
+  deformable-conv heads on the pyramid's outputs;
+- ``asff``: each stage's features fused from all four levels (``ASFF``);
+- ``reg_mode``: ``reg2d`` (``Reg2D``, its mid blocks by ``agg_type``, an
+  unknown one raising ``KeyError``), anything else ``Reg3D``;
+- ``pos_enc``: 1 (sine) or 2 (learned) adds an encoding of the stage's
+  hypotheses to its cost volume before the regularizer, as the JAX package
+  does (the reference parses the flag and drops it).
+
+The pyramid, and ASFF, run once over all views folded into the batch;
+stages are unrolled.
 
 Inputs (the reference sample spec, as tensors on the model's device):
   imgs            [B, V, H, W, 3]
@@ -34,26 +46,21 @@ from ..core.hypothesis import (
     schedule_inverse_range,
     schedule_range,
 )
-from .fpn import FPN4
+from .fpn import ASFF, FPN4, FPN4ConvNeXt
 from .layers import ConvWeight
 from .mono import MonoDepthDecoder
-from .reg import Reg2D
+from .posenc import PosEncLearned, PosEncSine
+from .reg import REG3D_DOWN_SIZE, Reg2D, Reg3D
 from .stagenet import run_stage
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = {
-        "arch_mode": cfg.arch_mode != "fpn",
-        "reg_mode": cfg.reg_mode != "reg2d",
-        "agg_type": cfg.agg_type != "ConvBnReLU3D",
-        "dcn": cfg.dcn,
-        "asff": cfg.asff,
-        "pos_enc": cfg.pos_enc != 0,
-        "gn": cfg.gn,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"MVS4Net port: unsupported config fields {bad}")
+def _backbone(cfg: ModelConfig) -> nn.Module:
+    b, gn, dcn = cfg.fpn_base_channel, cfg.gn, cfg.dcn
+    if cfg.arch_mode == "fpn":
+        return FPN4(b, gn, dcn)
+    if cfg.arch_mode in ("fpn_convnext", "fpn_convnext4"):
+        return FPN4ConvNeXt(b, gn, dcn, patchify=cfg.arch_mode == "fpn_convnext4")
+    raise ValueError(f"unknown arch_mode {cfg.arch_mode!r}")
 
 
 class MVS4Net(nn.Module):
@@ -64,15 +71,26 @@ class MVS4Net(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.feature = FPN4(cfg.fpn_base_channel)
+        self.feature = _backbone(cfg)
+        stages = range(cfg.num_stages)
+        if cfg.asff:
+            self.asff = nn.ModuleList(ASFF(s, cfg.fpn_base_channel) for s in stages)
         in_ch = cfg.group_cor_dim if cfg.group_cor else cfg.fpn_out_channels
-        self.reg = nn.ModuleList(
-            Reg2D(in_ch[s], cfg.reg_channel, cfg.ndepths[s])
-            for s in range(cfg.num_stages)
-        )
+        if cfg.reg_mode == "reg2d":
+            self.reg = nn.ModuleList(
+                Reg2D(in_ch[s], cfg.reg_channel, cfg.ndepths[s], cfg.agg_type) for s in stages)
+        else:
+            self.reg = nn.ModuleList(
+                Reg3D(in_ch[s], cfg.reg_channel, REG3D_DOWN_SIZE[s], cfg.ndepths[s])
+                for s in stages)
+        if cfg.pos_enc == 1:
+            self.pos_enc = nn.ModuleList(PosEncSine() for _ in stages)
+        elif cfg.pos_enc == 2:
+            self.pos_enc = nn.ModuleList(PosEncLearned(cfg.ndepths[s], in_ch[s]) for s in stages)
+        else:
+            self.pos_enc = None
         if cfg.mono:
             self.mono_depth_decoder = MonoDepthDecoder(
                 cfg.fpn_out_channels[: cfg.num_stages], cfg.mono_stg_itrpl
@@ -80,7 +98,7 @@ class MVS4Net(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
-            if isinstance(m, ConvWeight):
+            if isinstance(m, (ConvWeight, PosEncLearned)):
                 m.reset_parameters(generator)
         self.eval()
         self.to(dev)
@@ -95,8 +113,10 @@ class MVS4Net(nn.Module):
         train = self.training
         B, V, H, W, _ = imgs.shape
         folded = imgs.to(cfg.torch_dtype).reshape(B * V, H, W, imgs.shape[-1])
-        feats = [p.reshape(B, V, *p.shape[1:])
-                 for p in self.feature(folded, view_groups=V)]
+        feats = self.feature(folded, view_groups=V)
+        if cfg.asff:
+            feats = [fuse(feats, view_groups=V) for fuse in self.asff]
+        feats = [p.reshape(B, V, *p.shape[1:]) for p in feats]
         depth_interval = (depth_values[:, -1] - depth_values[:, 0]) / depth_values.shape[1]
 
         outputs: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -117,8 +137,9 @@ class MVS4Net(nn.Module):
                     prev["depth"], cfg.ndepths[s],
                     cfg.depth_inter_r[s] * depth_interval, h, w,
                 )
+            hypo = hypo.float()
             out = run_stage(
-                views, proj_matrices[f"stage{s + 1}"], hypo.float(), self.reg[s],
+                views, proj_matrices[f"stage{s + 1}"], hypo, self._regnet(s, hypo),
                 group_cor=cfg.group_cor,
                 group_dim=cfg.group_cor_dim[s],
                 split_itv=cfg.depth_inter_r[s],
@@ -143,3 +164,17 @@ class MVS4Net(nn.Module):
             for i, md in enumerate(mono_depths):
                 outputs[f"stage{i + 2}"]["mono_depth"] = md
         return outputs
+
+    def _regnet(self, s: int, hypo: torch.Tensor):
+        """Stage ``s``'s regularizer on the folded volume ``[B*D, h, w, C]``,
+        after the positional encoding of ``hypo [B, D, h, w]`` where the
+        configuration has one."""
+        if self.pos_enc is None:
+            return self.reg[s]
+
+        def regnet(vol):
+            B, D, h, w = hypo.shape
+            vol = self.pos_enc[s](vol.reshape(B, D, h, w, -1), hypo).reshape(vol.shape)
+            return self.reg[s](vol)
+
+        return regnet

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import re
+import warnings
 from typing import Optional
 
 import torch
@@ -78,13 +79,23 @@ def load_weights(model, path: str) -> None:
     """Warm start (reference ``--loadckpt``): load the ``model`` state_dict
     of a ``.ckpt`` (the port's, or the reference's; reference
     test_mvs4.py:317) into ``model``, nothing else. Every parameter and
-    buffer of the model must be in it; keys of parts this configuration does
-    not build (e.g. the mono decoder of a ``--mono`` training run) are
-    reported and skipped."""
+    buffer of the model must be in it, but for the learned positional
+    encoding (``--pos_enc 2``, ``pos_enc.*``): the reference's ``--pos_enc``
+    is a dead flag (MVS4Net.py:51-52), so its checkpoints never hold one,
+    and the model keeps its fresh embeddings with a warning, as the JAX
+    package's transplant does. Keys of parts this configuration does not
+    build (e.g. the mono decoder of a ``--mono`` training run) are reported
+    and skipped."""
     blob = torch.load(path, map_location="cpu")
     sd = blob.get("model", blob) if isinstance(blob, dict) else blob
     missing, unexpected = model.load_state_dict(sd, strict=False)
+    fresh = [k for k in missing if k.startswith("pos_enc.")]
+    missing = [k for k in missing if not k.startswith("pos_enc.")]
     if missing:
         raise KeyError(f"{path}: checkpoint lacks {len(missing)} keys, e.g. {missing[:5]}")
+    if fresh:
+        warnings.warn(f"{path}: no learned positional encoding in the checkpoint (the "
+                      f"reference's --pos_enc is a dead flag); {fresh} keep their fresh "
+                      "initialization", stacklevel=2)
     if unexpected:
         print(f"{path}: {len(unexpected)} keys not used by this model, e.g. {unexpected[:3]}")

@@ -792,3 +792,23 @@ def test_small_train_step_at_fpn_base_4_matches_cpu(dev):
     checks.check_train_step(dev, base=4, group_cor_dim=(8, 8, 4, 2))
     assert (k2.launches - before[0], k3.launches - before[1], k4.launches - before[2]) == (
         6, 8, 8)
+
+
+@pytest.mark.parametrize("variant", [v for _, v in checks.VARIANTS],
+                         ids=[name for name, _ in checks.VARIANTS])
+def test_model_variant_matches_cpu(dev, variant):
+    """Every model variant (``checks.VARIANTS``: the flagship with one
+    change) on the card against the CPU, in float32: the eval forward by
+    ``checks.check_forward`` (B1 V3 64x128; K1 8 launches, K2 3, K5 4) and
+    one train step by ``checks.check_train_step`` (K2 6, K3 8, K4 8, K6
+    none), each with its tolerances; in training every parameter, the
+    variant's own included, needs a nonzero gradient."""
+    before = (k1.launches, k2.launches, k5.launches)
+    checks.check_forward(dev, variant=variant)
+    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2]) == (
+        8, 3, 4)
+    before = (k2.launches, k3.launches, k4.launches, k6.launches)
+    checks.check_train_step(dev, variant=variant)
+    assert (k2.launches - before[0], k3.launches - before[1], k4.launches - before[2]) == (
+        6, 8, 8)
+    assert k6.launches == before[3]
