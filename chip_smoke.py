@@ -90,6 +90,25 @@
    (K4 16, K3 16, K2 6, K6 0) and three timed steps; then the small
    float32 forward and train step against the CPU. K6's rows also hold
    ASFF's ``expand`` convs (sets ``asff_eval``, ``asff_eval_float32``).
+11. The row-sharded ``--space`` eval (``drive_space``), on this one card
+   (``parallel.mesh.sharded_eval_forward`` over ``[cuda:0] * S``: the
+   decomposition, not multi-card speed): the B4 V4 512x640 flagship in
+   float32 and bf16 at S 2 and 4, and a Tanks&Temples-sized B1 V5
+   1024x1920 bf16 view at S 4, halo 48; the counters set to 0 just before
+   one sharded forward and read just after (S times the unsharded
+   forward's), every stage held to the unsharded forward
+   (``checks.compare_space``), timed and profiled; K1, K5 and K6 at every
+   window shape against their plain versions (sets
+   ``space_<run>_S<S>_<dtype>``).
+12. Data-parallel training (``drive_ddp``): an NCCL group of one rank, the
+   DTU recipe through ``parallel.mesh.data_parallel`` for each ``dp_impl``
+   against the bare step from the same seed (``checks.check_ddp_step``),
+   the counters around all of it; then ``torchrun --standalone
+   --nproc_per_node 1`` running the train CLI for one epoch.
+13. The debug dumps (``drive_debug``): the eval CLI with ``--debug_model
+   255`` on a 4-view 512x640 scene, on the card (counted: the forwards and
+   K4 for bits 5 and 6) and with ``--device cpu``, the dumps compared
+   (``checks.compare_debug_dumps``).
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
@@ -97,7 +116,9 @@ one forward by kernel), a ``forward`` line, a ``forward_other_widths``
 line, a ``chain_backward`` line, a ``small_train_step`` line, a
 ``small_train_step_other_width`` line, a ``train`` line, a ``train_profile`` line, a
 ``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line, a
-``variant`` line per variant, a ``variants`` line and a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
+``variant`` line per variant, a ``variants`` line, a ``space_kernel_shapes``
+line, a ``space`` line, a ``ddp`` line, a ``debug`` line and a ``kernels``
+line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
 non-zero and prints no result.
 """
@@ -1231,6 +1252,363 @@ def drive_train_cli(counters):
     }
 
 
+# the space phase: (run, B, V, H, W, dtype, shard counts); the flagship
+# eval in both dtypes, and a Tanks&Temples-sized view (1024x1920, 5 views,
+# data/tanks.py) in bf16; the halo is the CLI's default
+SPACE_RUNS = (("flagship", B, V, H, W, "float32", (2, 4)),
+              ("flagship", B, V, H, W, "bfloat16", (2, 4)),
+              ("tanks", 1, 5, 1024, 1920, "bfloat16", (4,)))
+SPACE_HALO = 48
+
+
+def _window_rows(rows, dev, gen, batch, cfg, S, dtype, row_set, stages):
+    """K1, K5 and K6 against their plain versions at the row windows of
+    ``stages`` (the windowed stages of an ``S``-way row-sharded forward of
+    ``batch``), on the window of rank ``S // 2``: K1 with the stage's whole
+    source view, the window's reference features and hypotheses and the
+    reference principal point moved up by the window start; K5 on the
+    window's V-1 volumes; K6 at Reg2D.conv0 of the window. Each row's
+    launches per run are its launches per sharded forward (S windows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry import (
+        relative_projection,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
+        band_conv_route,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.mvs4net import (
+        _row_window,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        attn_fuse as k5,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        band_conv as k6,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        warp_cor as k1,
+    )
+
+    nb, nv, img_h, img_w = batch["imgs"].shape[:4]
+    for s in stages:
+        h, w = img_h >> (3 - s), img_w >> (3 - s)
+        start, ws, _, _ = _row_window(h, S // 2, S, SPACE_HALO)
+        C, G, D = _stage_channels(cfg.fpn_base_channel, s), cfg.group_cor_dim[s], cfg.ndepths[s]
+        projs = batch["proj_matrices"][f"stage{s + 1}"].clone()
+        projs[:, 0, 1, 1, 2] -= start
+        rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+        hypo = _jittered_hypo(batch["depth_values"], D, h, w, gen)[:, :, start:start + ws]
+        hypo = hypo.contiguous()
+        src = torch.randn((nb, h, w, C), generator=gen, device=dev).to(dtype)
+        ref = torch.randn((nb, ws, w, C), generator=gen, device=dev).to(dtype)
+        args = (src, ref, rel, hypo, G)
+        got, want = k1.warp_cor(*args), k1.warp_cor_ref(*args)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in args[:4]) \
+            + got.numel() * got.element_size()
+        _record(rows, "warp_cor", "space", [nb, D, ws, w, C, G], dtype, _max_err(got, want),
+                k1.TOLERANCE[dtype] * _scale(want), S * (nv - 1),
+                lambda a=args: k1.warp_cor(*a), lambda a=args: k1.warp_cor_ref(*a),
+                nbytes, nb * D * ws * w * (28 + 9 * C + G), FP32_FLOPS, row_set=row_set,
+                timed=True, src_rows=h, instance=k1.plan(nb, D, ws, w, C, G, h, w))
+        cors = (torch.randn((nv - 1, nb, D, ws, w, G), generator=gen, device=dev) * 0.5)
+        args5 = (cors.to(dtype), cfg.attn_temp, C)
+        got, want = k5.attn_fuse(*args5), k5.attn_fuse_ref(*args5)
+        torch.cuda.synchronize()
+        _record(rows, "attn_fuse", "space", list(cors.shape), dtype, _max_err(got, want),
+                k5.TOLERANCE[dtype] * _scale(want), S,
+                lambda a=args5: k5.attn_fuse(*a), lambda a=args5: k5.attn_fuse_ref(*a),
+                (cors.numel() + got.numel()) * args5[0].element_size(),
+                (nv - 1) * nb * D * ws * w * (3 * G + 8) + nb * D * ws * w * G, FP32_FLOPS,
+                row_set=row_set, timed=True, instance=k5.plan(nb, D, ws, w, G, dtype))
+        co = cfg.reg_channel
+        args6, _ = _band_conv_args(dev, gen, nb * D, ws, w, G, co, dtype)
+        got, want = k6.band_conv(*args6), k6.band_conv_ref(*args6)
+        torch.cuda.synchronize()
+        x, wt, scale, bias = args6
+        # the library yardstick, as check_band_conv's: F.conv2d on the
+        # folded weight and bias, then relu_
+        w_lib, b_lib = (wt * scale[:, None, None, None]).to(dtype), bias.to(dtype)
+
+        def run_library(x_nchw=x.permute(0, 3, 1, 2), w_lib=w_lib, b_lib=b_lib):
+            return F.conv2d(x_nchw, w_lib, b_lib, 1, 1).relu_()
+
+        with torch.no_grad():
+            _record(rows, "band_conv", "space", [nb * D, ws, w, G, co], dtype,
+                    _max_err(got, want), k6.TOLERANCE[dtype] * _scale(want),
+                    S if band_conv_route(G, co, dtype) else 0,
+                    lambda a=args6: k6.band_conv(*a), lambda a=args6: k6.band_conv_ref(*a),
+                    (x.numel() + got.numel()) * x.element_size() + (wt.numel() + 2 * co) * 4,
+                    2 * nb * D * ws * w * co * 9 * G,
+                    BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS, run_library,
+                    row_set=row_set, timed=True, instance=k6.plan(nb * D, ws, w, G, co, dtype))
+        rows[-1]["layer"] = f"Reg2D.conv0 stage{s + 1} window"
+
+
+def drive_space(dev, counters, rows):
+    """The row-sharded eval (``--space``) on one card: per run of
+    ``SPACE_RUNS``, the unsharded forward counted and timed, then for each
+    shard count S ``parallel.mesh.sharded_eval_forward`` over
+    ``[card] * S`` (the windows' arithmetic, not multi-card speed): the
+    counters set to 0 just before one forward and read just after (S times
+    the unsharded forward's launches), every stage held to the unsharded
+    forward (``checks.compare_space``), ms per forward from the host (the
+    median of three) and between CUDA events (three back to back), the
+    device time of one profiled forward (``profile_run``) and its busy
+    share, peak memory; then K1, K5 and K6 at the window shapes
+    against their plain versions (``_window_rows``, appended to ``rows``).
+    Returns the phase's line and the launches of the counted forwards."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.mvs4net import (
+        _row_window,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
+        sharded_eval_forward,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    totals = {name: 0 for name in counters}
+    runs = []
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in counters.items()}
+        for name, n in counts.items():
+            totals[name] += n
+        return out, counts
+
+    for name, nb, nv, img_h, img_w, dtype_name, shard_counts in SPACE_RUNS:
+        dtype = getattr(torch, dtype_name)
+        cfg = _dtu_model_config(dtype_name)
+        model = checks.seeded_model(cfg, SEED, dev)
+        batch = _scene(nb, nv, img_h, img_w, dev)
+        args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        dv = batch["depth_values"]
+        depth_range = (dv[:, -1] - dv[:, 0]).max().item()
+        with torch.inference_mode():
+            model(*args)
+            want, whole_counts = counted(lambda: model(*args))
+            torch.cuda.reset_peak_memory_stats()
+            whole_ms = _time_ms(lambda: model(*args), 3)
+            whole_peak = torch.cuda.max_memory_allocated() / 1e9
+        for S in shard_counts:
+            fwd = sharded_eval_forward(model, [dev] * S, space=S, space_halo=SPACE_HALO)
+            fwd(*args)                                             # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            got, counts = counted(lambda: fwd(*args))              # the space path
+            expect = {k: S * n for k, n in whole_counts.items()}
+            if counts != expect:
+                raise AssertionError(f"space {name} S{S}: launches {counts}, want {expect}")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            agreement = checks.compare_space(got, want, dtype, depth_range,
+                                             what=f"space {name} {dtype_name} S{S}")
+            del got
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fwd(*args)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            events_ms = _time_ms(lambda: fwd(*args), 3)
+            prof = profile_run(lambda: fwd(*args), {k: (f"{k}_kernel",) for k in counters},
+                               CONV_LIBRARY)
+            stages = [s for s in range(4)
+                      if _row_window(img_h >> (3 - s), 0, S, SPACE_HALO) is not None]
+            windows, copy_bytes = {}, 0
+            elt = torch.finfo(dtype).bits // 8
+            for s in stages:
+                h, w = img_h >> (3 - s), img_w >> (3 - s)
+                ws = _row_window(h, 0, S, SPACE_HALO)[1]
+                windows[f"stage{s + 1}"] = ws
+                C, D = _stage_channels(cfg.fpn_base_channel, s), cfg.ndepths[s]
+                copy_bytes += S * nb * ws * w * (C * elt + D * 4)
+            row_set = f"space_{name}_S{S}_{dtype_name}"
+            _window_rows(rows, dev, gen, batch, cfg, S, dtype, row_set, stages)
+            runs.append({
+                "run": name, "B": nb, "V": nv, "H": img_h, "W": img_w, "dtype": dtype_name,
+                "S": S, "halo": SPACE_HALO, "window_rows": windows,
+                "ms_per_forward_host": sorted(host)[1], "ms_per_forward_events": events_ms,
+                "device_ms": prof["device_ms"], "device_busy_share": prof["device_busy_share"],
+                "kernel_shares": {k: prof[f"share_{k}"] for k in counters},
+                "unsharded_ms_per_forward": whole_ms, "peak_memory_gb": peak,
+                "unsharded_peak_memory_gb": whole_peak,
+                "launches_per_forward": counts, "launches_per_rank":
+                    {k: n / S for k, n in counts.items()},
+                "window_copy_bytes_per_forward": copy_bytes,
+                "vs_unsharded": agreement, "row_set": row_set,
+            })
+        del model, batch, args, want
+        torch.cuda.empty_cache()
+    return {"devices": "one card, [cuda:0] * S", "runs": runs}, totals
+
+
+DP_STEPS = 3
+TORCHRUN_LOGDIR = TRAIN_CLI_LOGDIR + "_torchrun"
+
+
+def drive_ddp(dev, batch, counters):
+    """Data-parallel training on one card: a world of one rank over NCCL
+    (a ``file://`` store in a temporary directory); for each ``dp_impl``,
+    ``checks.check_ddp_step`` on the DTU recipe (B6 V5 512x640 bf16,
+    ``DP_STEPS`` steps against the bare ``TrainStep`` from the same seed,
+    twice, to see the bare step's own run-to-run gap); the counters set to
+    0 before and read after (every step ``TRAIN_LAUNCHES``). Then
+    ``torchrun --standalone --nproc_per_node 1`` runs the train CLI for one
+    epoch on ``synthetic://512x640/12`` (``TRAIN_CLI_FLAGS``), which joins
+    an NCCL group of one rank and trains through ``data_parallel``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import DP_IMPLS
+
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        def make_model():
+            return MVS4Net(_dtu_model_config(), device=dev,
+                           generator=torch.Generator().manual_seed(SEED + 5))
+
+        for mod in counters.values():
+            mod.launches = 0
+        impls = [checks.check_ddp_step(dev, impl, make_model, batch, DP_STEPS)
+                 for impl in DP_IMPLS]
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in counters.items()}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    want = {k: len(DP_IMPLS) * 3 * DP_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"ddp: launches {counts}, want {want}")
+
+    shutil.rmtree(TORCHRUN_LOGDIR, ignore_errors=True)
+    flags = list(TRAIN_CLI_FLAGS)
+    flags[flags.index("--logdir") + 1] = TORCHRUN_LOGDIR
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", f"{PKG}.cli.train", *flags, "--epochs", "1"],
+        capture_output=True, text=True, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"torchrun train CLI rc {res.returncode}: "
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    records = _read_records(os.path.join(TORCHRUN_LOGDIR, "metrics.jsonl"))
+    if [(r["mode"], r["step"]) for r in records] != [
+            ("train", 0), ("train", 1), ("test", 0), ("test", 1), ("fulltest", 2)] \
+            or not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"torchrun train CLI records {records}")
+    for name in os.listdir(TORCHRUN_LOGDIR):
+        if name.endswith(".ckpt"):
+            os.remove(os.path.join(TORCHRUN_LOGDIR, name))
+    return {"world": 1, "backend": "nccl", "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W,
+            "dtype": "bfloat16", "impls": impls, "launches": counts,
+            "torchrun": {"seconds": torchrun_s,
+                         "loss_per_step": [r["loss"] for r in records if r["mode"] == "train"],
+                         "step_ms": [r["step_s"] * 1e3 for r in records
+                                     if r["mode"] == "train"],
+                         "fulltest_loss": records[-1]["loss"]}}, counts
+
+
+def _eval_fixture(root, V, H, W, seed=5):
+    """An eval-layout scene (``--dataset_name dtu``) on disk: a plane
+    scene's rectified images (PNG, Pillow), one cam file per view, the pair
+    file and the test list."""
+    import numpy as np
+    from PIL import Image
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data import io
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
+        make_plane_scene,
+    )
+
+    sc = make_plane_scene(V=V, H=H, W=W, seed=seed)
+    os.makedirs(os.path.join(root, "Rectified_raw", "scan1"))
+    os.makedirs(os.path.join(root, "Cameras"))
+    for v in range(V):
+        Image.fromarray((sc["imgs"][v] * 255).round().astype(np.uint8)).save(
+            os.path.join(root, "Rectified_raw", "scan1", f"rect_{v + 1:0>3}_3_r5000.png"))
+        io.write_cam_file(os.path.join(root, "Cameras", f"{v:0>8}_cam.txt"), sc["extrinsics"][v],
+                          sc["intrinsics"], [425.0, (935.0 - 425.0) / 192])
+    io.write_pair_file(os.path.join(root, "pair.txt"),
+                       [(v, [s for s in range(V) if s != v]) for v in range(V)])
+    with open(os.path.join(root, "test.txt"), "w") as f:
+        f.write("scan1\n")
+
+
+def drive_debug(dev, counters):
+    """The eval CLI with ``--debug_model 255`` at the pipeline's shape
+    (``cli.test.main`` in this process: the scripts/eval_dtu.sh model in
+    float32 with the CLI's seed-0 weights, ``--run_gendepth`` over an
+    eval-layout scene of 4 views at 512x640, ``_eval_fixture``), on the card
+    with the counters set to 0 before and read after (the 4 views' forwards
+    and the dump's: its forward's launches, and K4 for each warped view of
+    bit 5 and each correlation of bit 6), and with ``--device cpu``; the
+    card's dumps held to the CPU's (``checks.compare_debug_dumps``). The
+    scene and the outputs live in a temporary directory (the dumps are
+    hundreds of MB at this size) and are removed."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli import test as eval_cli
+
+    root = tempfile.mkdtemp()
+    try:
+        data = os.path.join(root, "scene")
+        _eval_fixture(data, PIPELINE_V, H, W)
+        flags = ["--dataset=dataloader_eval", "--dataset_name=dtu", "--datapath", data,
+                 "--testlist", os.path.join(data, "test.txt"), "--interval_scale", "1.0",
+                 "--max_h", str(H), "--max_w", str(W), "--num_worker", "0",
+                 "--group_cor", "--group_cor_dim", "8,8,4,4", "--ndepths", "8,8,4,4",
+                 "--depth_inter_r", "0.5,0.5,0.5,1", "--inverse_depth", "--attn_temp", "2",
+                 "--run_gendepth", "--NviewGen", str(PIPELINE_V), "--debug_model", "255"]
+        written, seconds, counts = {}, {}, None
+        for key, extra in (("cpu", ["--device", "cpu"]), ("card", [])):
+            out = os.path.join(root, key)
+            if key == "card":
+                torch.cuda.synchronize()
+                for mod in counters.values():
+                    mod.launches = 0
+            t0 = time.perf_counter()
+            eval_cli.main(flags + ["--outdir", out] + extra)
+            seconds[key] = time.perf_counter() - t0
+            if key == "card":
+                torch.cuda.synchronize()
+                counts = {name: mod.launches for name, mod in counters.items()}
+            written[key] = {os.path.basename(p)[len("eval_scan1_"):-len(".npy")]: p
+                            for p in glob.glob(os.path.join(out, "debug", "eval_scan1_*.npy"))}
+        want = {k: (PIPELINE_V + 1) * n for k, n in PIPELINE_LAUNCHES_PER_VIEW.items()}
+        want["warp_fwd"] += 2 * 4 * (PIPELINE_V - 1)
+        if counts != want:
+            raise AssertionError(f"debug dump: launches {counts}, want {want}")
+        agreement = checks.compare_debug_dumps(written["card"], written["cpu"], str(dev))
+        nbytes = sum(os.path.getsize(p) for p in written["card"].values())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"B": 1, "V": PIPELINE_V, "H": H, "W": W, "dtype": "float32", "bits": 255,
+            "views": PIPELINE_V, "arrays": len(written["card"]), "bytes": nbytes,
+            "cli_seconds": seconds, "launches": counts, "vs_cpu": agreement}, counts
+
+
 def _per_run(rows):
     """Sums over the timed rows of each set, per run of the set's path
     (times the rows' launches per run): the kernel's time back to back from
@@ -1408,6 +1786,26 @@ def main() -> int:
                                    "wall_s": time.perf_counter() - t0,
                                    "launches": variant_counts}}))
     del batch, train_batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    space, space_counts = drive_space(dev, counters, space_rows := [])
+    space["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"space_kernel_shapes": space_rows}))
+    print(json.dumps({"space": space}))
+    rows += space_rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
+    ddp, ddp_counts = drive_ddp(dev, train_batch, counters)
+    ddp["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"ddp": ddp}))
+    del train_batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    debug, debug_counts = drive_debug(dev, counters)
+    debug["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"debug": debug}))
 
     kernel_line = []
     for name, src, replaces, also_serves, row_set in (
@@ -1430,10 +1828,13 @@ def main() -> int:
             "replaces": f"{JAX_PKG_OPS}/{replaces}",
             "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
             "launches": (counts[name] + train_counts[name] + pipeline_counts[name]
-                         + variant_counts[name]),
+                         + variant_counts[name] + space_counts[name] + ddp_counts[name]
+                         + debug_counts[name]),
             "launches_eval": counts[name], "launches_train": train_counts[name],
             "launches_pipeline": pipeline_counts[name],
             "launches_variants": variant_counts[name],
+            "launches_space": space_counts[name], "launches_ddp": ddp_counts[name],
+            "launches_debug": debug_counts[name],
             "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
             "timed_per": "eval forward" if row_set == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
@@ -1478,6 +1879,9 @@ def main() -> int:
             entry["workspace"] = sums["workspace"]
         # the same path at FPN base 4 and 16, through the generic instances
         entry["other_widths"] = {k: v for k, v in sums.items() if "_base" in k}
+        if name in ("warp_cor", "attn_fuse", "band_conv"):
+            # the row windows of the space phase, per sharded forward
+            entry["space_windows"] = {k: v for k, v in sums.items() if k.startswith("space_")}
         kernel_line.append(entry)
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,13 @@ both call these, so that each tolerance is stated once. Every check raises
 - ``check_pipeline``: the eval pipeline (depth maps of every view, the
   consistency filter, the fused point cloud; ``run_pipeline``) on a device
   against the same pipeline on the CPU.
+- ``compare_space``: the row-sharded eval forward (``--space``) against the
+  unsharded forward.
+- ``check_ddp_step``: train steps through ``parallel.mesh.data_parallel``
+  on a world of one rank against the bare ``TrainStep`` from the same seed
+  (bit for bit where the step is deterministic).
+- ``compare_debug_dumps``: the debug dumps (``utils/debug.py``) of a
+  device against the CPU's.
 
 Why the train-step comparison pins two things. The float32 gradient of
 this network is ill-conditioned in two places, on any device: moving every
@@ -565,6 +572,180 @@ def check_pipeline(device) -> Dict[str, object]:
     cpu = run_pipeline(seeded_model(cfg, PIPELINE_CHECK_SEED, "cpu"), ds, "cpu")
     dev = run_pipeline(seeded_model(cfg, PIPELINE_CHECK_SEED, device), ds, device)
     return compare_pipelines(cpu, dev, str(device))
+
+
+# ------------------------------------------------- the row-sharded eval --
+
+# windowed against unsharded, float32: the JAX package's own limits
+# (tests/test_spatial_sharding.py): the depth isclose(rtol 1e-4, atol
+# 1e-2) and the confidence isclose(rtol 1e-3, atol 1e-3) on at least 99.5%
+# of the pixels (an argmax near-tie may flip where the windows' convolutions
+# sum in another order). bf16 is held statistically: the median |depth
+# difference| within 0.5% of the depth range, every depth finite
+SPACE_DEPTH_TOL = (1e-4, 1e-2)
+SPACE_CONF_TOL = (1e-3, 1e-3)
+SPACE_AGREEMENT = 0.995
+SPACE_BF16_MEDIAN = 0.005
+
+
+def compare_space(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor], dtype,
+                  depth_range: float, what: str = "space") -> Dict[str, object]:
+    """Hold the stage outputs ``got`` of a row-sharded forward to the
+    unsharded ``want`` (``{"stage{i}": {"depth", "photometric_confidence",
+    ...}}``): every stage's depth and the last stage's confidence, at the
+    limits above for ``dtype``. Returns the agreements per stage."""
+    out: Dict[str, object] = {}
+    last = sorted(want)[-1]
+    for key in sorted(want):
+        g, w = got[key]["depth"].float().cpu(), want[key]["depth"].float().cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what} {key}: depth {tuple(g.shape)} not finite/shaped")
+        agree = torch.isclose(g, w, rtol=SPACE_DEPTH_TOL[0],
+                              atol=SPACE_DEPTH_TOL[1]).float().mean().item()
+        median = (g - w).abs().median().item()
+        row = {"depth_agreement": agree, "depth_median_abs_diff": median}
+        if dtype == torch.float32 and agree < SPACE_AGREEMENT:
+            raise AssertionError(f"{what} {key}: depth agreement {agree}")
+        if dtype != torch.float32 and median > SPACE_BF16_MEDIAN * depth_range:
+            raise AssertionError(f"{what} {key}: median |depth diff| {median}")
+        if key == last:
+            gc = got[key]["photometric_confidence"].float().cpu()
+            wc = want[key]["photometric_confidence"].float().cpu()
+            both = torch.isfinite(gc) & torch.isfinite(wc)
+            conf = torch.isclose(gc[both], wc[both], rtol=SPACE_CONF_TOL[0],
+                                 atol=SPACE_CONF_TOL[1]).float().mean().item()
+            row["confidence_agreement"] = conf
+            if dtype == torch.float32 and conf < SPACE_AGREEMENT:
+                raise AssertionError(f"{what} {key}: confidence agreement {conf}")
+        out[key] = row
+    return out
+
+
+# ------------------------------------------------ the data-parallel step --
+
+DDP_LR = 1e-3
+# the first step's loss and BatchNorm statistics, data-parallel against
+# bare, relative to max(1, |value|): float32 rounding of another algorithm
+DDP_FIRST_STEP_RTOL = 1e-6
+
+
+def _ddp_run(make_model, batch, steps: int, dp_impl: Optional[str], device):
+    """``steps`` recipe-loss Adam steps (lr ``DDP_LR``, wd 1e-4) of a fresh
+    ``make_model()`` on ``batch``, bare or through ``data_parallel``: the
+    losses, the state after the first step and after the last, and the host
+    ms of each step (to its loss on the host)."""
+    from .parallel.mesh import data_parallel
+    from .train.step import make_optimizer, make_train_step
+
+    model = make_model()
+    step = make_train_step(model, RECIPE_LOSS, make_optimizer(model, 1e-4), lambda i: DDP_LR)
+    if dp_impl is not None:
+        data_parallel(step, dp_impl, device=device)
+    losses, ms, states = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(batch)["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i in (0, steps - 1):
+            states.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+    return {"losses": losses, "first": states[0], "last": states[-1], "ms": ms}
+
+
+def _state_gaps(a, b) -> Dict[str, float]:
+    """The largest gap between two states, in the parameters and in the
+    BatchNorm running statistics, each relative to max(1, max|value|) of
+    its tensor (inf where the BatchNorm update counts differ)."""
+    gaps = {"params": 0.0, "bn_stats": 0.0}
+    for k, v in b.items():
+        if k.endswith("num_batches_tracked"):
+            if not torch.equal(a[k], v):
+                gaps["bn_stats"] = float("inf")
+            continue
+        gap = ((a[k].float() - v.float()).abs().max() / max(1.0, v.abs().max().item())).item()
+        group = "bn_stats" if k.endswith(("running_mean", "running_var")) else "params"
+        gaps[group] = max(gaps[group], gap)
+    return gaps
+
+
+def check_ddp_step(device, dp_impl: str, make_model, batch, steps: int = 3) -> Dict[str, object]:
+    """``steps`` train steps through ``data_parallel(step, dp_impl)`` on a
+    world of one rank (the default process group must exist) against the
+    bare ``TrainStep``, each from a fresh ``make_model()``, twice bare (the
+    bare step's own run-to-run gap: on the card the warp backward K3 sums
+    with float32 atomics, whose order varies from run to run, and the
+    float32 gradient of this network is ill-conditioned):
+
+    - the first step's loss and the BatchNorm running statistics after it
+      (the forward's work, before any update) within ``DDP_FIRST_STEP_RTOL``
+      (bit for bit but for the convolution library's choice of algorithm,
+      which may follow the free memory, and with it the rounding);
+    - the parameters after every step within ``2 * DDP_LR * steps`` of
+      max(1, max|value|) of each tensor: an Adam step moves an entry by
+      about the learning rate whatever its gradient's size, so any
+      difference in the gradients moves it by at most twice that;
+    - the losses finite.
+
+    Returns the gaps (the run-to-run gaps of the bare step beside them) and
+    the host ms per step after the first, of both."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() != 1:
+        raise RuntimeError("check_ddp_step needs a default process group of one rank")
+    bare = _ddp_run(make_model, batch, steps, None, device)
+    again = _ddp_run(make_model, batch, steps, None, device)
+    ddp = _ddp_run(make_model, batch, steps, dp_impl, device)
+    first, last = _state_gaps(ddp["first"], bare["first"]), _state_gaps(ddp["last"], bare["last"])
+    what = f"data_parallel {dp_impl} on {device}"
+    loss_gap = abs(ddp["losses"][0] - bare["losses"][0]) / max(1.0, abs(bare["losses"][0]))
+    if loss_gap > DDP_FIRST_STEP_RTOL or first["bn_stats"] > DDP_FIRST_STEP_RTOL:
+        raise AssertionError(f"{what}: first loss {ddp['losses'][0]} (bare "
+                             f"{bare['losses'][0]}), BatchNorm gap {first['bn_stats']}")
+    if last["params"] > 2 * DDP_LR * steps or not np.isfinite(ddp["losses"]).all():
+        raise AssertionError(f"{what}: parameter gap {last['params']}, losses {ddp['losses']}")
+    return {"dp_impl": dp_impl, "steps": steps,
+            "first_loss_bit_equal": loss_gap == 0, "first_bn_stats_bit_equal":
+                first["bn_stats"] == 0,
+            "gaps_after_first": first, "gaps_after_last": last,
+            "bare_run_to_run_after_first": _state_gaps(again["first"], bare["first"]),
+            "bare_run_to_run_after_last": _state_gaps(again["last"], bare["last"]),
+            "losses": ddp["losses"], "bare_losses": bare["losses"],
+            "bare_again_losses": again["losses"],
+            "ms_per_step": float(np.median(ddp["ms"][1:] or ddp["ms"])),
+            "bare_ms_per_step": float(np.median(bare["ms"][1:] or bare["ms"]))}
+
+
+# --------------------------------------------------------- the debug dumps --
+
+def compare_debug_dumps(got: Dict[str, str], want: Dict[str, str],
+                        what: str = "device") -> Dict[str, object]:
+    """Hold the debug dumps ``got`` (``{name: .npy path}`` of a device) to
+    the CPU's ``want``: the same names and shapes, float32; an element
+    agrees where it is within ``FORWARD_ATTN_ATOL`` of max(1, max|CPU
+    array|). The input and the pyramid's feature maps (before any argmax)
+    agree everywhere, every other array (the regularizers' maps among them)
+    at ``PIPELINE_DEPTH_AGREEMENT`` of its
+    elements (an argmax near-tie moves the next stage's hypotheses, and
+    with them what the later stages compute at that pixel); the logits are
+    held where the attention is above 1e-6."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"debug dumps on {what}: names {sorted(set(got) ^ set(want))}")
+    worst = {"features": 1.0, "stages": 1.0}
+    for name, path in want.items():
+        w, g = np.load(path), np.load(got[name])
+        if g.shape != w.shape or g.dtype != np.float32:
+            raise AssertionError(f"debug {name} on {what}: {g.shape} {g.dtype}, cpu {w.shape}")
+        if name.endswith("attn_logits"):
+            keep = np.exp(w) > 1e-6
+            g, w = g[keep], w[keep]
+        tol = FORWARD_ATTN_ATOL * max(1.0, float(np.abs(w).max()) if w.size else 1.0)
+        share = float((np.abs(g - w) <= tol).mean()) if w.size else 1.0
+        group = ("features" if name.startswith(("feat_", "input"))
+                 and not name.startswith("feat_reg_stage") else "stages")
+        need = 1.0 if group == "features" else PIPELINE_DEPTH_AGREEMENT
+        if share < need:
+            raise AssertionError(f"debug {name} on {what}: {share} of elements agree")
+        worst[group] = min(worst[group], share)
+    return {"arrays": len(want), "agreement_min": worst}
 
 
 def main() -> None:

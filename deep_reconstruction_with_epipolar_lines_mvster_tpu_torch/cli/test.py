@@ -16,16 +16,24 @@ in float32). The TPU layout flags
 (``--warp_impl``, ``--warp_band``, ``--warp_tile_rows``, ``--warp_xband``,
 ``--warp_tile_cols``, ``--pack_conv``, ``--fused_topdown``,
 ``--kernel_coords``, ``--fuse_attn``, ``--d_pack_mids``) are accepted and
-ignored, as ``config.py`` documents. Not ported yet: ``--space`` > 1 (the
-row-sharded eval) and the numeric debug dumps of ``--debug_model``,
-``--debug_depth_gen``, ``--vis_ETA`` and ``--vis_stg_features``; each
-raises when asked for.
+ignored, as ``config.py`` documents.
+
+``--space S`` row-shards each forward over the cards ``cuda:0`` ..
+``cuda:S-1`` (``eval/depthgen.make_eval_forward``: one process, one model
+replica a card, the cost-volume stages on row windows with ``--space_halo``
+rows of overlap); with fewer than ``S`` cards (or on the CPU, one device)
+it raises. ``--debug_model``, ``--debug_depth_gen``, ``--vis_ETA`` (bits
+3, 5 and 6) and ``--vis_stg_features`` (bit 0) write the numeric debug
+dumps of the first view of each scene under ``<outdir>/debug/``
+(``utils/debug.py``), the reference's cv2 windows as ``.npy`` files.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import numpy as np
 
 from .train import make_model_config
 
@@ -128,9 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_depth_gen", type=int, default=0)
     p.add_argument("--debug_depth_filter", type=int, default=0)
     p.add_argument("--space", type=int, default=1,
-                   help="row-shard the eval over this many devices (not ported "
-                        "yet: only 1)")
-    p.add_argument("--space_halo", type=int, default=48)
+                   help="row-shard each eval forward over this many cards (halo "
+                        "windows, models/mvs4net.py); 1 = one card")
+    p.add_argument("--space_halo", type=int, default=48,
+                   help="halo rows a window side (covers the Reg2D U-Net's "
+                        "receptive field)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default the card, 'cpu' runs the kernels' "
                         "plain PyTorch versions")
@@ -141,12 +151,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.batch_size != 1:
         raise ValueError("eval expects batch_size 1 (test_mvs4.py:947)")
-    if args.space > 1:
-        raise NotImplementedError(
-            "--space > 1 (row-sharded eval) is not ported yet (ROADMAP Queue 1 item 13)")
-    if args.debug_model or args.debug_depth_gen or args.vis_ETA or args.vis_stg_features:
-        raise NotImplementedError(
-            "the numeric debug dumps are not ported yet (ROADMAP Queue 1 item 14)")
+
+    import torch
 
     from ..config import setup_device
     from ..data import find_dataset_def
@@ -154,12 +160,28 @@ def main(argv=None):
     from ..train.checkpoint import load_weights
 
     device = setup_device(args.device)
+    devices = None
+    if args.space > 1:
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if cards < args.space:
+            raise ValueError(f"--space {args.space} needs {args.space} cards; "
+                             f"{cards} on this machine ({device.type})")
+        devices = [torch.device("cuda", i) for i in range(args.space)]
+        device = devices[0]
     testlist = read_scan_list(args.testlist) if args.testlist else [""]
+    # --vis_ETA: the epipolar attention and warped-view figures
+    # (mvs4net_utils.py:1041-1073) = bits 3|5|6; --vis_stg_features: the
+    # per-stage FPN features of the reference view (MVS4Net.py:85-96) = bit 0
+    debug_bits = (args.debug_model or args.debug_depth_gen) | (
+        0b1101000 if args.vis_ETA else 0) | (1 if args.vis_stg_features else 0)
 
     if args.run_gendepth:
-        import torch
-
-        from ..eval.depthgen import device_peak_memory_gb, generate_depth_maps
+        from ..data.loader import collate
+        from ..eval.depthgen import (
+            device_peak_memory_gb,
+            generate_depth_maps,
+            make_eval_forward,
+        )
         from ..models import MVS4Net
 
         model = MVS4Net(make_model_config(args, mode="eval"), device=device)
@@ -171,6 +193,8 @@ def main(argv=None):
             bucket = 0
         elif bucket != "max":
             bucket = int(bucket)
+        forward = make_eval_forward(model, devices, space=args.space,
+                                    space_halo=args.space_halo)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
 
@@ -184,13 +208,29 @@ def main(argv=None):
                 max_w=args.max_w, pair_fname=args.pair_fname,
                 lighting=args.lighting, dsname=args.dataset_name,
             )
+            if debug_bits:
+                # the reference's cv2 debug windows (MVS4Net.py:85-191,
+                # test_mvs4.py:447-517) as .npy dumps of the first view
+                from ..utils.debug import debug_dump_forward
+
+                s0 = collate([ds[0]])
+
+                def t(a):
+                    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+                written = debug_dump_forward(
+                    model, t(s0["imgs"]), {k: t(v) for k, v in s0["proj_matrices"].items()},
+                    t(s0["depth_values"]),
+                    bits=debug_bits, outdir=args.outdir, train=False,
+                    tag=f"eval_{scene or 'scene'}")
+                print(f"debug dump: {len(written)} arrays under {args.outdir}/debug")
             stats = generate_depth_maps(
                 model, ds, args.outdir,
                 batch_size=args.batch_size,
                 depthgen_thres=args.depthgen_thres,
                 save_ply=args.save_ply, save_jpg=args.save_jpg,
                 num_workers=args.num_worker,
-                shape_bucket=bucket, max_hw=(args.max_h, args.max_w),
+                shape_bucket=bucket, max_hw=(args.max_h, args.max_w), forward=forward,
             )
             total_time += stats["total_time_s"]
             total_views += int(stats["views"])

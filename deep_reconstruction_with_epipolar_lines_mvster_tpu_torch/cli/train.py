@@ -13,14 +13,30 @@ plane scenes, with no data files.
 
 Everything runs on ``--device`` (default: the card; ``--device cpu`` runs
 the plain PyTorch versions of the kernels), set up by
-``config.setup_device``. Weights are drawn from ``--seed``. The TPU layout
-flags (``--warp_impl``, ``--warp_band``, ``--warp_bwd``,
+``config.setup_device``. Weights are drawn from ``--seed``.
+
+On N cards, one process a card under ``torchrun``:
+
+    torchrun --nproc_per_node N -m deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli.train ...
+
+``parallel.init_distributed`` joins the process group (``nccl``; ``gloo``
+with ``--device cpu``) and each rank runs on ``cuda:LOCAL_RANK``.
+``--batch_size`` is, as in the JAX package, the samples of a host's batch:
+the host's ranks split it in contiguous equal shares (a batch size that
+they do not divide raises). ``--dp_impl`` chooses the data-parallel form
+(``parallel/mesh.py``): ``gspmd`` (default) trains on the global batch
+(BatchNorm statistics and masked means over every rank's samples),
+``shard_map`` keeps them per rank and averages the BatchNorm running
+statistics after each step. ``--debug_model BITS`` writes the numeric
+debug dumps of one train-mode forward of the first sample under
+``<logdir>/debug/`` (``utils/debug.py``).
+
+The TPU layout flags (``--warp_impl``, ``--warp_band``, ``--warp_bwd``,
 ``--warp_tile_rows``, ``--warp_xband``, ``--warp_tile_cols``,
 ``--pack_conv``, ``--fused_topdown``, ``--kernel_coords``, ``--fuse_attn``,
-``--d_pack_mids``, ``--dp_impl``, ``--no_remat``) are accepted and ignored,
-as ``config.py`` documents; ``--local_rank`` and ``--pin_m`` are accepted
-for the reference's sake. Not ported yet: ``--debug_model`` (raises) and
-training on more than one card.
+``--d_pack_mids``, ``--no_remat``) are accepted and ignored, as
+``config.py`` documents; ``--local_rank`` and ``--pin_m`` are accepted for
+the reference's sake (torchrun passes the rank in the environment).
 """
 
 from __future__ import annotations
@@ -118,9 +134,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help=_IGNORED + ": the port runs the top-down levels in its "
                         "kernel K2 on the card")
     p.add_argument("--debug_model", type=int, default=0,
-                   help="numeric debug dumps (not ported yet: raises)")
+                   help="bitmask of numeric debug dumps (utils/debug.py) of one "
+                        "train-mode forward, under <logdir>/debug")
     p.add_argument("--dp_impl", type=str, default="gspmd", choices=["gspmd", "shard_map"],
-                   help=_IGNORED + ": the port trains on one card")
+                   help="data-parallel form on more than one rank: gspmd (global-batch "
+                        "BatchNorm and masked means) or shard_map (per-rank, the "
+                        "reference's DDP; running statistics averaged each step)")
     p.add_argument("--no_remat", action="store_true",
                    help=_IGNORED + ": the port keeps every activation")
     return p
@@ -209,21 +228,28 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.resume and (args.mode != "train" or args.loadckpt is not None):
         raise ValueError("--resume needs --mode train and no --loadckpt")
-    if args.debug_model:
-        raise NotImplementedError(
-            "the numeric debug dumps are not ported yet (ROADMAP Queue 1 item 14)")
     if args.testpath is None:
         args.testpath = args.trainpath
 
     import torch
+    import torch.distributed as dist
 
     from ..config import setup_device
     from ..data import DataLoader, find_dataset_def
     from ..data.synthetic import batch_to_torch
     from ..models import MVS4Net
+    from ..parallel import init_distributed, is_host0
     from ..train.checkpoint import load_weights
 
-    device = setup_device(args.device)
+    on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    mesh = init_distributed("cpu" if on_cpu else "cuda")
+    if mesh.world > 1 and args.mode != "train":
+        raise ValueError(f"--mode {args.mode} runs in one process, not {mesh.world}")
+    if args.batch_size % mesh.local_world:
+        raise ValueError(f"--batch_size {args.batch_size} (samples a host) does not split "
+                         f"over the host's {mesh.local_world} ranks")
+    device = setup_device(args.device if on_cpu or not dist.is_initialized()
+                          else mesh.device("cuda"))
     tcfg = make_train_config(args)
     mcfg = make_model_config(args)
     lcfg = make_loss_config(args)
@@ -241,21 +267,41 @@ def main(argv=None):
         val_ds = DS(args.testpath, args.testlist, "val", args.test_nviews,
                     args.interval_scale, pair_fname=args.pair_fname,
                     Nlights=args.Nlights, seed=args.seed)
+    hosts = dict(num_hosts=mesh.hosts, host_id=mesh.host)
     train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, drop_last=True,
-                              num_workers=args.dataloader_workers, seed=args.seed)
-    val_loader = DataLoader(val_ds, args.batch_size, num_workers=args.dataloader_workers)
+                              num_workers=args.dataloader_workers, seed=args.seed,
+                              rank_in_host=mesh.local_rank, ranks_in_host=mesh.local_world,
+                              **hosts)
+    val_loader = DataLoader(val_ds, args.batch_size, num_workers=args.dataloader_workers,
+                            **hosts)
 
+    host0 = is_host0()
     model = MVS4Net(mcfg, device=device, generator=torch.Generator().manual_seed(args.seed))
     if args.loadckpt:
-        print(f"warm-starting from {args.loadckpt}")
+        if host0:
+            print(f"warm-starting from {args.loadckpt}")
         load_weights(model, args.loadckpt)
-    print(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")
+    if host0:
+        print(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")
+
+    if args.debug_model and host0:
+        # the reference's cv2 debug windows (MVS4Net.py:85-191) as .npy
+        # dumps of one train-mode forward of the first sample
+        from ..data.loader import collate
+        from ..utils.debug import debug_dump_forward
+
+        sample = batch_to_torch(collate([train_ds[0]]), device)
+        written = debug_dump_forward(
+            model, sample["imgs"], sample["proj_matrices"], sample["depth_values"],
+            bits=args.debug_model, outdir=args.logdir, train=True, tag="train_sample0")
+        print(f"debug_model={args.debug_model}: wrote {len(written)} arrays "
+              f"under {args.logdir}/debug")
 
     if args.mode == "train":
         from ..train.loop import fit
 
         return fit(model, train_loader, val_loader, tcfg, lcfg, logdir=args.logdir,
-                   device=device, resume=args.resume)
+                   device=device, resume=args.resume, mesh=mesh, dp_impl=args.dp_impl)
     if args.mode == "test":
         # the reference's --mode test crashes on an out-of-scope optimizer
         # (train_mvs4.py:271); a working validation sweep, as in JAX

@@ -43,9 +43,8 @@ say (on the CPU, each kernel's plain PyTorch version):
 - ``cw_stage_features``, ``d_pack_mids``: layouts only.
 
 The train CLI (``cli/train.py``) accepts and ignores the flags that set
-them, and three more of the same kind: ``--warp_bwd`` (which TPU
-warp-backward variant; the port's is K3), ``--dp_impl`` (the TPU mesh's
-data-parallel form; the port trains on one card) and ``--no_remat``.
+them, and two more of the same kind: ``--warp_bwd`` (which TPU
+warp-backward variant; the port's is K3) and ``--no_remat``.
 """
 
 from __future__ import annotations

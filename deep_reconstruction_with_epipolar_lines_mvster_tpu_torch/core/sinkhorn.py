@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.distributed import global_mean
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+    return global_mean((x * m).sum(), m.sum(), group)
 
 
 def sinkhorn_loss(
@@ -32,9 +34,11 @@ def sinkhorn_loss(
     iters: int,
     eps: float = 1.0,
     continuous: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """OT loss between the predicted depth-bin distribution and the GT bin:
-    the masked mean over pixels of ``sum(T * cost)``, float32."""
+    the masked mean over pixels of ``sum(T * cost)``, float32; with
+    ``group`` the global batch's mean (``parallel.distributed.global_mean``)."""
     B, D, H, W = attn_weight.shape
     f32 = torch.float32
     dev = attn_weight.device
@@ -72,4 +76,4 @@ def sinkhorn_loss(
 
     t_map = torch.exp(kernel + u[..., None] + v[..., None, :])
     per_px = (t_map * cost).sum(dim=(-1, -2)).reshape(B, H, W)
-    return _masked_mean(per_px, mask)
+    return _masked_mean(per_px, mask, group)

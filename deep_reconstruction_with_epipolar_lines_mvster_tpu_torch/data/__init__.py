@@ -43,9 +43,14 @@ def find_dataset_def(name: str):
         from .eval_loader import EvalDataset
 
         return EvalDataset
-    if key in ("tanks", "eth3d"):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP Queue 1 item 14)")
+    if key == "tanks":
+        from .tanks import TanksDataset
+
+        return TanksDataset
+    if key == "eth3d":
+        from .eth3d import ETH3DDataset
+
+        return ETH3DDataset
     from .synthetic import SyntheticTrainDataset
 
     return SyntheticTrainDataset

@@ -50,6 +50,10 @@ class DataLoader:
       num_hosts / host_id: shard the index stream round-robin across hosts.
       seed: shuffle seed; ``set_epoch`` advances the stream like
         ``DistributedSampler.set_epoch``.
+      rank_in_host / ranks_in_host: load only this rank's contiguous share
+        of each host batch (``ranks_in_host`` must divide ``batch_size``;
+        ``parallel.mesh.split_batch`` of the host batch, without decoding
+        the other ranks' samples).
     """
 
     def __init__(
@@ -64,7 +68,12 @@ class DataLoader:
         host_id: int = 0,
         seed: int = 0,
         prefetch: int = 2,
+        rank_in_host: int = 0,
+        ranks_in_host: int = 1,
     ):
+        if batch_size % ranks_in_host or (ranks_in_host > 1 and not drop_last):
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{ranks_in_host} ranks of a host (or a trailing batch is kept)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -74,6 +83,8 @@ class DataLoader:
         self.host_id = host_id
         self.seed = seed
         self.prefetch = prefetch
+        self.rank_in_host = rank_in_host
+        self.ranks_in_host = ranks_in_host
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -107,8 +118,10 @@ class DataLoader:
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         indices = self._indices()
         n_batches = len(self)
+        share = self.batch_size // self.ranks_in_host
+        first = self.rank_in_host * share
         batches = [
-            indices[i * self.batch_size : (i + 1) * self.batch_size]
+            indices[i * self.batch_size : (i + 1) * self.batch_size][first : first + share]
             for i in range(n_batches)
         ]
         if self.num_workers <= 0:

@@ -203,8 +203,8 @@ def batch_samples(samples) -> Dict:
 
 def batch_to_torch(batch: Dict, device) -> Dict:
     """A stacked batch as tensors on ``device``: the model inputs ``imgs``,
-    ``proj_matrices`` and ``depth_values``, and the train targets ``depth``
-    and ``mask`` per stage."""
+    ``proj_matrices`` and ``depth_values``, the train targets ``depth``
+    and ``mask`` per stage, and a padded batch's ``valid`` mask."""
     import torch
 
     def t(a):
@@ -216,4 +216,5 @@ def batch_to_torch(batch: Dict, device) -> Dict:
         "depth_values": t(batch["depth_values"]),
         "depth": {k: t(v) for k, v in batch["depth"].items()},
         "mask": {k: t(v) for k, v in batch["mask"].items()},
+        **({"valid": t(batch["valid"])} if "valid" in batch else {}),
     }

@@ -29,6 +29,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import sharded_eval_forward
+
 
 def _normalize01(x: np.ndarray) -> np.ndarray:
     lo, hi = float(np.min(x)), float(np.max(x))
@@ -44,25 +46,27 @@ def device_peak_memory_gb() -> float | None:
     return torch.cuda.max_memory_allocated() / 1024.0 ** 3
 
 
-def make_eval_forward(model, mesh=None):
+def make_eval_forward(model, devices=None, *, space: int = 1, space_halo: int = 48):
     """The eval forward for depth-map generation: ``forward(imgs, projs, dv)``
     runs ``model`` in ``eval()`` under ``torch.inference_mode()`` and returns
     the stage-4 depth and photometric confidence, the per-stage depths and,
-    with ``mono``, channel 4 of the stage-2..4 reference features (saved by
-    the reference's ``--save_jpg --mono``, test_mvs4.py:474-489), as
-    tensors on the model's device.
+    with ``mono`` where no stage is row-sharded, channel 4 of the stage-2..4
+    reference features (saved by the reference's ``--save_jpg --mono``,
+    test_mvs4.py:474-489), as tensors on the model's device (on
+    ``devices[0]`` with ``devices``).
 
-    ``mesh`` (the row-sharded ``--space`` eval of the JAX package) is not
-    ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the row-sharded eval (--space > 1) is not ported yet (ROADMAP Queue 1 item 13)"
-        )
+    ``devices`` (JAX's ``mesh``): the forward over that device list laid
+    out ``(data, space)`` (``parallel.mesh.sharded_eval_forward``): the
+    batch split over ``len(devices) // space`` data shards, each image's
+    cost-volume stages over ``space`` row windows with ``space_halo`` rows
+    of overlap, one model replica a device."""
     model.eval()
+    run = model if devices is None else sharded_eval_forward(
+        model, devices, space=space, space_halo=space_halo)
 
     def forward(imgs, projs, dv):
         with torch.inference_mode():
-            out = model(imgs, projs, dv)
+            out = run(imgs, projs, dv)
         res = {
             "depth": out["stage4"]["depth"],
             "confidence": out["stage4"]["photometric_confidence"],
@@ -139,6 +143,7 @@ def generate_depth_maps(
     verbose: bool = True,
     shape_bucket=0,
     max_hw: Tuple[int, int] | None = None,
+    forward=None,
 ) -> Dict[str, float]:
     """Run eval forwards of ``model`` (on its own device) over ``dataset``
     (an EvalDataset-like) and write the artifact tree. Returns timing stats
@@ -152,6 +157,9 @@ def generate_depth_maps(
     flags. The padded image is not bit-exact for the valid region (the FPN
     top-down and the hypothesis windows use align-corners resizes over the
     global extent); ``shape_bucket=0`` keeps the native shape.
+
+    ``forward``: the eval forward to run (``make_eval_forward``, e.g. over a
+    device list); by default ``make_eval_forward(model)``.
     """
     from ..data.io import save_image_u8, save_pfm, write_cam_file
     from ..data.loader import DataLoader
@@ -159,7 +167,8 @@ def generate_depth_maps(
     from .ply import write_ply_ascii_colored
 
     device = next(model.parameters()).device
-    forward = make_eval_forward(model)
+    if forward is None:
+        forward = make_eval_forward(model)
 
     loader = DataLoader(dataset, batch_size, num_workers=num_workers)
     times: List[float] = []

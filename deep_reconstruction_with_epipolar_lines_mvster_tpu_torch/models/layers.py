@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.band_conv import band_conv
+from ..parallel.distributed import all_reduce_sum, world_size
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax momentum; torch's 0.1
@@ -106,7 +107,15 @@ class TorchBatchNorm(nn.Module):
       running statistics take the G sequential momentum updates of the
       reference's per-view calls in closed form,
       ``m^G r + (1-m) sum_v m^(G-1-v) s_v`` with flax momentum ``m = 0.9``
-      and the unbiased variance."""
+      and the unbiased variance.
+
+    ``sync_group`` (set by ``parallel.mesh.data_parallel`` under
+    ``dp_impl="gspmd"`` on more than one rank): the train-mode statistics
+    are those of the global batch, every rank's samples, as GSPMD computes
+    them: the batch sum and then the sum of squared deviations all-reduced
+    over the group (differentiable), in float32."""
+
+    sync_group = None
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -127,10 +136,16 @@ class TorchBatchNorm(nn.Module):
         if N % G:
             raise ValueError(f"batch {N} not divisible by view groups {G}")
         xg = xf.reshape(N // G, G, -1, C)
-        var, mean = torch.var_mean(xg, dim=(0, 2), correction=0, keepdim=True)
+        n = xg.shape[0] * xg.shape[2]
+        if self.sync_group is None:
+            var, mean = torch.var_mean(xg, dim=(0, 2), correction=0, keepdim=True)
+        else:
+            n *= world_size(self.sync_group)
+            mean = all_reduce_sum(xg.sum(dim=(0, 2), keepdim=True), self.sync_group) / n
+            dev = xg - mean
+            var = all_reduce_sum((dev * dev).sum(dim=(0, 2), keepdim=True), self.sync_group) / n
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         with torch.no_grad():
-            n = xg.shape[0] * xg.shape[2]
             m = BN_MOMENTUM
             w = m ** torch.arange(G - 1, -1, -1, dtype=torch.float32, device=x.device)
             var_unb = var.reshape(G, C) * (n / max(n - 1, 1))

@@ -10,7 +10,12 @@ the GT bin, and the out-of-range diagnostic ``s{s}_range_err_ratio``; total
 ``blend_loss``: the same plus EPE / <=1px / <=3px on the depth scaled to a
 128-unit range (BlendedMVS convention, reference ``Blend_loss``).
 
-Every reduction is a mask-weighted mean in float32.
+Every reduction is a mask-weighted mean in float32. With ``group`` (a
+process group: the global batch of ``dp_impl="gspmd"``), the mean is the
+global batch's, as the JAX package's under GSPMD: each denominator is
+summed over the group's ranks and each rank's numerator scaled by their
+number, so that the ranks' mean of a value (and of its gradient, DDP's
+average) is the global masked mean.
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ import torch
 
 from ..config import LossConfig
 from ..core.sinkhorn import sinkhorn_loss
+from ..parallel.distributed import global_mean
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     m = mask.float()
-    return (x.float() * m).sum() / m.sum().clamp(min=1.0)
+    return global_mean((x.float() * m).sum(), m.sum(), group)
 
 
 def mvs4net_loss(
@@ -33,9 +39,11 @@ def mvs4net_loss(
     depth_gt_ms: Dict[str, torch.Tensor],
     mask_ms: Dict[str, torch.Tensor],
     cfg: LossConfig,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(total, aux)``: aux holds ``s{s}_d_loss`` (mono L1),
-    ``s{s}_c_loss`` (OT) and ``s{s}_range_err_ratio`` per stage."""
+    ``s{s}_c_loss`` (OT) and ``s{s}_range_err_ratio`` per stage; ``group``:
+    the global batch's masked means (module docstring)."""
     stage_keys = sorted(k for k in outputs if k.startswith("stage"))
     total = torch.zeros((), device=outputs[stage_keys[0]]["attn_weight"].device)
     aux: Dict[str, torch.Tensor] = {}
@@ -46,7 +54,7 @@ def mvs4net_loss(
         gt = depth_gt_ms[key]
 
         if cfg.mono and s != 0 and "mono_depth" in stage:
-            l1 = _masked_mean((stage["mono_depth"] - gt).abs(), mask)
+            l1 = _masked_mean((stage["mono_depth"] - gt).abs(), mask, group)
         else:
             l1 = torch.zeros((), device=total.device)
 
@@ -58,11 +66,11 @@ def mvs4net_loss(
             else:
                 itv = (hypo[:, 2] - hypo[:, 1]).abs()
                 inside = ((hypo - gt[:, None]).abs() <= itv[:, None]).sum(dim=1)
-            aux[f"s{s}_range_err_ratio"] = _masked_mean((inside == 0).float(), mask)
+            aux[f"s{s}_range_err_ratio"] = _masked_mean((inside == 0).float(), mask, group)
 
         ot = sinkhorn_loss(
             gt, hypo, stage["attn_weight"], mask,
-            iters=cfg.ot_iter, eps=cfg.ot_eps, continuous=cfg.ot_continuous,
+            iters=cfg.ot_iter, eps=cfg.ot_eps, continuous=cfg.ot_continuous, group=group,
         )
         aux[f"s{s}_d_loss"] = l1
         aux[f"s{s}_c_loss"] = ot

@@ -30,11 +30,24 @@ mono_depth* (train, stages 2-4)}}.
 JAX package: train-mode BatchNorm (per view in the FPN stem), a zero
 photometric confidence, and with ``mono`` the mono depth decoder. The
 next stage's depth window comes from detached predictions either way.
+
+Row-sharded eval (``forward_steps`` with ``space_shards > 1``; JAX
+``models/mvs4net.py:229-298``, the ``--space`` eval): the call computes rank
+``space_rank`` of ``space_shards`` row windows. The pyramid runs whole (every source view's
+features stay whole, so the warp needs no halo exchange); a stage whose
+height ``h`` is a multiple of ``8 * space_shards`` and whose window
+``h // space_shards + 2 * halo`` (``halo = space_halo`` rounded down to a
+multiple of 8) is shorter than ``h`` runs on the window
+``[start, start + ws)``, ``start = clip(rank * hs - halo, 0, h - ws)``: the
+reference view's features and the hypotheses sliced to it, the reference
+view's principal point moved up by ``start``; its outputs lose the halo and
+the caller joins the ranks' rows back to full height.
+The coarser stages run whole on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Generator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -109,8 +122,35 @@ class MVS4Net(nn.Module):
         proj_matrices: Dict[str, torch.Tensor],
         depth_values: torch.Tensor,
     ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The whole forward: ``forward_steps`` on one rank, which yields
+        nothing."""
+        steps = self.forward_steps(imgs, proj_matrices, depth_values)
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+        raise AssertionError("an unsharded forward yielded rows")
+
+    def forward_steps(
+        self,
+        imgs: torch.Tensor,
+        proj_matrices: Dict[str, torch.Tensor],
+        depth_values: torch.Tensor,
+        *,
+        space_rank: int = 0,
+        space_shards: int = 1,
+        space_halo: int = 48,
+    ) -> Generator[Dict[str, Tuple[torch.Tensor, int]], Dict[str, torch.Tensor], Dict]:
+        """The forward as a generator, rank ``space_rank`` of
+        ``space_shards`` (module docstring): at each row-windowed stage it
+        yields ``{output: (this rank's rows without the halo, row axis)}``
+        and takes back ``{output: the rows of every rank, joined}`` from its
+        caller (``parallel.mesh.sharded_eval_forward``); it returns the
+        outputs. Without a windowed stage it yields nothing."""
         cfg = self.cfg
         train = self.training
+        if space_shards > 1 and train:
+            raise ValueError("the row-sharded forward is an eval path")
         B, V, H, W, _ = imgs.shape
         folded = imgs.to(cfg.torch_dtype).reshape(B * V, H, W, imgs.shape[-1])
         feats = self.feature(folded, view_groups=V)
@@ -138,8 +178,18 @@ class MVS4Net(nn.Module):
                     cfg.depth_inter_r[s] * depth_interval, h, w,
                 )
             hypo = hypo.float()
+            projs = proj_matrices[f"stage{s + 1}"]
+            window = _row_window(h, space_rank, space_shards, space_halo)
+            if window is not None:
+                start, ws, crop, hs = window
+                hypo = hypo[:, :, start:start + ws].contiguous()
+                views = [views[0][:, start:start + ws].contiguous()] + views[1:]
+                # window-local reference rows: the reference camera's
+                # principal point moves up by the window start
+                projs = projs.clone()
+                projs[:, 0, 1, 1, 2] -= start
             out = run_stage(
-                views, proj_matrices[f"stage{s + 1}"], hypo, self._regnet(s, hypo),
+                views, projs, hypo, self._regnet(s, hypo),
                 group_cor=cfg.group_cor,
                 group_dim=cfg.group_cor_dim[s],
                 split_itv=cfg.depth_inter_r[s],
@@ -148,7 +198,11 @@ class MVS4Net(nn.Module):
                 inverse_depth=cfg.inverse_depth,
                 train=train,
             )
-            if cfg.mono:
+            if window is not None:
+                # no mono_feat: views[0] is a window, and eval never reads it
+                rows = {k: _own_rows(v, crop, hs) for k, v in out.items() if v.dim() >= 3}
+                out = {**out, **(yield rows)}
+            elif cfg.mono:
                 out["mono_feat"] = views[0]
             outputs[f"stage{s + 1}"] = out
             # next-stage windows come from detached predictions
@@ -178,3 +232,26 @@ class MVS4Net(nn.Module):
             return self.reg[s](vol)
 
         return regnet
+
+
+def _row_window(h: int, rank: int, shards: int, halo: int) -> Optional[Tuple[int, int, int, int]]:
+    """``(start, ws, crop, hs)`` of rank ``rank``'s row window of a stage of
+    height ``h``, or None where the stage runs whole (one shard, a height
+    that the shards' 8-row blocks do not divide, or a window no shorter
+    than the stage)."""
+    if shards <= 1:
+        return None
+    halo -= halo % 8
+    hs = h // shards
+    ws = hs + 2 * halo
+    if h % (8 * shards) or ws >= h:
+        return None
+    start = min(max(rank * hs - halo, 0), h - ws)
+    return start, ws, rank * hs - start, hs
+
+
+def _own_rows(v: torch.Tensor, crop: int, hs: int) -> Tuple[torch.Tensor, int]:
+    """A windowed stage output's own rows, without the halo, and its row
+    axis: 2 of ``[B, D, ws, w]``, 1 of ``[B, ws, w]``."""
+    axis = 2 if v.dim() == 4 else 1
+    return v.narrow(axis, crop, hs).contiguous(), axis

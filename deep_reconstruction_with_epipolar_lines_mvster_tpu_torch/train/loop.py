@@ -1,12 +1,20 @@
 """Epoch-level training (reference train(), train_mvs4.py:118-247).
 
-Counterpart of the JAX package's ``train/loop.py:fit`` on one device (no
-mesh): the learning-rate schedule with its milestones counted in iterations
+Counterpart of the JAX package's ``train/loop.py:fit``: the learning-rate
+schedule with its milestones counted in iterations
 (``len(train_loader) * epoch``, reference :120-126), resume from the latest
 checkpoint (the schedule is a pure function of the restored step), the
 train steps with the scalars and images logged every ``summary_freq``
 steps, a checkpoint every ``save_freq`` epochs, and validation with a
 ``DictAverageMeter`` every ``eval_freq``-th epoch and after the last one.
+
+Data-parallel over the ranks of the default process group (``mesh``, its
+layout, from ``parallel.init_distributed``): the train step becomes this
+rank's share of one (``parallel.mesh.data_parallel``, ``dp_impl`` ``gspmd``
+or ``shard_map``); each validation batch is padded to a multiple of the
+host's ranks (``pad_batch_to_multiple``) and split over them, its scalars
+those of the whole batch; rank 0 alone prints, logs and writes
+checkpoints.
 
 ``metrics.jsonl`` gets the JAX package's records (``train``, ``test`` and
 ``fulltest``, with the same steps and scalars); besides, each ``train``
@@ -19,16 +27,23 @@ host).
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import LossConfig, TrainConfig
 from ..data.synthetic import batch_to_torch
+from ..parallel import HostMesh, data_parallel, is_host0, pad_batch_to_multiple, split_batch
+from ..parallel.distributed import sync_hosts
 from .checkpoint import find_latest_checkpoint, restore_checkpoint, save_checkpoint
 from .logging import MetricWriter, format_progress
 from .metrics import DictAverageMeter
 from .schedule import make_schedule
 from .step import TrainStep, make_eval_step, make_optimizer, make_train_step
+
+
+_SAMPLE_KEYS = ("imgs", "proj_matrices", "depth", "depth_values", "mask")
 
 
 def _images_to_host(images):
@@ -45,10 +60,13 @@ def fit(
     logdir: str,
     device: torch.device,
     resume: bool = False,
+    mesh: Optional[HostMesh] = None,
+    dp_impl: str = "gspmd",
 ) -> TrainStep:
     """Train ``model`` (on ``device``) for ``train_cfg.epochs`` epochs of
-    ``train_loader`` (numpy batches, copied to ``device`` per step); returns
-    the ``TrainStep``, which holds the model, the optimizer and the step
+    ``train_loader`` (numpy batches, copied to ``device`` per step; with
+    ``mesh``, this rank's share of its host's batch); returns the
+    ``TrainStep``, which holds the model, the optimizer and the step
     count."""
     steps_per_epoch = len(train_loader)
     milestones = [steps_per_epoch * int(e) for e in train_cfg.lr_milestones]
@@ -63,26 +81,42 @@ def fit(
     )
     optimizer = make_optimizer(model, train_cfg.weight_decay)
     train_step = make_train_step(model, loss_cfg, optimizer, schedule, with_images=True)
+    mesh = mesh or HostMesh()
+    host0 = is_host0()
+    group = None
+    if dist.is_initialized():
+        data_parallel(train_step, dp_impl, device=device)
+        group = train_step.dp.group
 
     start_epoch = 0
     if resume:
         latest = find_latest_checkpoint(logdir)
         if latest is not None:
             start_epoch = restore_checkpoint(latest, train_step)
-            print(f"resumed from {latest} at epoch {start_epoch}")
+            if host0:
+                print(f"resumed from {latest} at epoch {start_epoch}")
 
-    eval_step = make_eval_step(model, loss_cfg, with_images=True)
-    writer = MetricWriter(logdir)
+    eval_step = make_eval_step(model, loss_cfg, with_images=True, group=group)
+    writer = MetricWriter(logdir) if host0 else None
     put = lambda b: batch_to_torch(b, device)  # noqa: E731
 
+    def put_val(b):
+        if mesh.world == 1:
+            return put(b)
+        # drop_last=False (reference train_mvs4.py:595): wrap-pad the
+        # trailing batch to the host's ranks, then take this rank's slice
+        b = pad_batch_to_multiple({k: b[k] for k in _SAMPLE_KEYS if k in b}, mesh.local_world)
+        return put(split_batch(b, mesh.local_rank, mesh.local_world))
+
     for epoch in range(start_epoch, train_cfg.epochs):
-        print(f"Epoch {epoch + 1}:")
+        if host0:
+            print(f"Epoch {epoch + 1}:")
         train_loader.set_epoch(epoch)
         for it, batch in enumerate(train_loader):
             t0 = time.perf_counter()
             global_step = steps_per_epoch * epoch + it
             scalars, images = train_step(put(batch))
-            if global_step % train_cfg.summary_freq == 0:
+            if host0 and global_step % train_cfg.summary_freq == 0:
                 scalars = {k: float(v) for k, v in scalars.items()}
                 dt = time.perf_counter() - t0
                 lr = schedule(global_step)
@@ -91,8 +125,9 @@ def fit(
                 print(format_progress(epoch, train_cfg.epochs, it, steps_per_epoch, lr,
                                       scalars, dt), flush=True)
 
-        if (epoch + 1) % train_cfg.save_freq == 0:
+        if host0 and (epoch + 1) % train_cfg.save_freq == 0:
             save_checkpoint(logdir, epoch, train_step)
+        sync_hosts()
 
         if val_loader is not None and (
             epoch % train_cfg.eval_freq == 0 or epoch == train_cfg.epochs - 1
@@ -100,18 +135,20 @@ def fit(
             meter = DictAverageMeter()
             for it, batch in enumerate(val_loader):
                 t0 = time.perf_counter()
-                scalars, images = eval_step(put(batch))
+                scalars, images = eval_step(put_val(batch))
                 scalars = {k: float(v) for k, v in scalars.items()}
                 dt = time.perf_counter() - t0
                 meter.update(scalars)
-                if it % train_cfg.summary_freq == 0:
+                if host0 and it % train_cfg.summary_freq == 0:
                     step = steps_per_epoch * epoch + it
                     writer.scalars("test", {**scalars, "step_s": dt}, step)
                     writer.images("test", _images_to_host(images), step)
-            avg = meter.mean()
-            writer.scalars("fulltest", avg, steps_per_epoch * (epoch + 1))
-            print("avg_test_scalars:", avg, flush=True)
+            if host0:
+                avg = meter.mean()
+                writer.scalars("fulltest", avg, steps_per_epoch * (epoch + 1))
+                print("avg_test_scalars:", avg, flush=True)
 
-    writer.close()
+    if writer is not None:
+        writer.close()
     return train_step
 

@@ -21,6 +21,7 @@ import torch
 
 from ..config import LossConfig
 from ..models.losses import mvs4net_loss
+from ..parallel.distributed import mean_scalars
 from .metrics import depth_metrics
 from .schedule import Schedule
 
@@ -63,11 +64,19 @@ class TrainStep:
     0-d tensors on the device (reading one waits for the step). After the
     call each parameter's ``.grad`` holds this step's gradient; ``step``
     counts the steps taken and indexes the schedule. With ``with_images``
-    the call returns ``(scalars, image_summaries(...))``."""
+    the call returns ``(scalars, image_summaries(...))``.
+
+    ``dp`` (set by ``parallel.mesh.data_parallel``) makes the call this
+    rank's share of a data-parallel step: the forward through the
+    DDP-wrapped model, the loss's masked means over the global batch under
+    ``gspmd``, the BatchNorm running statistics averaged over the ranks
+    after the update under ``shard_map``, and the scalars averaged over the
+    ranks, as the JAX step's under a mesh."""
 
     def __init__(self, model, loss_cfg: LossConfig, optimizer: torch.optim.Optimizer,
                  schedule: Schedule, *, num_stages: int = 4, with_images: bool = False):
         self.model = model
+        self.dp = None
         self.loss_cfg = loss_cfg
         self.optimizer = optimizer
         self.schedule = schedule
@@ -82,15 +91,22 @@ class TrainStep:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-        loss, aux = mvs4net_loss(outputs, batch["depth"], batch["mask"], self.loss_cfg)
+        dp = self.dp
+        runner = self.model if dp is None else dp.runner
+        outputs = runner(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        loss, aux = mvs4net_loss(outputs, batch["depth"], batch["mask"], self.loss_cfg,
+                                 group=None if dp is None else dp.loss_group)
         loss.backward()
         self.optimizer.step()
+        if dp is not None:
+            dp.after_update(self.model)
         self.step += 1
         with torch.no_grad():
             mask = batch["mask"][self.last] > 0.5
             metrics = depth_metrics(outputs[self.last]["depth"], batch["depth"][self.last], mask)
         scalars = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}, **metrics}
+        if dp is not None:
+            scalars = mean_scalars(scalars)
         if self.with_images:
             return scalars, image_summaries(outputs, batch, self.num_stages)
         return scalars
@@ -104,11 +120,14 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer: torch.optim.Optimize
 
 
 def make_eval_step(model, loss_cfg: LossConfig, *, num_stages: int = 4,
-                   with_images: bool = False):
+                   with_images: bool = False, group=None):
     """Validation step (reference test_sample_depth): the eval forward, no
     gradients, the mono loss off. ``batch["valid"]`` ([B], optional) leaves
     padded samples out of every reduction. With ``with_images`` the call
-    returns ``(scalars, image_summaries(...))``."""
+    returns ``(scalars, image_summaries(...))``. ``group`` (a process
+    group): this rank's slice of a batch split over the group's ranks, the
+    scalars those of the whole batch on every rank, as the JAX eval step's
+    under a mesh."""
     eval_loss_cfg = dataclasses.replace(loss_cfg, mono=False)
     last = f"stage{num_stages}"
 
@@ -120,10 +139,13 @@ def make_eval_step(model, loss_cfg: LossConfig, *, num_stages: int = 4,
         masks = batch["mask"]
         if valid is not None:
             masks = {k: v * valid[:, None, None] for k, v in masks.items()}
-        loss, aux = mvs4net_loss(outputs, batch["depth"], masks, eval_loss_cfg)
+        loss, aux = mvs4net_loss(outputs, batch["depth"], masks, eval_loss_cfg, group=group)
         mask = masks[last] > 0.5
         scalars = {"loss": loss, **aux,
-                   **depth_metrics(outputs[last]["depth"], batch["depth"][last], mask, valid)}
+                   **depth_metrics(outputs[last]["depth"], batch["depth"][last], mask, valid,
+                                   group)}
+        if group is not None:
+            scalars = mean_scalars(scalars, group)
         if with_images:
             return scalars, image_summaries(outputs, batch, num_stages)
         return scalars

@@ -812,3 +812,103 @@ def test_model_variant_matches_cpu(dev, variant):
     assert (k2.launches - before[0], k3.launches - before[1], k4.launches - before[2]) == (
         6, 8, 8)
     assert k6.launches == before[3]
+
+
+# ------------------------------------------ the row-sharded eval (--space) --
+
+def _space_models_and_batch(dev, dtype, B=1, V=3, H=256, W=128):
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
+        batch_to_torch,
+    )
+
+    cfg = checks.eval_dtu_config(str(dtype).replace("torch.", ""))
+    model = checks.seeded_model(cfg, 5, dev)
+    scene = batch_samples([make_plane_scene(V=V, H=H, W=W, seed=i) for i in range(B)])
+    return model, batch_to_torch(scene, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [2, 4])
+def test_space_windows_match_the_unsharded_forward(dev, dtype, S):
+    """The row-sharded forward over ``[card] * S`` (256x128, halo 48: stage
+    4 on S windows) against the unsharded forward on the card, every
+    stage, at ``checks.compare_space``'s limits (float32: the JAX package's
+    agreement limits; bf16: statistical); K1, K5 and K6 launch S times as
+    often as in the unsharded forward."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
+        sharded_eval_forward,
+    )
+
+    model, b = _space_models_and_batch(dev, dtype)
+    args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    with torch.inference_mode():
+        before = (k1.launches, k5.launches, k6.launches)
+        want = model(*args)
+        whole = [n - m for n, m in zip((k1.launches, k5.launches, k6.launches), before)]
+    before = (k1.launches, k5.launches, k6.launches)
+    got = sharded_eval_forward(model, [dev] * S, space=S)(*args)
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip((k1.launches, k5.launches, k6.launches), before)] == \
+        [S * n for n in whole]
+    dv = b["depth_values"]
+    checks.compare_space(got, want, dtype, (dv[:, -1] - dv[:, 0]).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws,h,w,C,G,D", [(352, 512, 640, 8, 4, 4), (224, 256, 320, 16, 4, 4),
+                                          (160, 256, 320, 16, 4, 4), (160, 256, 480, 32, 8, 8)])
+def test_window_shapes_match_plain(dev, dtype, ws, h, w, C, G, D):
+    """K1 (a window of ``ws`` reference rows against the stage's whole
+    source of ``h`` rows, the reference principal point moved up by the
+    window start), K5 and K6 (Reg2D.conv0) at the window heights of the
+    row-sharded eval (352, 224, 160: multiples of 8, not of 64) against
+    their plain versions, each at its ``TOLERANCE``."""
+    gen = torch.Generator(device=dev).manual_seed(ws + C)
+    scene = batch_samples([make_plane_scene(V=2, H=h, W=w, seed=1)])
+    projs = torch.from_numpy(scene["proj_matrices"]["stage4"]).to(dev)
+    start = (h - ws) // 2
+    projs[:, 0, 1, 1, 2] -= start
+    rel = relative_projection(projs[:, 1], projs[:, 0]).float().contiguous()
+    inv = torch.linspace(1 / 935.0, 1 / 425.0, D, device=dev)[None, :, None, None]
+    hypo = (1.0 / (inv * (1 + 0.01 * torch.randn((1, D, ws, w), generator=gen,
+                                                  device=dev)))).contiguous()
+    src = torch.randn((1, h, w, C), generator=gen, device=dev).to(dtype)
+    ref = torch.randn((1, ws, w, C), generator=gen, device=dev).to(dtype)
+    _close(k1.warp_cor(src, ref, rel, hypo, G), k1.warp_cor_ref(src, ref, rel, hypo, G),
+           k1.TOLERANCE[dtype])
+    cors = (torch.randn((2, 1, D, ws, w, G), generator=gen, device=dev) * 0.5).to(dtype)
+    _close(k5.attn_fuse(cors, 2.0, C), k5.attn_fuse_ref(cors, 2.0, C), k5.TOLERANCE[dtype])
+    x = torch.randn((D, ws, w, G), generator=gen, device=dev).to(dtype)
+    wt = torch.randn((8, G, 3, 3), generator=gen, device=dev) * (9 * G) ** -0.5
+    scale = torch.rand(8, generator=gen, device=dev) + 0.5
+    bias = torch.randn(8, generator=gen, device=dev) * 0.2
+    _close(k6.band_conv(x, wt, scale, bias), k6.band_conv_ref(x, wt, scale, bias),
+           k6.TOLERANCE[dtype])
+
+
+# --------------------------------------------- data-parallel training --
+
+@pytest.mark.parametrize("dp_impl", ["gspmd", "shard_map"])
+def test_world_one_ddp_step_matches_the_bare_step(dev, dp_impl, tmp_path):
+    """Two float32 train steps through ``data_parallel`` on an NCCL group of
+    one rank (a ``file://`` store) against the bare ``TrainStep`` from the
+    same seed (``checks.check_ddp_step``: the first loss and BatchNorm
+    statistics to float32 rounding, the parameters within what Adam's
+    steps can move; K3's float32 atomics make the rest vary from run to
+    run)."""
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        cfg = checks.small_step_model().cfg
+
+        def make_model():
+            return MVS4Net(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+
+        out = checks.check_ddp_step(dev, dp_impl, make_model, checks.small_step_batch(dev), 2)
+    finally:
+        dist.destroy_process_group()
+    assert out["steps"] == 2 and np.isfinite(out["losses"]).all()

@@ -136,8 +136,9 @@ def test_data_copies_match_jax(tmp_path):
 def test_eval_forward_and_space_flag():
     """``make_eval_forward`` returns the stage-4 depth and confidence and the
     per-stage depths of one batch (``run_forward``, numpy out), the mono
-    features with ``mono``; the row-sharded ``--space`` path raises until it
-    is ported."""
+    features with ``mono``; over a device list that is no (data, space)
+    layout it raises (tests/test_torch_port_space.py holds the row-sharded
+    ``--space`` path itself)."""
     cfg = dataclasses.replace(checks.eval_dtu_config(), mono=True)
     model = checks.seeded_model(cfg, 1, "cpu")
     ds = synthetic.SyntheticEvalDataset(V=3, H=64, W=64)
@@ -147,8 +148,8 @@ def test_eval_forward_and_space_flag():
                                                      (1, 64, 64)]
     assert [m.shape for m in out["mono_feats"]] == [(1, 16, 16), (1, 32, 32), (1, 64, 64)]
     assert np.isfinite(out["depth"]).all() and seconds > 0 and shape == (64, 64, 3, 192)
-    with pytest.raises(NotImplementedError, match="space"):
-        make_eval_forward(model, mesh=object())
+    with pytest.raises(ValueError, match="space"):
+        make_eval_forward(model, ["cpu"] * 3, space=2)
 
 
 # ------------------------------------------------------- the CLI, end to end --
@@ -235,13 +236,14 @@ def test_eval_cli_matches_jax_cli(tmp_path):
 
 
 def test_eval_cli_refuses_what_is_not_ported(tmp_path):
-    """``--space`` > 1 and the debug dumps raise instead of running
-    something else; the TPU layout flags parse and change nothing."""
+    """``--space`` above the device count (the CPU is one device) raises
+    instead of running the windows on fewer devices; the debug flags parse
+    (they dump with ``--run_gendepth``, tests/test_torch_port_debug_data.py);
+    the TPU layout flags parse and change nothing."""
     base = ["--interval_scale", "1", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="space"):
+    with pytest.raises(ValueError, match="space"):
         port_cli.main(base + ["--space", "2"])
-    with pytest.raises(NotImplementedError, match="debug"):
-        port_cli.main(base + ["--debug_model", "1"])
+    port_cli.main(base + ["--debug_model", "1", "--vis_ETA", "--vis_stg_features", "1"])
     args = port_cli.build_parser().parse_args(
         base + ["--warp_impl", "mxu_v3", "--fuse_attn", "--pack_conv", "--warp_band", "12,12,8,8"])
     cfg = port_cli.make_model_config(args)

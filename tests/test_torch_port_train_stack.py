@@ -296,13 +296,13 @@ def test_train_loaders_match_jax(name, loader_roots):
 
 def test_dataset_registry():
     """The reference's names and the short ones map to the same loaders as
-    in the JAX package; tanks and eth3d are not ported yet and say so."""
+    in the JAX package, tanks and eth3d included
+    (tests/test_torch_port_debug_data.py holds those two against JAX's)."""
     for a, b in (("dtu_yao4", "dtu"), ("blender4", "blender"), ("dataloader_eval", "eval")):
         assert find_dataset_def(a) is find_dataset_def(b)
     assert find_dataset_def("dataloader_eval").__name__ == "EvalDataset"
-    for name in ("tanks", "eth3d"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            find_dataset_def(name)
+    assert find_dataset_def("tanks").__name__ == "TanksDataset"
+    assert find_dataset_def("eth3d").__name__ == "ETH3DDataset"
     with pytest.raises(KeyError):
         find_dataset_def("kitti")
 
