@@ -1457,11 +1457,12 @@ TORCHRUN_LOGDIR = TRAIN_CLI_LOGDIR + "_torchrun"
 
 def drive_ddp(dev, batch, counters):
     """Data-parallel training on one card: a world of one rank over NCCL
-    (a ``file://`` store in a temporary directory); for each ``dp_impl``,
-    ``checks.check_ddp_step`` on the DTU recipe (B6 V5 512x640 bf16,
-    ``DP_STEPS`` steps against the bare ``TrainStep`` from the same seed,
-    twice, to see the bare step's own run-to-run gap); the counters set to
-    0 before and read after (every step ``TRAIN_LAUNCHES``). Then
+    (a ``file://`` store in a temporary directory); ``checks.check_ddp_step``
+    on the DTU recipe (B6 V5 512x640 bf16, ``DP_STEPS`` steps of each
+    ``dp_impl`` against ``checks.DDP_BARE_RUNS`` runs of the bare
+    ``TrainStep`` from the same seed, whose gaps from each other are the
+    step's run-to-run noise); the counters set to 0 before and read after
+    (every step ``TRAIN_LAUNCHES``). Then
     ``torchrun --standalone --nproc_per_node 1`` runs the train CLI for one
     epoch on ``synthetic://512x640/12`` (``TRAIN_CLI_FLAGS``), which joins
     an NCCL group of one rank and trains through ``data_parallel``."""
@@ -1485,14 +1486,14 @@ def drive_ddp(dev, batch, counters):
 
         for mod in counters.values():
             mod.launches = 0
-        impls = [checks.check_ddp_step(dev, impl, make_model, batch, DP_STEPS)
-                 for impl in DP_IMPLS]
+        check = checks.check_ddp_step(dev, make_model, batch, DP_STEPS, DP_IMPLS)
         torch.cuda.synchronize()
         counts = {name: mod.launches for name, mod in counters.items()}
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    want = {k: len(DP_IMPLS) * 3 * DP_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    runs = checks.DDP_BARE_RUNS + len(DP_IMPLS)
+    want = {k: runs * DP_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"ddp: launches {counts}, want {want}")
 
@@ -1517,7 +1518,7 @@ def drive_ddp(dev, batch, counters):
         if name.endswith(".ckpt"):
             os.remove(os.path.join(TORCHRUN_LOGDIR, name))
     return {"world": 1, "backend": "nccl", "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W,
-            "dtype": "bfloat16", "impls": impls, "launches": counts,
+            "dtype": "bfloat16", **check, "launches": counts,
             "torchrun": {"seconds": torchrun_s,
                          "loss_per_step": [r["loss"] for r in records if r["mode"] == "train"],
                          "step_ms": [r["step_s"] * 1e3 for r in records

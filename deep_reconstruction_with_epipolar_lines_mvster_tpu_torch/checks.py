@@ -17,8 +17,9 @@ both call these, so that each tolerance is stated once. Every check raises
 - ``compare_space``: the row-sharded eval forward (``--space``) against the
   unsharded forward.
 - ``check_ddp_step``: train steps through ``parallel.mesh.data_parallel``
-  on a world of one rank against the bare ``TrainStep`` from the same seed
-  (bit for bit where the step is deterministic).
+  on a world of one rank against runs of the bare ``TrainStep`` from the
+  same seed, within a multiple of their own run-to-run noise (bit for bit
+  where the step is deterministic).
 - ``compare_debug_dumps``: the debug dumps (``utils/debug.py``) of a
   device against the CPU's.
 
@@ -593,7 +594,9 @@ def compare_space(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor], d
     """Hold the stage outputs ``got`` of a row-sharded forward to the
     unsharded ``want`` (``{"stage{i}": {"depth", "photometric_confidence",
     ...}}``): every stage's depth and the last stage's confidence, at the
-    limits above for ``dtype``. Returns the agreements per stage."""
+    limits above for ``dtype``; in either dtype the confidence finite (or
+    not) at the same pixels but for ``1 - SPACE_AGREEMENT`` of them.
+    Returns the agreements per stage."""
     out: Dict[str, object] = {}
     last = sorted(want)[-1]
     for key in sorted(want):
@@ -611,9 +614,14 @@ def compare_space(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor], d
         if key == last:
             gc = got[key]["photometric_confidence"].float().cpu()
             wc = want[key]["photometric_confidence"].float().cpu()
-            both = torch.isfinite(gc) & torch.isfinite(wc)
-            conf = torch.isclose(gc[both], wc[both], rtol=SPACE_CONF_TOL[0],
-                                 atol=SPACE_CONF_TOL[1]).float().mean().item()
+            # over every pixel: one finite and one not disagree, in any dtype
+            conf = torch.isclose(gc, wc, rtol=SPACE_CONF_TOL[0], atol=SPACE_CONF_TOL[1],
+                                 equal_nan=True).float().mean().item()
+            mismatch = (torch.isfinite(gc) != torch.isfinite(wc)).float().mean().item()
+            row["confidence_finite_mismatch"] = mismatch
+            if mismatch > 1.0 - SPACE_AGREEMENT:
+                raise AssertionError(f"{what} {key}: confidence finite at other pixels "
+                                     f"({mismatch} of them)")
             row["confidence_agreement"] = conf
             if dtype == torch.float32 and conf < SPACE_AGREEMENT:
                 raise AssertionError(f"{what} {key}: confidence agreement {conf}")
@@ -624,94 +632,226 @@ def compare_space(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor], d
 # ------------------------------------------------ the data-parallel step --
 
 DDP_LR = 1e-3
+DDP_WD = 1e-4
 # the first step's loss and BatchNorm statistics, data-parallel against
-# bare, relative to max(1, |value|): float32 rounding of another algorithm
+# bare, relative to max(1, |value|): float32 rounding of another algorithm;
+# the first update against Adam replayed on the step's own gradients
 DDP_FIRST_STEP_RTOL = 1e-6
+# bare runs from the same seed; their pairwise gaps are the step's
+# run-to-run noise (on the card K3 sums with float32 atomics, whose order
+# varies from run to run; on the CPU the step is deterministic: no noise)
+DDP_BARE_RUNS = 4
+# a data-parallel run's gap from the bare runs (its median gap to them)
+# may be this multiple of the largest gap between two bare runs. A
+# tensor's gradient may reach this multiple of its own noise or of the
+# whole gradient's: a few tensors' gradients (the FPN's 1x1 weights in
+# bf16) take one of a few values run to run, so four runs can all land on
+# one of them
+DDP_NOISE_MULT = 4.0
+# a loss after the first update may besides be off by this share of what
+# that update moved the bare loss: one scalar's spread over four runs is a
+# poor estimate of its noise (they land close together by chance)
+DDP_LOSS_FLOOR = 0.02
+_BN_STATS = ("running_mean", "running_var")
+
+
+def _params(model) -> Dict[str, torch.Tensor]:
+    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
 
 
 def _ddp_run(make_model, batch, steps: int, dp_impl: Optional[str], device):
-    """``steps`` recipe-loss Adam steps (lr ``DDP_LR``, wd 1e-4) of a fresh
-    ``make_model()`` on ``batch``, bare or through ``data_parallel``: the
-    losses, the state after the first step and after the last, and the host
-    ms of each step (to its loss on the host)."""
+    """``steps`` recipe-loss Adam steps (lr ``DDP_LR``, wd ``DDP_WD``) of a
+    fresh ``make_model()`` on ``batch``, bare or through ``data_parallel``:
+    the losses; the parameters before and after the first step, the first
+    step's gradients as the optimizer takes them (after DDP's reduction)
+    and the BatchNorm statistics after it; the state after the last step;
+    the host ms of each step (to its loss on the host). Tensors on the CPU
+    in float32."""
     from .parallel.mesh import data_parallel
     from .train.step import make_optimizer, make_train_step
 
     model = make_model()
-    step = make_train_step(model, RECIPE_LOSS, make_optimizer(model, 1e-4), lambda i: DDP_LR)
+    optimizer = make_optimizer(model, DDP_WD)
+    step = make_train_step(model, RECIPE_LOSS, optimizer, lambda i: DDP_LR)
     if dp_impl is not None:
         data_parallel(step, dp_impl, device=device)
-    losses, ms, states = [], [], []
+    run: Dict[str, object] = {"params0": _params(model), "grads": {}, "losses": [], "ms": []}
+
+    def first_grads(opt, args, kwargs):
+        if not run["grads"]:
+            run["grads"] = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+                            for n, p in model.named_parameters()}
+
+    def state():
+        return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+
+    hook = optimizer.register_step_pre_hook(first_grads)
     for i in range(steps):
         t0 = time.perf_counter()
-        losses.append(step(batch)["loss"].item())
-        ms.append((time.perf_counter() - t0) * 1e3)
-        if i in (0, steps - 1):
-            states.append({k: v.detach().clone() for k, v in model.state_dict().items()})
-    return {"losses": losses, "first": states[0], "last": states[-1], "ms": ms}
+        run["losses"].append(step(batch)["loss"].item())
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            run["params1"] = _params(model)
+            run["first_bn"] = {k: v for k, v in state().items() if k.endswith(_BN_STATS)}
+    hook.remove()
+    run["last"] = state()
+    return run
 
 
-def _state_gaps(a, b) -> Dict[str, float]:
-    """The largest gap between two states, in the parameters and in the
-    BatchNorm running statistics, each relative to max(1, max|value|) of
-    its tensor (inf where the BatchNorm update counts differ)."""
-    gaps = {"params": 0.0, "bn_stats": 0.0}
-    for k, v in b.items():
-        if k.endswith("num_batches_tracked"):
-            if not torch.equal(a[k], v):
-                gaps["bn_stats"] = float("inf")
-            continue
-        gap = ((a[k].float() - v.float()).abs().max() / max(1.0, v.abs().max().item())).item()
-        group = "bn_stats" if k.endswith(("running_mean", "running_var")) else "params"
-        gaps[group] = max(gaps[group], gap)
-    return gaps
+def _replayed_update(run: Dict, device) -> float:
+    """The largest gap, relative to max(1, max|value|) of its tensor,
+    between the parameters after ``run``'s first step and a fresh Adam step
+    (``make_optimizer``, lr ``DDP_LR``) from its initial parameters on its
+    own first gradients, on ``device``: the update is the one the
+    gradients held above call for."""
+    from .train.step import make_optimizer
+
+    params = torch.nn.ParameterList(
+        [torch.nn.Parameter(v.to(device)) for v in run["params0"].values()])
+    optimizer = make_optimizer(params, DDP_WD)
+    for group in optimizer.param_groups:
+        group["lr"] = DDP_LR
+    for p, name in zip(params, run["params0"]):
+        p.grad = run["grads"][name].to(device)
+    optimizer.step()
+    return max(_max_rel(run["params1"][name], p.detach().cpu())
+               for p, name in zip(params, run["params0"]))
 
 
-def check_ddp_step(device, dp_impl: str, make_model, batch, steps: int = 3) -> Dict[str, object]:
-    """``steps`` train steps through ``data_parallel(step, dp_impl)`` on a
-    world of one rank (the default process group must exist) against the
-    bare ``TrainStep``, each from a fresh ``make_model()``, twice bare (the
-    bare step's own run-to-run gap: on the card the warp backward K3 sums
-    with float32 atomics, whose order varies from run to run, and the
-    float32 gradient of this network is ill-conditioned):
+def _rel_l2(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor], names) -> float:
+    """``||a - b|| / ||b||`` over the tensors ``names`` taken as one vector
+    (``||a - b||`` where ``b`` is 0)."""
+    num = sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in names)
+    den = sum(float((b[n].double() ** 2).sum()) for n in names)
+    return float(np.sqrt(num / den if den else num))
+
+
+def _ddp_gaps(a: Dict, b: Dict) -> Dict[str, object]:
+    """The gaps of run ``a`` from run ``b``: the first step's gradients
+    (all of them, and each tensor's; the reg nets' ``prob.bias`` left out,
+    as in ``grad_gaps``), the BatchNorm statistics and the parameters after
+    the last step, each a relative L2 gap (``_rel_l2``); the losses after
+    the first update, absolute."""
+    names = [n for n in b["grads"] if not n.endswith("prob.bias")]
+    stats = [k for k in b["last"] if k.endswith(_BN_STATS)]
+    return {"grads": _rel_l2(a["grads"], b["grads"], names),
+            "grad_tensors": {n: _rel_l2(a["grads"], b["grads"], [n]) for n in names},
+            "bn_stats_last": _rel_l2(a["last"], b["last"], stats),
+            "params_last": _rel_l2(a["last"], b["last"], list(b["grads"])),
+            "losses": [abs(x - y) for x, y in zip(a["losses"][1:], b["losses"][1:])]}
+
+
+def _gap_stat(gaps, reduce):
+    """``reduce`` (max or median) over a list of ``_ddp_gaps``, leaf by
+    leaf."""
+    first = gaps[0]
+    if isinstance(first, dict):
+        return {k: _gap_stat([g[k] for g in gaps], reduce) for k in first}
+    if isinstance(first, list):
+        return [_gap_stat([g[i] for g in gaps], reduce) for i in range(len(first))]
+    return float(reduce(gaps))
+
+
+def check_ddp_step(device, make_model, batch, steps: int = 3,
+                   dp_impls=("gspmd", "shard_map")) -> Dict[str, object]:
+    """``steps`` train steps through ``data_parallel(step, dp_impl)`` for
+    each of ``dp_impls``, on a world of one rank (the default process group
+    must exist), against ``DDP_BARE_RUNS`` runs of the bare ``TrainStep``,
+    each run from a fresh ``make_model()``. The bare runs' largest pairwise
+    gap (``_ddp_gaps``) is the step's run-to-run noise; a data-parallel
+    run's gap is its median gap to the bare runs. Each data-parallel run
+    holds:
 
     - the first step's loss and the BatchNorm running statistics after it
-      (the forward's work, before any update) within ``DDP_FIRST_STEP_RTOL``
-      (bit for bit but for the convolution library's choice of algorithm,
-      which may follow the free memory, and with it the rounding);
-    - the parameters after every step within ``2 * DDP_LR * steps`` of
-      max(1, max|value|) of each tensor: an Adam step moves an entry by
-      about the learning rate whatever its gradient's size, so any
-      difference in the gradients moves it by at most twice that;
-    - the losses finite.
+      (the forward's work, before any update) within
+      ``DDP_FIRST_STEP_RTOL`` of the first bare run's;
+    - a nonzero gradient on every parameter (the ``prob.bias`` need none);
+    - the first step's gradients, as the optimizer takes them after DDP's
+      reduction, within ``DDP_NOISE_MULT`` times the noise: all of them
+      together, and each tensor's (module constants). Where the step is
+      deterministic that is bit for bit. A zeroed, lost, scaled or
+      misplaced gradient breaks this, where Adam's update, about the
+      learning rate whatever the gradient's size, would hide it;
+    - the parameters after the first step within ``DDP_FIRST_STEP_RTOL`` of
+      Adam replayed on those gradients (``_replayed_update``);
+    - the BatchNorm statistics after the last step within
+      ``DDP_NOISE_MULT`` times the noise;
+    - each loss after the first update within ``DDP_NOISE_MULT`` times the
+      bare runs' spread of that loss, or ``DDP_LOSS_FLOOR`` of what the
+      first update moved the bare loss, whichever is larger, of the bare
+      runs' median; every loss finite.
 
-    Returns the gaps (the run-to-run gaps of the bare step beside them) and
-    the host ms per step after the first, of both."""
+    The parameters after the last step are reported beside their noise, not
+    held: Adam moves an entry whose gradient is near zero by about the
+    learning rate either way, so their gap from run to run takes one of a
+    few sizes, as many entries flip sign, and a multiple of four runs' gap
+    would fail by chance; what moves them, the gradients and the update,
+    is held above. Returns the noise, and per run its gaps, losses and the
+    host ms per step after the first, beside the bare step's."""
     import torch.distributed as dist
 
     if not dist.is_initialized() or dist.get_world_size() != 1:
         raise RuntimeError("check_ddp_step needs a default process group of one rank")
-    bare = _ddp_run(make_model, batch, steps, None, device)
-    again = _ddp_run(make_model, batch, steps, None, device)
-    ddp = _ddp_run(make_model, batch, steps, dp_impl, device)
-    first, last = _state_gaps(ddp["first"], bare["first"]), _state_gaps(ddp["last"], bare["last"])
-    what = f"data_parallel {dp_impl} on {device}"
-    loss_gap = abs(ddp["losses"][0] - bare["losses"][0]) / max(1.0, abs(bare["losses"][0]))
-    if loss_gap > DDP_FIRST_STEP_RTOL or first["bn_stats"] > DDP_FIRST_STEP_RTOL:
-        raise AssertionError(f"{what}: first loss {ddp['losses'][0]} (bare "
-                             f"{bare['losses'][0]}), BatchNorm gap {first['bn_stats']}")
-    if last["params"] > 2 * DDP_LR * steps or not np.isfinite(ddp["losses"]).all():
-        raise AssertionError(f"{what}: parameter gap {last['params']}, losses {ddp['losses']}")
-    return {"dp_impl": dp_impl, "steps": steps,
-            "first_loss_bit_equal": loss_gap == 0, "first_bn_stats_bit_equal":
-                first["bn_stats"] == 0,
-            "gaps_after_first": first, "gaps_after_last": last,
-            "bare_run_to_run_after_first": _state_gaps(again["first"], bare["first"]),
-            "bare_run_to_run_after_last": _state_gaps(again["last"], bare["last"]),
-            "losses": ddp["losses"], "bare_losses": bare["losses"],
-            "bare_again_losses": again["losses"],
-            "ms_per_step": float(np.median(ddp["ms"][1:] or ddp["ms"])),
-            "bare_ms_per_step": float(np.median(bare["ms"][1:] or bare["ms"]))}
+    bare = [_ddp_run(make_model, batch, steps, None, device) for _ in range(DDP_BARE_RUNS)]
+    noise = _gap_stat([_ddp_gaps(a, b) for i, b in enumerate(bare) for a in bare[i + 1:]], max)
+    bare_losses = np.array([r["losses"] for r in bare])
+    centre = np.median(bare_losses, axis=0)
+    floor = DDP_LOSS_FLOOR * abs(centre[1] - centre[0]) if steps > 1 else 0.0
+    loss_limits = [max(DDP_NOISE_MULT * (hi - lo), floor)
+                   for hi, lo in zip(bare_losses.max(0)[1:], bare_losses.min(0)[1:])]
+    out = {"steps": steps, "bare_runs": DDP_BARE_RUNS, "noise_mult": DDP_NOISE_MULT,
+           "noise": {k: v for k, v in noise.items() if k != "grad_tensors"},
+           "bare_losses": bare_losses.tolist(), "loss_limits": loss_limits,
+           "bare_ms_per_step": float(np.median([m for r in bare for m in r["ms"][1:]]
+                                               or bare[0]["ms"])),
+           "impls": []}
+    for dp_impl in dp_impls:
+        run = _ddp_run(make_model, batch, steps, dp_impl, device)
+        what = f"data_parallel {dp_impl} on {device}"
+        ref = bare[0]
+        loss_gap = abs(run["losses"][0] - ref["losses"][0]) / max(1.0, abs(ref["losses"][0]))
+        bn_gap = max((_max_rel(run["first_bn"][k], v) for k, v in ref["first_bn"].items()),
+                     default=0.0)
+        if loss_gap > DDP_FIRST_STEP_RTOL or bn_gap > DDP_FIRST_STEP_RTOL:
+            raise AssertionError(f"{what}: first loss {run['losses'][0]} (bare "
+                                 f"{ref['losses'][0]}), BatchNorm gap {bn_gap}")
+        for name, g in run["grads"].items():
+            if not name.endswith("prob.bias") and g.abs().max().item() == 0.0:
+                raise AssertionError(f"{what}: no gradient on {name}")
+        gap = _gap_stat([_ddp_gaps(run, b) for b in bare], np.median)
+        for key in ("grads", "bn_stats_last"):
+            if not gap[key] <= DDP_NOISE_MULT * noise[key]:
+                raise AssertionError(f"{what}: {key} gap {gap[key]}, bare runs' {noise[key]}")
+        limits = {n: DDP_NOISE_MULT * max(v, noise["grads"])
+                  for n, v in noise["grad_tensors"].items()}
+
+        def share(n):
+            g, limit = gap["grad_tensors"][n], limits[n]
+            return g / limit if limit else (float("inf") if g else 0.0)
+
+        worst = max(limits, key=share)
+        if share(worst) > 1.0:
+            raise AssertionError(f"{what}: gradient of {worst} gap {gap['grad_tensors'][worst]}, "
+                                 f"bare runs' {noise['grad_tensors'][worst]}")
+        update_gap = _replayed_update(run, device)
+        if update_gap > DDP_FIRST_STEP_RTOL:
+            raise AssertionError(f"{what}: first update {update_gap} from Adam's on its gradients")
+        off = np.abs(np.array(run["losses"][1:]) - centre[1:])
+        if not np.isfinite(run["losses"]).all() or (off > loss_limits).any():
+            raise AssertionError(f"{what}: losses {run['losses']}, bare {bare_losses.tolist()}, "
+                                 f"limits {loss_limits}")
+        out["impls"].append({
+            "dp_impl": dp_impl, "losses": run["losses"],
+            "first_loss_bit_equal": loss_gap == 0, "first_bn_stats_bit_equal": bn_gap == 0,
+            "gaps": {k: v for k, v in gap.items() if k != "grad_tensors"},
+            "worst_grad_tensor": {"name": worst, "gap": gap["grad_tensors"][worst],
+                                  "noise": noise["grad_tensors"][worst],
+                                  "limit": limits[worst], "share_of_limit": share(worst)},
+            "first_update_vs_replayed_adam": update_gap,
+            "loss_offsets": off.tolist(),
+            "ms_per_step": float(np.median(run["ms"][1:] or run["ms"]))})
+    return out
 
 
 # --------------------------------------------------------- the debug dumps --

@@ -273,6 +273,7 @@ def main(argv=None):
                               rank_in_host=mesh.local_rank, ranks_in_host=mesh.local_world,
                               **hosts)
     val_loader = DataLoader(val_ds, args.batch_size, num_workers=args.dataloader_workers,
+                            rank_in_host=mesh.local_rank, ranks_in_host=mesh.local_world,
                             **hosts)
 
     host0 = is_host0()
@@ -301,7 +302,7 @@ def main(argv=None):
         from ..train.loop import fit
 
         return fit(model, train_loader, val_loader, tcfg, lcfg, logdir=args.logdir,
-                   device=device, resume=args.resume, mesh=mesh, dp_impl=args.dp_impl)
+                   device=device, resume=args.resume, dp_impl=args.dp_impl)
     if args.mode == "test":
         # the reference's --mode test crashes on an out-of-scope optimizer
         # (train_mvs4.py:271); a working validation sweep, as in JAX

@@ -53,7 +53,10 @@ class DataLoader:
       rank_in_host / ranks_in_host: load only this rank's contiguous share
         of each host batch (``ranks_in_host`` must divide ``batch_size``;
         ``parallel.mesh.split_batch`` of the host batch, without decoding
-        the other ranks' samples).
+        the other ranks' samples). A trailing batch that the ranks do not
+        divide (``drop_last=False``) is first wrapped up to a multiple of
+        them (``parallel.mesh.pad_batch_to_multiple``), and each rank's
+        share of it carries the float32 ``valid`` mask (1 real, 0 padded).
     """
 
     def __init__(
@@ -71,9 +74,9 @@ class DataLoader:
         rank_in_host: int = 0,
         ranks_in_host: int = 1,
     ):
-        if batch_size % ranks_in_host or (ranks_in_host > 1 and not drop_last):
+        if batch_size % ranks_in_host:
             raise ValueError(f"batch_size {batch_size} does not split over "
-                             f"{ranks_in_host} ranks of a host (or a trailing batch is kept)")
+                             f"{ranks_in_host} ranks of a host")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -115,18 +118,33 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _share(self, batch: np.ndarray) -> Dict[str, np.ndarray]:
+        """This rank's share of the host batch of indices ``batch``:
+        ``{"i": indices}``, with ``valid`` where the batch was padded."""
+        share = {"i": batch}
+        if self.ranks_in_host > 1:
+            from ..parallel.mesh import pad_batch_to_multiple, split_batch
+
+            share = split_batch(pad_batch_to_multiple(share, self.ranks_in_host),
+                                self.rank_in_host, self.ranks_in_host)
+        return share
+
+    def _collate(self, share: Dict[str, np.ndarray], samples) -> Dict[str, Any]:
+        batch = collate(samples)
+        if "valid" in share:
+            batch["valid"] = share["valid"]
+        return batch
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         indices = self._indices()
         n_batches = len(self)
-        share = self.batch_size // self.ranks_in_host
-        first = self.rank_in_host * share
-        batches = [
-            indices[i * self.batch_size : (i + 1) * self.batch_size][first : first + share]
+        shares = [
+            self._share(indices[i * self.batch_size : (i + 1) * self.batch_size])
             for i in range(n_batches)
         ]
         if self.num_workers <= 0:
-            for b in batches:
-                yield collate([self.dataset[int(i)] for i in b])
+            for s in shares:
+                yield self._collate(s, [self.dataset[int(i)] for i in s["i"]])
             return
 
         out_q: "queue.Queue" = queue.Queue(maxsize=max(1, self.prefetch))
@@ -137,11 +155,11 @@ class DataLoader:
 
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                    for b in batches:
+                    for s in shares:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__, map(int, b)))
-                        out_q.put(collate(samples))
+                        samples = list(pool.map(self.dataset.__getitem__, map(int, s["i"])))
+                        out_q.put(self._collate(s, samples))
             except BaseException as e:  # surface worker errors to the consumer
                 out_q.put(e)
             finally:

@@ -7,12 +7,14 @@ processes that ``torchrun`` starts, one a card:
 - ``init_distributed``: the process group from torchrun's ``RANK`` /
   ``WORLD_SIZE`` / ``LOCAL_RANK`` (``nccl`` for the card, ``gloo`` for the
   CPU); a no-op in a process that no launcher started;
-- ``host_mesh``: the ``(data, space)`` layout of the ranks, and each rank's
-  device;
+- ``host_mesh``: the layout of the ranks over hosts, and each rank's
+  device (training shards the batch over every rank; the eval's
+  ``(data, space)`` layout is ``mesh.sharded_eval_forward``'s device list);
 - ``is_host0``: rank gating for logging and checkpoints;
 - ``sync_hosts``: a barrier;
-- ``reduce_scalars_across_hosts``: the mean of a scalar dict over the ranks
-  (reference ``reduce_scalar_outputs``, ``utils.py:187-205``);
+- ``mean_scalars``: the mean of a dict of 0-d tensors over the ranks
+  (reference ``reduce_scalar_outputs``, ``utils.py:187-205``), and
+  ``reduce_scalars_across_hosts``, the same for floats;
 - ``all_reduce_sum`` and ``global_mean``: the differentiable sum over a
   process group and the global masked mean that the global-batch
   BatchNorm, the loss and the metrics use under ``dp_impl="gspmd"``.
@@ -43,44 +45,35 @@ def rank(group=None) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
-    """The ranks' layout, the port's ``(data, space)`` mesh: ``world`` ranks
-    over ``world // local_world`` hosts (``host`` is this rank's), this
-    rank's ``rank`` and ``local_rank`` within its host, and ``space`` ranks
-    of a host on one image's rows (training uses ``space == 1``: every
-    rank is a ``data`` shard)."""
+    """The ranks' layout: ``world`` ranks over ``world // local_world``
+    hosts (``host`` is this rank's), this rank's ``rank`` and its
+    ``local_rank`` within its host. Every rank is a data shard."""
 
     rank: int = 0
     world: int = 1
     local_rank: int = 0
     local_world: int = 1
     host: int = 0
-    space: int = 1
 
     @property
     def hosts(self) -> int:
         return self.world // self.local_world
-
-    @property
-    def data(self) -> int:
-        return self.world // self.space
 
     def device(self, kind: str = "cuda") -> torch.device:
         """This rank's device: ``cuda:local_rank`` on the card, else the CPU."""
         return torch.device(f"cuda:{self.local_rank}") if kind == "cuda" else torch.device("cpu")
 
 
-def host_mesh(space: int = 1) -> HostMesh:
+def host_mesh() -> HostMesh:
     """The layout of this process from torchrun's environment (one process:
     rank 0 of 1)."""
     world = _env_int("WORLD_SIZE", 1)
     local_world = _env_int("LOCAL_WORLD_SIZE", world)
-    if world % local_world or local_world % space:
-        raise ValueError(f"world {world}, ranks per host {local_world}, space {space}: "
-                         "uneven layout")
+    if world % local_world:
+        raise ValueError(f"world {world}, ranks per host {local_world}: uneven layout")
     return HostMesh(rank=_env_int("RANK", 0), world=world,
                     local_rank=_env_int("LOCAL_RANK", 0), local_world=local_world,
-                    host=_env_int("GROUP_RANK", _env_int("RANK", 0) // local_world),
-                    space=space)
+                    host=_env_int("GROUP_RANK", _env_int("RANK", 0) // local_world))
 
 
 def init_distributed(device_kind: str = "cuda") -> HostMesh:
@@ -116,18 +109,6 @@ def _collective_device(group=None) -> torch.device:
     return torch.device("cpu")
 
 
-def reduce_scalars_across_hosts(scalars: Dict[str, float], group=None) -> Dict[str, float]:
-    """Mean of each scalar over the ranks, the same dict on every rank."""
-    n = world_size(group)
-    if n == 1:
-        return {k: float(v) for k, v in scalars.items()}
-    keys = sorted(scalars)
-    vec = torch.tensor([float(scalars[k]) for k in keys], dtype=torch.float64,
-                       device=_collective_device(group))
-    dist.all_reduce(vec, group=group)
-    return {k: float(x) / n for k, x in zip(keys, vec.tolist())}
-
-
 def mean_tensors_across_ranks(tensors, group=None) -> None:
     """Replace each float tensor of ``tensors`` (on one device) by its mean
     over the ranks of ``group``, with one ``all_reduce``."""
@@ -155,6 +136,15 @@ def mean_scalars(scalars: Dict[str, torch.Tensor], group=None) -> Dict[str, torc
     values = [scalars[k].detach().float().clone() for k in keys]
     mean_tensors_across_ranks(values, group)
     return dict(zip(keys, values))
+
+
+def reduce_scalars_across_hosts(scalars: Dict[str, float], group=None) -> Dict[str, float]:
+    """``mean_scalars`` of a dict of floats: each one's mean over the ranks,
+    the same dict on every rank."""
+    dev = _collective_device(group) if world_size(group) > 1 else torch.device("cpu")
+    means = mean_scalars({k: torch.tensor(float(v), device=dev) for k, v in scalars.items()},
+                         group)
+    return {k: float(v) for k, v in means.items()}
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -8,13 +8,13 @@ train steps with the scalars and images logged every ``summary_freq``
 steps, a checkpoint every ``save_freq`` epochs, and validation with a
 ``DictAverageMeter`` every ``eval_freq``-th epoch and after the last one.
 
-Data-parallel over the ranks of the default process group (``mesh``, its
-layout, from ``parallel.init_distributed``): the train step becomes this
-rank's share of one (``parallel.mesh.data_parallel``, ``dp_impl`` ``gspmd``
-or ``shard_map``); each validation batch is padded to a multiple of the
-host's ranks (``pad_batch_to_multiple``) and split over them, its scalars
-those of the whole batch; rank 0 alone prints, logs and writes
-checkpoints.
+Data-parallel over the ranks of the default process group (from
+``parallel.init_distributed``), the loaders giving each rank its share of
+its host's batches (``DataLoader(rank_in_host=, ranks_in_host=)``, a
+trailing validation batch padded to the ranks): the train step becomes
+this rank's share of one (``parallel.mesh.data_parallel``, ``dp_impl``
+``gspmd`` or ``shard_map``); the validation scalars are those of the whole
+batch; rank 0 alone prints, logs and writes checkpoints.
 
 ``metrics.jsonl`` gets the JAX package's records (``train``, ``test`` and
 ``fulltest``, with the same steps and scalars); besides, each ``train``
@@ -27,23 +27,19 @@ host).
 from __future__ import annotations
 
 import time
-from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from ..config import LossConfig, TrainConfig
 from ..data.synthetic import batch_to_torch
-from ..parallel import HostMesh, data_parallel, is_host0, pad_batch_to_multiple, split_batch
+from ..parallel import data_parallel, is_host0
 from ..parallel.distributed import sync_hosts
 from .checkpoint import find_latest_checkpoint, restore_checkpoint, save_checkpoint
 from .logging import MetricWriter, format_progress
 from .metrics import DictAverageMeter
 from .schedule import make_schedule
 from .step import TrainStep, make_eval_step, make_optimizer, make_train_step
-
-
-_SAMPLE_KEYS = ("imgs", "proj_matrices", "depth", "depth_values", "mask")
 
 
 def _images_to_host(images):
@@ -60,12 +56,11 @@ def fit(
     logdir: str,
     device: torch.device,
     resume: bool = False,
-    mesh: Optional[HostMesh] = None,
     dp_impl: str = "gspmd",
 ) -> TrainStep:
     """Train ``model`` (on ``device``) for ``train_cfg.epochs`` epochs of
-    ``train_loader`` (numpy batches, copied to ``device`` per step; with
-    ``mesh``, this rank's share of its host's batch); returns the
+    ``train_loader`` (numpy batches, copied to ``device`` per step; in a
+    process group, this rank's share of its host's batch); returns the
     ``TrainStep``, which holds the model, the optimizer and the step
     count."""
     steps_per_epoch = len(train_loader)
@@ -81,7 +76,6 @@ def fit(
     )
     optimizer = make_optimizer(model, train_cfg.weight_decay)
     train_step = make_train_step(model, loss_cfg, optimizer, schedule, with_images=True)
-    mesh = mesh or HostMesh()
     host0 = is_host0()
     group = None
     if dist.is_initialized():
@@ -99,14 +93,6 @@ def fit(
     eval_step = make_eval_step(model, loss_cfg, with_images=True, group=group)
     writer = MetricWriter(logdir) if host0 else None
     put = lambda b: batch_to_torch(b, device)  # noqa: E731
-
-    def put_val(b):
-        if mesh.world == 1:
-            return put(b)
-        # drop_last=False (reference train_mvs4.py:595): wrap-pad the
-        # trailing batch to the host's ranks, then take this rank's slice
-        b = pad_batch_to_multiple({k: b[k] for k in _SAMPLE_KEYS if k in b}, mesh.local_world)
-        return put(split_batch(b, mesh.local_rank, mesh.local_world))
 
     for epoch in range(start_epoch, train_cfg.epochs):
         if host0:
@@ -135,7 +121,7 @@ def fit(
             meter = DictAverageMeter()
             for it, batch in enumerate(val_loader):
                 t0 = time.perf_counter()
-                scalars, images = eval_step(put_val(batch))
+                scalars, images = eval_step(put(batch))
                 scalars = {k: float(v) for k, v in scalars.items()}
                 dt = time.perf_counter() - t0
                 meter.update(scalars)

@@ -893,9 +893,9 @@ def test_world_one_ddp_step_matches_the_bare_step(dev, dp_impl, tmp_path):
     """Two float32 train steps through ``data_parallel`` on an NCCL group of
     one rank (a ``file://`` store) against the bare ``TrainStep`` from the
     same seed (``checks.check_ddp_step``: the first loss and BatchNorm
-    statistics to float32 rounding, the parameters within what Adam's
-    steps can move; K3's float32 atomics make the rest vary from run to
-    run)."""
+    statistics to float32 rounding; the first step's gradients, the state
+    after the last step and the second loss within a multiple of the bare
+    runs' own run-to-run gaps, which K3's float32 atomics make)."""
     import torch.distributed as dist
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
@@ -908,7 +908,62 @@ def test_world_one_ddp_step_matches_the_bare_step(dev, dp_impl, tmp_path):
         def make_model():
             return MVS4Net(cfg, device=dev, generator=torch.Generator().manual_seed(3))
 
-        out = checks.check_ddp_step(dev, dp_impl, make_model, checks.small_step_batch(dev), 2)
+        out = checks.check_ddp_step(dev, make_model, checks.small_step_batch(dev), 2,
+                                    dp_impls=(dp_impl,))
     finally:
         dist.destroy_process_group()
-    assert out["steps"] == 2 and np.isfinite(out["losses"]).all()
+    (run,) = out["impls"]
+    assert out["steps"] == 2 and np.isfinite(run["losses"]).all()
+
+
+def _broken_reduction(kind: str):
+    """``parallel.mesh.data_parallel`` with a DDP communication hook that
+    breaks the gradients' reduction: ``zero`` them, ``half`` them, scale
+    them by ``1.01``, or ``roll`` each bucket by one entry (every
+    gradient's entries moved to their neighbour's place)."""
+    from unittest import mock
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel import mesh
+
+    def hook(state, bucket):
+        buf = bucket.buffer()
+        if kind == "roll":
+            buf.copy_(buf.roll(1))
+        else:
+            buf.mul_({"zero": 0.0, "half": 0.5, "1.01": 1.01}[kind])
+        fut = torch.futures.Future()
+        fut.set_result(buf)
+        return fut
+
+    real = mesh.data_parallel
+
+    def data_parallel(step, dp_impl="gspmd", *, device=None):
+        real(step, dp_impl, device=device)
+        step.dp.runner.register_comm_hook(None, hook)
+        return step
+
+    return mock.patch.object(mesh, "data_parallel", data_parallel)
+
+
+@pytest.mark.parametrize("kind", ["zero", "1.01"])
+def test_world_one_ddp_check_fails_on_a_broken_reduction(dev, kind, tmp_path):
+    """``checks.check_ddp_step`` on the card raises where DDP's reduction
+    zeroes the gradients or scales them by 1.01 (``_broken_reduction``),
+    which the bare runs' noise (K3's atomics) does not hide."""
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        cfg = checks.small_step_model().cfg
+
+        def make_model():
+            return MVS4Net(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+
+        with _broken_reduction(kind), pytest.raises(AssertionError, match="gradient|grads"):
+            checks.check_ddp_step(dev, make_model, checks.small_step_batch(dev), 2,
+                                  dp_impls=("gspmd",))
+    finally:
+        dist.destroy_process_group()

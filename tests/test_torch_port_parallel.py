@@ -122,14 +122,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_workers(dp_impl: str, spec_path: Path, out_path: Path, world: int = 2):
+def _start_workers(dp_impl: str, spec_path: Path, out_path: Path, world: int = 2):
+    """Start the ``world`` gloo ranks; ``_finish_workers`` waits for them,
+    so that the caller's own work runs meanwhile."""
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
     port = _free_port()
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, str(WORKER), str(r), str(world), str(port), dp_impl,
          str(spec_path), str(out_path)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
+        for r in range(world)], out_path
+
+
+def _finish_workers(started):
+    """Wait for the ranks (each within ``WORKER_TIMEOUT_S``, killed past
+    it) and return what rank 0 wrote."""
+    procs, out_path = started
     logs = []
     try:
         for p in procs:
@@ -138,6 +146,7 @@ def _run_workers(dp_impl: str, spec_path: Path, out_path: Path, world: int = 2):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+                p.wait()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     return torch.load(out_path, weights_only=False)
@@ -268,8 +277,11 @@ def test_two_process_train_step_matches_jax_mesh_step(setup, dp_impl, tmp_path):
     steps on each rank's share; scalars, gradients (but the reg nets'
     ``prob.bias``, analytically zero) and the state after the step within
     1e-4 of max(1, max|value|) (measured <= 1.4e-5)."""
-    got = _run_workers(dp_impl, setup["spec"], tmp_path / "out.pt")
-    want = _jax_mesh_step(setup, dp_impl)
+    started = _start_workers(dp_impl, setup["spec"], tmp_path / "out.pt")
+    try:
+        want = _jax_mesh_step(setup, dp_impl)
+    finally:
+        got = _finish_workers(started)
     js, ts = want["scalars"], got["scalars"]
     assert ts.keys() == js.keys()
     np.testing.assert_allclose(ts["loss"], js["loss"], rtol=1e-5)
@@ -342,9 +354,11 @@ class _Indexed:
 
 def test_loader_rank_shares_cover_the_host_batch():
     """A host's ranks (``rank_in_host`` of ``ranks_in_host``) load the
-    contiguous shares of the one-rank loader's batches, in order; a batch
-    size they do not divide raises; one process is rank 0 of 1 and its
-    helpers are no-ops."""
+    contiguous shares of the one-rank loader's batches, in order; with
+    ``drop_last=False`` the trailing batch is wrapped up to the ranks
+    (``pad_batch_to_multiple``), each share with its ``valid`` mask, with
+    threads as without; a batch size they do not divide raises; one process
+    is rank 0 of 1 and its helpers are no-ops."""
     whole = [b["i"] for b in DataLoader(_Indexed(), 6, shuffle=True, drop_last=True,
                                         num_workers=0, seed=3)]
     shares = [[b["i"] for b in DataLoader(_Indexed(), 6, shuffle=True, drop_last=True,
@@ -352,6 +366,20 @@ def test_loader_rank_shares_cover_the_host_batch():
                                           ranks_in_host=3)] for r in range(3)]
     for k, batch in enumerate(whole):
         np.testing.assert_array_equal(np.concatenate([s[k] for s in shares]), batch)
+    # 5 samples in batches of 4 over 2 ranks: 4, then 1 padded to 2 (the
+    # sample twice, valid 1 then 0)
+    ds = [{"i": np.asarray(i)} for i in range(5)]
+    for workers in (0, 2):
+        got = [list(DataLoader(ds, 4, num_workers=workers, rank_in_host=r, ranks_in_host=2))
+               for r in range(2)]
+        assert [len(g) for g in got] == [2, 2]
+        np.testing.assert_array_equal(got[0][0]["i"], [0, 1])
+        np.testing.assert_array_equal(got[1][0]["i"], [2, 3])
+        assert all("valid" not in g[0] for g in got)
+        np.testing.assert_array_equal(got[0][1]["i"], [4])
+        np.testing.assert_array_equal(got[1][1]["i"], [4])
+        np.testing.assert_array_equal(got[0][1]["valid"], [1.0])
+        np.testing.assert_array_equal(got[1][1]["valid"], [0.0])
     with pytest.raises(ValueError, match="split"):
         DataLoader(_Indexed(), 6, drop_last=True, ranks_in_host=4)
     assert reduce_scalars_across_hosts({"a": 2}) == {"a": 2.0}
@@ -376,9 +404,10 @@ def test_world_one_data_parallel_step_is_the_bare_step(dp_impl, tmp_path):
     """``checks.check_ddp_step`` on a gloo group of one rank (a ``file://``
     store, this process): two float32 steps through ``data_parallel``
     against the bare ``TrainStep`` from the same seed. On the CPU every
-    kernel's plain version is deterministic, so the losses, the parameters
-    and the BatchNorm running statistics after each step are equal bit for
-    bit."""
+    kernel's plain version is deterministic: the bare runs have no noise,
+    so the first step's gradients, the losses, the parameters and the
+    BatchNorm running statistics after each step are equal bit for bit,
+    and the first update is Adam's on those gradients, bit for bit."""
     import torch.distributed as dist
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
@@ -388,13 +417,69 @@ def test_world_one_data_parallel_step_is_the_bare_step(dp_impl, tmp_path):
     try:
         cfg = checks.small_step_model().cfg
         out = checks.check_ddp_step(
-            "cpu", dp_impl,
+            "cpu",
             lambda: MVS4Net(cfg, device="cpu", generator=torch.Generator().manual_seed(3)),
-            checks.small_step_batch("cpu"), 2)
+            checks.small_step_batch("cpu"), 2, dp_impls=(dp_impl,))
     finally:
         dist.destroy_process_group()
-    assert out["losses"] == out["bare_losses"]
-    assert out["gaps_after_last"] == {"params": 0.0, "bn_stats": 0.0}
+    (run,) = out["impls"]
+    assert all(losses == run["losses"] for losses in out["bare_losses"])
+    assert run["gaps"] == {"grads": 0.0, "params_last": 0.0, "bn_stats_last": 0.0,
+                           "losses": [0.0]}
+    assert out["noise"]["grads"] == 0.0 and run["worst_grad_tensor"]["gap"] == 0.0
+    assert run["first_update_vs_replayed_adam"] == 0.0
+
+
+def _broken_reduction(kind: str):
+    """``parallel.mesh.data_parallel`` with a DDP communication hook that
+    breaks the gradients' reduction: ``zero`` them, ``half`` them, scale
+    them by ``1.01``, or ``roll`` each bucket by one entry (every
+    gradient's entries moved to their neighbour's place)."""
+    from unittest import mock
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel import mesh
+
+    def hook(state, bucket):
+        buf = bucket.buffer()
+        if kind == "roll":
+            buf.copy_(buf.roll(1))
+        else:
+            buf.mul_({"zero": 0.0, "half": 0.5, "1.01": 1.01}[kind])
+        fut = torch.futures.Future()
+        fut.set_result(buf)
+        return fut
+
+    real = mesh.data_parallel
+
+    def data_parallel(step, dp_impl="gspmd", *, device=None):
+        real(step, dp_impl, device=device)
+        step.dp.runner.register_comm_hook(None, hook)
+        return step
+
+    return mock.patch.object(mesh, "data_parallel", data_parallel)
+
+
+@pytest.mark.parametrize("kind", ["zero", "half", "roll"])
+def test_world_one_ddp_check_fails_on_a_broken_reduction(kind, tmp_path):
+    """``checks.check_ddp_step`` raises where DDP's reduction zeroes, halves
+    or moves the gradients (``_broken_reduction``): one float32 step on a
+    gloo group of one rank, where Adam's update alone would hide a halved
+    gradient."""
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        cfg = checks.small_step_model().cfg
+        with _broken_reduction(kind), pytest.raises(AssertionError, match="gradient|grads"):
+            checks.check_ddp_step(
+                "cpu",
+                lambda: MVS4Net(cfg, device="cpu", generator=torch.Generator().manual_seed(3)),
+                checks.small_step_batch("cpu"), 1, dp_impls=("gspmd",))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_cli_under_torchrun_on_two_gloo_ranks(tmp_path):
