@@ -109,6 +109,13 @@
    255`` on a 4-view 512x640 scene, on the card (counted: the forwards and
    K4 for bits 5 and 6) and with ``--device cpu``, the dumps compared
    (``checks.compare_debug_dumps``).
+14. The port's drivers (``drive_drivers``), each as a user runs it: the
+   eval bench (``python -m <port>.bench`` at its pinned B4 V4 512x640,
+   CHAIN 5, ROUNDS 10, GROUPS 3; its last line printed back), one forward
+   of ``graft_entry.entry()``'s ``fn`` at the bench shape, counted as the
+   eval forward is (K1 12, K2 3, K5 4, K6 12), ``scripts/bench_scaling.py``
+   at one rank (its set-up split and row), the dry run
+   ``graft_entry 1`` and ``tools/train_demo.py`` for its 300 steps.
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
@@ -117,8 +124,8 @@ line, a ``chain_backward`` line, a ``small_train_step`` line, a
 ``small_train_step_other_width`` line, a ``train`` line, a ``train_profile`` line, a
 ``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line, a
 ``variant`` line per variant, a ``variants`` line, a ``space_kernel_shapes``
-line, a ``space`` line, a ``ddp`` line, a ``debug`` line and a ``kernels``
-line. The last line is ``{"ok": true, "device": {...}}``; any
+line, a ``space`` line, a ``ddp`` line, a ``debug`` line, a ``drivers`` line and
+a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
 non-zero and prints no result.
 """
@@ -130,6 +137,8 @@ import os
 import subprocess
 import sys
 import time
+
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.graft_entry import dtu_model_config
 
 PKG = "deep_reconstruction_with_epipolar_lines_mvster_tpu_torch"
 JAX_PKG_OPS = "deep_reconstruction_with_epipolar_lines_mvster_tpu/ops/pallas"
@@ -244,16 +253,6 @@ def _k6_launches(dtype, variant=None) -> int:
 
     return sum(n for _, _, _, _, ci, co, n in _variant_k6_layers(B, variant or {})
                if band_conv_route(ci, co, dtype))
-
-
-def _dtu_model_config(dtype="bfloat16"):
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import ModelConfig
-
-    return ModelConfig(
-        group_cor=True, group_cor_dim=(8, 8, 4, 4), inverse_depth=True,
-        mono=True, attn_temp=2.0, dtype=dtype, pack_conv=True,
-        warp_impl="mxu_v3", warp_band=12, fused_topdown=True,
-    )
 
 
 def _time_ms(fn, reps):
@@ -396,7 +395,7 @@ def _k1_rows(rows, dev, batch, gen, base, groups, dtype, hyps, row_set, timed):
         warp_cor as k1,
     )
 
-    cfg = _dtu_model_config()
+    cfg = dtu_model_config()
     nb = batch["depth_values"].shape[0]
     path_hypos = _path_hypotheses(batch, cfg) if hyps == "path" else None
     for s in range(4):
@@ -445,7 +444,7 @@ def _attn_fuse_args(dev, gen, batch, s, base, groups, dtype):
     correlation, attn_temp and the stage's C."""
     import torch
 
-    cfg = _dtu_model_config()
+    cfg = dtu_model_config()
     h, w = H >> (3 - s), W >> (3 - s)
     D, G = cfg.ndepths[s], groups[s]
     cors = (torch.randn((V - 1, batch, D, h, w, G), generator=gen, device=dev) * 0.5).to(dtype)
@@ -498,7 +497,7 @@ def check_attn_fuse_workspace(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     h, w, C = H >> 3, W >> 3, _stage_channels(16, 0)
-    temp = _dtu_model_config().attn_temp
+    temp = dtu_model_config().attn_temp
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for D, G in K5_WORKSPACE:
@@ -733,7 +732,7 @@ def check_warp_bwd(dev, batch, base=8, hypotheses=("full_range", "train"), suffi
         warp_bwd as k3,
     )
 
-    cfg = _dtu_model_config()
+    cfg = dtu_model_config()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2 + base)
     rows, library_diff = [], {}
     Bt = TRAIN_B
@@ -808,7 +807,7 @@ def check_warp_fwd(dev, batch, base=8, sets=(("train", "train"), ("full_range", 
         warp_fwd as k4,
     )
 
-    cfg = _dtu_model_config()
+    cfg = dtu_model_config()
     gen = torch.Generator(device=dev).manual_seed(SEED + 4 + base)
     rows, library_diff = [], {}
     Bt = TRAIN_B
@@ -859,16 +858,16 @@ def check_warp_fwd(dev, batch, base=8, sets=(("train", "train"), ("full_range", 
     return rows, library_diff
 
 
-def profile_run(fn, shares, library=None):
+def profile_run(fn):
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``:
     the total, the device's busy share of the call's wall time, the share
-    of each ``shares`` entry (kernel names that contain one of its
-    substrings), the share of the ``library`` substrings among the kernels
-    no ``shares`` entry claims (``share_conv_library``: the port's own
-    kernels, K6 among them, are not the convolution library), and the ten
-    largest kernels."""
+    of each of the port's kernels and of the convolution library (cuDNN's
+    and CUTLASS's convolutions and GEMMs: ``share_conv_library``), sorted
+    by ``tools/trace_table.py:category``, and the ten largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.tools import trace_table
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -882,26 +881,20 @@ def profile_run(fn, shares, library=None):
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
     ]
-    total = sum(ms for _, ms, _ in kernels)
+    cats = trace_table.by_category((k, ms) for k, ms, _ in kernels)
+    total = sum(cats.values())
 
-    def share(subs, claimed=()):
-        hit = sum(ms for k, ms, _ in kernels if any(c in k.lower() for c in subs)
-                  and not any(c in k.lower() for c in claimed))
-        return hit / total if total else 0.0
+    def share(*labels):
+        return sum(cats[c] for c in labels) / total if total else 0.0
 
-    own = tuple(c for subs in shares.values() for c in subs)
     return {
         "device_ms": total, "wall_ms": wall_ms,
         "device_busy_share": total / wall_ms if wall_ms else 0.0,
-        **{f"share_{name}": share(subs) for name, subs in shares.items()},
-        **({} if library is None else {"share_conv_library": share(library, own)}),
+        **{f"share_{name}": share(label) for name, label in trace_table.PORT_KERNELS.items()},
+        "share_conv_library": share("conv_library", "gemm"),
         "top": [{"kernel": k[:120], "ms": ms, "calls": n}
                 for k, ms, n in sorted(kernels, key=lambda x: -x[1])[:10]],
     }
-
-
-CONV_LIBRARY = ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "wgrad", "dgrad",
-                "sm90_", "cutlass")
 
 
 def check_chain_backward(dev):
@@ -932,7 +925,7 @@ def check_chain_backward(dev):
     return out
 
 
-def drive_train(dev, batch, counters, kernels):
+def drive_train(dev, batch, counters):
     """The DTU train recipe at full width: counted step, warm-up, three
     rounds of three timed steps, a profile of one step."""
     import torch
@@ -944,7 +937,7 @@ def drive_train(dev, batch, counters, kernels):
         make_train_step,
     )
 
-    model = MVS4Net(_dtu_model_config(), device=dev,
+    model = MVS4Net(dtu_model_config(), device=dev,
                     generator=torch.Generator().manual_seed(SEED + 5))
     step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
                            lambda i: 1e-3)
@@ -977,8 +970,7 @@ def drive_train(dev, batch, counters, kernels):
         raise AssertionError(f"train losses not finite: {losses}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = sorted(round_ms)[rounds // 2]
-    prof = profile_run(lambda: step(batch), {
-        name: (f"{name}_kernel",) for name in kernels}, CONV_LIBRARY)
+    prof = profile_run(lambda: step(batch))
     train = {
         "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
@@ -988,7 +980,7 @@ def drive_train(dev, batch, counters, kernels):
     return train, prof, counts
 
 
-def drive_pipeline(dev, counters, kernels):
+def drive_pipeline(dev, counters):
     """The eval CLI's path at full width (``checks.run_pipeline``): the
     scripts/eval_dtu.sh model in float32 (weights and BatchNorm statistics
     from ``PIPELINE_SEED``), B=1, a SyntheticEvalDataset of 4 views at
@@ -1025,8 +1017,7 @@ def drive_pipeline(dev, counters, kernels):
     for v, d in run["depths"].items():
         if d.shape != (H, W) or not np.isfinite(d).all():
             raise AssertionError(f"view {v}: depth {d.shape} not finite/shaped")
-    prof = profile_run(lambda: checks.run_pipeline(model, ds, dev), {
-        name: (f"{name}_kernel",) for name in kernels}, CONV_LIBRARY)
+    prof = profile_run(lambda: checks.run_pipeline(model, ds, dev))
     print(json.dumps({"pipeline_profile": prof}))
     return {
         "B": 1, "V": PIPELINE_V, "H": H, "W": W, "dtype": "float32", "hypotheses": 192,
@@ -1042,7 +1033,7 @@ def drive_pipeline(dev, counters, kernels):
     }, counts
 
 
-def drive_variants(dev, batch, train_batch, counters, kernels):
+def drive_variants(dev, batch, train_batch, counters):
     """Every model variant of ``checks.VARIANTS`` (the flagship with one
     change) on the card, one JSON line each:
 
@@ -1087,7 +1078,7 @@ def drive_variants(dev, batch, train_batch, counters, kernels):
         return out, counts
 
     for name, variant in checks.VARIANTS:
-        cfg = dataclasses.replace(_dtu_model_config(), **variant)
+        cfg = dataclasses.replace(dtu_model_config(), **variant)
         want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant)}
         model = checks.seeded_model(cfg, SEED, dev)
         with torch.inference_mode():
@@ -1103,8 +1094,7 @@ def drive_variants(dev, batch, train_batch, counters, kernels):
             torch.cuda.reset_peak_memory_stats()
             round_ms = [_time_ms(lambda: model(*args), 5) for _ in range(3)]
             eval_peak = torch.cuda.max_memory_allocated() / 1e9
-            prof = profile_run(lambda: model(*args), {
-                k: (f"{k}_kernel",) for k in kernels}, CONV_LIBRARY)
+            prof = profile_run(lambda: model(*args))
         del model
         torch.cuda.empty_cache()
 
@@ -1387,7 +1377,7 @@ def drive_space(dev, counters, rows):
 
     for name, nb, nv, img_h, img_w, dtype_name, shard_counts in SPACE_RUNS:
         dtype = getattr(torch, dtype_name)
-        cfg = _dtu_model_config(dtype_name)
+        cfg = dtu_model_config(dtype_name)
         model = checks.seeded_model(cfg, SEED, dev)
         batch = _scene(nb, nv, img_h, img_w, dev)
         args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
@@ -1419,8 +1409,7 @@ def drive_space(dev, counters, rows):
                 torch.cuda.synchronize()
                 host.append((time.perf_counter() - t0) * 1e3)
             events_ms = _time_ms(lambda: fwd(*args), 3)
-            prof = profile_run(lambda: fwd(*args), {k: (f"{k}_kernel",) for k in counters},
-                               CONV_LIBRARY)
+            prof = profile_run(lambda: fwd(*args))
             stages = [s for s in range(4)
                       if _row_window(img_h >> (3 - s), 0, S, SPACE_HALO) is not None]
             windows, copy_bytes = {}, 0
@@ -1475,13 +1464,16 @@ def drive_ddp(dev, batch, counters):
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.distributed import (
+        run_torchrun,
+    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import DP_IMPLS
 
     store = tempfile.mkdtemp()
     dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
     try:
         def make_model():
-            return MVS4Net(_dtu_model_config(), device=dev,
+            return MVS4Net(dtu_model_config(), device=dev,
                            generator=torch.Generator().manual_seed(SEED + 5))
 
         for mod in counters.values():
@@ -1501,14 +1493,8 @@ def drive_ddp(dev, batch, counters):
     flags = list(TRAIN_CLI_FLAGS)
     flags[flags.index("--logdir") + 1] = TORCHRUN_LOGDIR
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-         "1", "-m", f"{PKG}.cli.train", *flags, "--epochs", "1"],
-        capture_output=True, text=True, timeout=600)
+    run_torchrun(f"{PKG}.cli.train", [*flags, "--epochs", "1"], 1, 600)
     torchrun_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"torchrun train CLI rc {res.returncode}: "
-                             f"{(res.stdout + res.stderr)[-3000:]}")
     records = _read_records(os.path.join(TORCHRUN_LOGDIR, "metrics.jsonl"))
     if [(r["mode"], r["step"]) for r in records] != [
             ("train", 0), ("train", 1), ("test", 0), ("test", 1), ("fulltest", 2)] \
@@ -1610,6 +1596,88 @@ def drive_debug(dev, counters):
             "cli_seconds": seconds, "launches": counts, "vs_cpu": agreement}, counts
 
 
+# the drivers phase: each driver's limit, and the demo's reported steps
+DRIVER_TIMEOUT_S = 600
+DEMO_STEPS = (0, 10, 50, 100, 200, 299)
+
+
+def _run_driver(module, *args):
+    """``python -m <port>.<module> args`` to its end; its standard output's
+    lines. Raises on a non-zero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.{module}", *args],
+                         capture_output=True, text=True, timeout=DRIVER_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"{module} rc {res.returncode}: {(res.stdout + res.stderr)[-3000:]}")
+    return res.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def drive_drivers(dev, counters):
+    """The port's drivers as a user runs them: ``bench`` at its pinned values
+    (its last line held to the metric's keys: a positive rate, three groups,
+    the card's name); one forward of ``graft_entry.entry()``'s ``fn`` at the
+    bench shape, the counters set to 0 just before and read just after
+    (``EVAL_LAUNCHES``), its depth finite; ``scripts/bench_scaling.py`` (one
+    card: the one-rank row and its set-up split); ``graft_entry 1`` (the
+    dry run on one rank); ``tools/train_demo.py`` for its 300 steps (six
+    finite scalar lines)."""
+    import math
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import bench, graft_entry
+
+    out = {}
+    lines, out["bench_s"] = _run_driver("bench")
+    line, detail = json.loads(lines[-1]), json.loads(lines[-2])["bench"]
+    if (line["metric"] != bench.METRIC or not line["value"] > 0
+            or len(line["groups_maps_per_s"]) != bench.GROUPS or line["vs_baseline"] != 1.0
+            or not line["device"] or "spread_maps_per_s" not in line):
+        raise AssertionError(f"bench line {line}")
+    out["bench"], out["bench_detail"] = line, detail
+
+    fn, _ = graft_entry.entry(dev)
+    batch = graft_entry.example_batch(B, V, H, W, device=dev)
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    fn(*args)                                      # warm-up
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    depth, conf = fn(*args)                        # the entry path, counted
+    torch.cuda.synchronize()
+    counts = {name: mod.launches for name, mod in counters.items()}
+    if counts != EVAL_LAUNCHES:
+        raise AssertionError(f"entry(): launches per forward {counts}, want {EVAL_LAUNCHES}")
+    if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
+        raise AssertionError(f"entry(): stage-4 depth {tuple(depth.shape)} not finite/shaped")
+    out["entry"] = {"B": B, "V": V, "H": H, "W": W, "launches": counts,
+                    "depth_mean": depth.float().mean().item(),
+                    "confidence_finite_share": torch.isfinite(conf).float().mean().item()}
+    del fn, batch, args, depth, conf
+    torch.cuda.empty_cache()
+
+    lines, out["scaling_s"] = _run_driver("scripts.bench_scaling")
+    setup, row = json.loads(lines[-2])["setup"], json.loads(lines[-1])
+    if row["devices"] != 1 or row["scaling_efficiency"] != 1.0 or not row["step_s"] > 0:
+        raise AssertionError(f"bench_scaling row {row}")
+    out["scaling"], out["scaling_setup"] = row, setup
+
+    lines, out["dryrun_s"] = _run_driver("graft_entry", "1")
+    if not lines[-1].startswith("dryrun_multichip(1) ok: "):
+        raise AssertionError(f"dry run: {lines[-3:]}")
+    out["dryrun"] = lines[-1]
+
+    lines, out["train_demo_s"] = _run_driver("tools.train_demo")
+    steps = [x for x in lines if x.startswith("step ")]
+    scalars = [[float(v.split("=")[1].rstrip("%")) for v in x.split(": ")[1].split()]
+               for x in steps]
+    if ([int(x.split(":")[0].split()[1]) for x in steps] != list(DEMO_STEPS)
+            or not all(math.isfinite(v) for row in scalars for v in row)):
+        raise AssertionError(f"train demo: {lines}")
+    out["train_demo"] = lines
+    return out, counts
+
+
 def _per_run(rows):
     """Sums over the timed rows of each set, per run of the set's path
     (times the rows' launches per run): the kernel's time back to back from
@@ -1643,6 +1711,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing to measure", file=sys.stderr)
         return 1
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.bench import card_name
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import setup_device
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -1672,11 +1741,7 @@ def main() -> int:
     # the eval CLI's device setup (TF32 off), so that every phase runs at
     # the precision a user of the port gets
     dev = setup_device()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_name())
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "python": sys.version.split()[0]}))
 
@@ -1709,7 +1774,7 @@ def main() -> int:
                       "warp_bwd_library_max_abs_diff": bwd_library_diff,
                       "warp_fwd_library_max_abs_diff": fwd_library_diff}))
 
-    model = checks.seeded_model(_dtu_model_config(), SEED, dev)
+    model = checks.seeded_model(dtu_model_config(), SEED, dev)
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     with torch.inference_mode():
         model(*args)                      # warm-up
@@ -1742,8 +1807,7 @@ def main() -> int:
         if timed_counts != {name: n * calls for name, n in EVAL_LAUNCHES.items()}:
             raise AssertionError(f"timed forwards launched {timed_counts}")
         torch.cuda.reset_peak_memory_stats()
-        profile = profile_run(lambda: model(*args), {
-            name: (f"{name}_kernel",) for name in kernels}, CONV_LIBRARY)
+        profile = profile_run(lambda: model(*args))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({"profile": profile}))
     small = checks.check_forward(dev, seed=SEED + 1)
@@ -1768,12 +1832,12 @@ def main() -> int:
     print(json.dumps({"small_train_step_other_width": {
         "base": base, "group_cor_dim": list(groups),
         **checks.check_train_step(dev, base=base, group_cor_dim=groups)}}))
-    train, train_profile, train_counts = drive_train(dev, train_batch, counters, kernels)
+    train, train_profile, train_counts = drive_train(dev, train_batch, counters)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))
     del train_batch
     torch.cuda.empty_cache()
-    pipeline, pipeline_counts = drive_pipeline(dev, counters, kernels)
+    pipeline, pipeline_counts = drive_pipeline(dev, counters)
     print(json.dumps({"pipeline": pipeline}))
     torch.cuda.empty_cache()
     train_cli = drive_train_cli(counters)
@@ -1782,7 +1846,7 @@ def main() -> int:
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     t0 = time.perf_counter()
-    variant_counts = drive_variants(dev, batch, train_batch, counters, kernels)
+    variant_counts = drive_variants(dev, batch, train_batch, counters)
     print(json.dumps({"variants": {"count": len(checks.VARIANTS),
                                    "wall_s": time.perf_counter() - t0,
                                    "launches": variant_counts}}))
@@ -1807,6 +1871,11 @@ def main() -> int:
     debug, debug_counts = drive_debug(dev, counters)
     debug["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"debug": debug}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    drivers, drivers_counts = drive_drivers(dev, counters)
+    drivers["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"drivers": drivers}))
 
     kernel_line = []
     for name, src, replaces, also_serves, row_set in (
@@ -1830,12 +1899,12 @@ def main() -> int:
             "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
             "launches": (counts[name] + train_counts[name] + pipeline_counts[name]
                          + variant_counts[name] + space_counts[name] + ddp_counts[name]
-                         + debug_counts[name]),
+                         + debug_counts[name] + drivers_counts[name]),
             "launches_eval": counts[name], "launches_train": train_counts[name],
             "launches_pipeline": pipeline_counts[name],
             "launches_variants": variant_counts[name],
             "launches_space": space_counts[name], "launches_ddp": ddp_counts[name],
-            "launches_debug": debug_counts[name],
+            "launches_debug": debug_counts[name], "launches_drivers": drivers_counts[name],
             "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
             "timed_per": "eval forward" if row_set == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),

@@ -10,6 +10,8 @@ processes that ``torchrun`` starts, one a card:
 - ``host_mesh``: the layout of the ranks over hosts, and each rank's
   device (training shards the batch over every rank; the eval's
   ``(data, space)`` layout is ``mesh.sharded_eval_forward``'s device list);
+- ``run_torchrun``: a module run on N ranks of this host by ``torchrun
+  --standalone`` (the drivers' multi-rank runs);
 - ``is_host0``: rank gating for logging and checkpoints;
 - ``sync_hosts``: a barrier;
 - ``mean_scalars``: the mean of a dict of 0-d tensors over the ranks
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import subprocess
+import sys
 from typing import Dict, Optional
 
 import torch
@@ -90,6 +94,19 @@ def init_distributed(device_kind: str = "cuda") -> HostMesh:
         dist.init_process_group("nccl" if device_kind == "cuda" else "gloo",
                                 init_method="env://", rank=mesh.rank, world_size=mesh.world)
     return mesh
+
+
+def run_torchrun(module: str, args, nproc: int, timeout: float) -> str:
+    """``torchrun --standalone --nproc_per_node nproc -m module args`` on
+    this host, to its end; its standard output. Raises with the end of its
+    output where it exits non-zero."""
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", str(nproc), "-m", module, *args],
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"torchrun of {module} on {nproc} ranks: rc {res.returncode}\n"
+                           f"{(res.stdout + res.stderr)[-4000:]}")
+    return res.stdout
 
 
 def is_host0() -> bool:

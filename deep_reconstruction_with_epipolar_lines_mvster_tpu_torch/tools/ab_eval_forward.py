@@ -85,7 +85,7 @@ def measure_kernels(rounds: int) -> dict:
     k1, k3, k4, k5, k6 = (importlib.import_module(f"{PKG}.ops.kernels.{n}")
                           for n in ("warp_cor", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv"))
     geometry = importlib.import_module(f"{PKG}.core.geometry")
-    cfg = smoke._dtu_model_config()
+    cfg = smoke.dtu_model_config()
     dev = torch.device("cuda")
     rows, eager = {}, {}
 

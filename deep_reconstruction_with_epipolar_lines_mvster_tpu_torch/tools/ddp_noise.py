@@ -97,7 +97,7 @@ def main() -> int:
             torch.backends.cudnn.deterministic = deterministic
             suffix = "_cudnn_deterministic" if deterministic else ""
             sequence("dtu_bf16" + suffix, device,
-                     lambda: MVS4Net(cs._dtu_model_config(), device=device,
+                     lambda: MVS4Net(cs.dtu_model_config(), device=device,
                                      generator=torch.Generator().manual_seed(cs.SEED + 5)),
                      dtu, 3)
             sequence("small_float32" + suffix, device,

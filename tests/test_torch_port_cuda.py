@@ -967,3 +967,54 @@ def test_world_one_ddp_check_fails_on_a_broken_reduction(dev, kind, tmp_path):
                                   dp_impls=("gspmd",))
     finally:
         dist.destroy_process_group()
+
+
+def test_entry_fn_matches_cpu(dev):
+    """``graft_entry.eval_fn`` of the flagship config in float32, weights
+    and BatchNorm statistics from one seed (``checks.seeded_model``), at B1
+    V3 64x128 on the card against the same on the CPU: stage-4 depth equal
+    (rtol 1e-5) at ``checks.FORWARD_DEPTH_AGREEMENT`` of the pixels, as
+    ``checks.check_forward`` holds it, and the confidence within 1e-3
+    relative at 99% of the pixels where the depth agrees; then
+    ``entry()``'s own bf16 ``fn`` on its example arguments (B1 V4 256x320)
+    through K1 (12 launches), K2 (3), K5 (4) and K6, its depth finite."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+
+    outs = []
+    for d in ("cpu", dev):
+        model = checks.seeded_model(graft_entry.dtu_model_config("float32"), 1, d)
+        b = graft_entry.example_batch(B=1, V=3, H=64, W=128, device=d)
+        outs.append([t.float().cpu() for t in graft_entry.eval_fn(model)(
+            b["imgs"], b["proj_matrices"], b["depth_values"])])
+    (depth_cpu, conf_cpu), (depth, conf) = outs
+    same = torch.isclose(depth, depth_cpu, rtol=1e-5, atol=0)
+    assert same.float().mean().item() >= checks.FORWARD_DEPTH_AGREEMENT
+    close = torch.isclose(conf, conf_cpu, rtol=1e-3, atol=1e-6)[same]
+    assert close.float().mean().item() >= 0.99
+
+    fn, args = graft_entry.entry(dev)
+    before = (k1.launches, k2.launches, k5.launches, k6.launches)
+    depth, _ = fn(*args)
+    torch.cuda.synchronize()
+    after = (k1.launches, k2.launches, k5.launches, k6.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        12, 3, 4, _k6_per_forward(torch.bfloat16))
+    assert depth.shape == (1, 256, 320) and torch.isfinite(depth).all()
+
+
+def test_bench_runs_on_the_card(dev, capsys):
+    """The port's eval bench on the card at B1 V2 64x64, CHAIN 2, ROUNDS 2,
+    GROUPS 3: its last line has the JAX bench's keys, a positive rate,
+    three groups and the card's name; the line before it the H100 bound,
+    ``mfu`` and ``bound_share`` from the card's time."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import bench
+
+    line = bench.main(["--B", "1", "--V", "2", "--H", "64", "--W", "64", "--chain", "2",
+                       "--rounds", "2", "--groups", "3"])
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == line
+    assert line["metric"] == bench.METRIC and line["value"] > 0 and line["vs_baseline"] == 1.0
+    assert len(line["groups_maps_per_s"]) == 3 and line["spread_maps_per_s"] >= 0
+    assert line["device"] and line["device"] != "cpu"
+    detail = json.loads(printed[-2])["bench"]
+    assert detail["h100_bound_ms"] > 0 and 0 < detail["mfu"] < 1 and 0 < detail["bound_share"] < 1
