@@ -77,8 +77,11 @@
    train_cli``: one epoch (2 steps, 2 validation batches, ``model_00.ckpt``),
    ``--resume --epochs 2`` (continues at epoch 2, step 2), ``--mode test``
    and ``--mode profile`` (a Chrome trace); the counters are set to 0 before
-   each part and read after it (per train step K4 16, K3 16, K2 6, K6 0; per
-   validation batch K1 16, K2 3, K5 4, K6 12).
+   each part and read after it. The CLI's steps are captured graphs: each
+   part's first train step and first validation batch launch every kernel
+   twice (the warm-up's and the capture's launches), the later ones replay
+   (per captured train step K4 16, K3 16, K2 6, K6 0; per validation batch
+   K1 16, K2 3, K5 4, K6 12).
 10. Drives every model variant (``checks.VARIANTS``: the flagship with one
    change, pos-enc sine and learned, reg3d, the CAM/DCAM/PAM/PDAM mid
    blocks, GroupNorm, ASFF, the two ConvNeXt pyramids, DCN heads with
@@ -106,16 +109,35 @@
    the counters around all of it; then ``torchrun --standalone
    --nproc_per_node 1`` running the train CLI for one epoch.
 13. The debug dumps (``drive_debug``): the eval CLI with ``--debug_model
-   255`` on a 4-view 512x640 scene, on the card (counted: the forwards and
-   K4 for bits 5 and 6) and with ``--device cpu``, the dumps compared
+   255`` on a 4-view 512x640 scene, on the card (counted: the captured
+   forward's warm-up and capture, the dump's eager forward, and K4 for bits
+   5 and 6) and with ``--device cpu``, the dumps compared
    (``checks.compare_debug_dumps``).
 14. The port's drivers (``drive_drivers``), each as a user runs it: the
    eval bench (``python -m <port>.bench`` at its pinned B4 V4 512x640,
-   CHAIN 5, ROUNDS 10, GROUPS 3; its last line printed back), one forward
-   of ``graft_entry.entry()``'s ``fn`` at the bench shape, counted as the
-   eval forward is (K1 12, K2 3, K5 4, K6 12), ``scripts/bench_scaling.py``
+   CHAIN 5, ROUNDS 10, GROUPS 3, its chain a captured graph; its last
+   line printed back), the first call of ``graft_entry.entry()``'s ``fn``
+   at the bench shape, which captures (counted: twice K1 12, K2 3, K5 4,
+   K6 12), and a replay that counts none, ``scripts/bench_scaling.py``
    at one rank (its set-up split and row), the dry run
    ``graft_entry 1`` and ``tools/train_demo.py`` for its 300 steps.
+15. The captured entry points (``drive_graphs``; ``utils/graphs.py``, the
+   counterpart of the JAX package's ``jax.jit``) beside their eager forms
+   in this call: the eval forward at B4 V4 512x640 bf16 eager and
+   captured (ms, device time and busy share, peak memory allocated and
+   reserved, the first call counted), the replay bit-equal to the eager
+   forward; the eval step's scalars bit-equal; the DTU train step captured
+   (ms, busy share, peak) and 3 replayed steps within 4x the eager steps'
+   run-to-run noise; the float32 pipeline with a captured forward and
+   filter, its fused point count equal to the eager run's; the bench's
+   captured chain from phase 14.
+
+Phases 7, 8 and 10 read the eager forms (``utils/graphs.eager``): the
+readings that phase 15 holds the captured forms against. Launch counters
+count the launches the wrappers make: a captured function's first call
+with a new input signature launches every kernel twice (its eager warm-up
+and its capture), and a replay launches none; the ``kernels`` line's
+``launches_graphs`` are phase 15's counted first calls.
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
@@ -124,8 +146,8 @@ line, a ``chain_backward`` line, a ``small_train_step`` line, a
 ``small_train_step_other_width`` line, a ``train`` line, a ``train_profile`` line, a
 ``pipeline_profile`` line, a ``pipeline`` line, a ``train_cli`` line, a
 ``variant`` line per variant, a ``variants`` line, a ``space_kernel_shapes``
-line, a ``space`` line, a ``ddp`` line, a ``debug`` line, a ``drivers`` line and
-a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
+line, a ``space`` line, a ``ddp`` line, a ``debug`` line, a ``drivers`` line,
+a ``graphs`` line and a ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises before it, with a non-zero exit. Without CUDA it exits
 non-zero and prints no result.
 """
@@ -1168,20 +1190,23 @@ def drive_train_cli(counters):
     shutil.rmtree(TRAIN_CLI_LOGDIR, ignore_errors=True)
     metrics = os.path.join(TRAIN_CLI_LOGDIR, "metrics.jsonl")
 
-    def part(extra, steps, val_batches):
+    def part(extra, train_graphs, val_graphs):
+        # the CLI's steps are captured: each graph's first call launches
+        # every kernel twice (its eager warm-up and its capture), and its
+        # replays launch none
         for mod in counters.values():
             mod.launches = 0
         t0 = time.perf_counter()
         out = cli.main(TRAIN_CLI_FLAGS + extra)
         seconds = time.perf_counter() - t0
         counts = {name: mod.launches for name, mod in counters.items()}
-        want = {name: steps * TRAIN_LAUNCHES[name] + val_batches * VAL_LAUNCHES[name]
+        want = {name: 2 * (train_graphs * TRAIN_LAUNCHES[name] + val_graphs * VAL_LAUNCHES[name])
                 for name in counters}
         if counts != want:
             raise AssertionError(f"train CLI {extra}: launches {counts}, want {want}")
         return out, counts, seconds
 
-    state, counts_fit, s_fit = part(["--epochs", "1"], 2, 2)
+    state, counts_fit, s_fit = part(["--epochs", "1"], 1, 1)
     ckpt = os.path.join(TRAIN_CLI_LOGDIR, "model_00.ckpt")
     first = _read_records(metrics)
     if not os.path.exists(ckpt) or [(r["mode"], r["step"]) for r in first] != [
@@ -1192,7 +1217,7 @@ def drive_train_cli(counters):
     timed = save_checkpoint(TRAIN_CLI_LOGDIR, 99, state)
     save_ms = (time.perf_counter() - t0) * 1e3
     os.remove(timed)
-    state, counts_resume, s_resume = part(["--epochs", "2", "--resume"], 2, 2)
+    state, counts_resume, s_resume = part(["--epochs", "2", "--resume"], 1, 1)
     resumed = _read_records(metrics)[len(first):]
     if state.step != 4 or [(r["mode"], r["step"]) for r in resumed] != [
             ("train", 2), ("train", 3), ("test", 2), ("test", 3), ("fulltest", 4)]:
@@ -1206,10 +1231,10 @@ def drive_train_cli(counters):
             raise AssertionError(f"train CLI: loss not finite in {r['mode']} {r['step']}")
         if r["mode"] == "train" and r["lr"] != sched(r["step"]):
             raise AssertionError(f"step {r['step']}: lr {r['lr']}, schedule {sched(r['step'])}")
-    avg, counts_test, s_test = part(["--mode", "test"], 0, 2)
+    avg, counts_test, s_test = part(["--mode", "test"], 0, 1)
     if not np.isfinite(avg["loss"]):
         raise AssertionError(f"--mode test: loss {avg['loss']}")
-    prof, counts_profile, s_profile = part(["--mode", "profile"], PROFILE_STEPS, 0)
+    prof, counts_profile, s_profile = part(["--mode", "profile"], 1, 0)
     if not os.path.getsize(prof["trace"]):
         raise AssertionError(f"--mode profile: empty trace {prof['trace']}")
     ckpt_bytes = os.path.getsize(ckpt)
@@ -1226,7 +1251,9 @@ def drive_train_cli(counters):
         "val_ms_per_batch": float(np.median(val_ms)), "val_ms_per_batch_all": val_ms,
         "profile_steady_ms_per_step": prof["stats"]["steady_state_s"] * 1e3,
         "profile_first_call_s": prof["stats"]["first_call_s"],
-        "launches_per_train_step": {k: v / PROFILE_STEPS for k, v in counts_profile.items()},
+        # per captured step: the counted launches of its capture (half of
+        # the first call's, the other half the warm-up's)
+        "launches_per_train_step": {k: v / 2 for k, v in counts_profile.items()},
         "launches_per_val_batch": {k: v / 2 for k, v in counts_test.items()},
         "launches": {"fit": counts_fit, "resume": counts_resume, "test": counts_test,
                      "profile": counts_profile},
@@ -1583,7 +1610,9 @@ def drive_debug(dev, counters):
                 counts = {name: mod.launches for name, mod in counters.items()}
             written[key] = {os.path.basename(p)[len("eval_scan1_"):-len(".npy")]: p
                             for p in glob.glob(os.path.join(out, "debug", "eval_scan1_*.npy"))}
-        want = {k: (PIPELINE_V + 1) * n for k, n in PIPELINE_LAUNCHES_PER_VIEW.items()}
+        # the views' captured forward: its first call's warm-up and capture
+        # (the other views replay); then the dump's eager forward
+        want = {k: 3 * n for k, n in PIPELINE_LAUNCHES_PER_VIEW.items()}
         want["warp_fwd"] += 2 * 4 * (PIPELINE_V - 1)
         if counts != want:
             raise AssertionError(f"debug dump: launches {counts}, want {want}")
@@ -1617,7 +1646,9 @@ def drive_drivers(dev, counters):
     (its last line held to the metric's keys: a positive rate, three groups,
     the card's name); one forward of ``graft_entry.entry()``'s ``fn`` at the
     bench shape, the counters set to 0 just before and read just after
-    (``EVAL_LAUNCHES``), its depth finite; ``scripts/bench_scaling.py`` (one
+    (twice ``EVAL_LAUNCHES``: the call captures, its warm-up and its capture
+    each launching every kernel; a second call replays and counts none),
+    its depth finite; ``scripts/bench_scaling.py`` (one
     card: the one-rank row and its set-up split); ``graft_entry 1`` (the
     dry run on one rank); ``tools/train_demo.py`` for its 300 steps (six
     finite scalar lines)."""
@@ -1639,15 +1670,20 @@ def drive_drivers(dev, counters):
     fn, _ = graft_entry.entry(dev)
     batch = graft_entry.example_batch(B, V, H, W, device=dev)
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-    fn(*args)                                      # warm-up
     torch.cuda.synchronize()
     for mod in counters.values():
         mod.launches = 0
-    depth, conf = fn(*args)                        # the entry path, counted
+    depth, conf = fn(*args)          # the entry path, counted: its first call captures
     torch.cuda.synchronize()
     counts = {name: mod.launches for name, mod in counters.items()}
-    if counts != EVAL_LAUNCHES:
-        raise AssertionError(f"entry(): launches per forward {counts}, want {EVAL_LAUNCHES}")
+    want = {k: 2 * n for k, n in EVAL_LAUNCHES.items()}   # the warm-up's and the capture's
+    if counts != want:
+        raise AssertionError(f"entry(): launches of its first call {counts}, want {want}")
+    before = {name: mod.launches for name, mod in counters.items()}
+    fn(*args)                        # a replay: no wrapper runs
+    torch.cuda.synchronize()
+    if any(mod.launches != before[name] for name, mod in counters.items()):
+        raise AssertionError("entry(): a replay ran a kernel wrapper")
     if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
         raise AssertionError(f"entry(): stage-4 depth {tuple(depth.shape)} not finite/shaped")
     out["entry"] = {"B": B, "V": V, "H": H, "W": W, "launches": counts,
@@ -1677,6 +1713,188 @@ def drive_drivers(dev, counters):
     out["train_demo"] = lines
     return out, counts
 
+
+
+def drive_graphs(dev, counters, eager_pipeline, drivers):
+    """The captured entry points (``utils/graphs.py``, the port's ``jax.jit``)
+    beside their eager forms (``graphs.eager``) in this call:
+
+    1. the eval forward (``eval.depthgen.make_eval_forward``) at B4 V4
+       512x640 bf16, eager and captured: the first call (counted: eager
+       K1 12, K2 3, K5 4, K6 12; captured twice that, the warm-up's and the
+       capture's launches, a replay counting none), three rounds of five
+       timed calls, the device time and busy share of one call
+       (``profile_run``: whether the profiler sees the kernels of a replayed
+       graph), peak memory allocated and reserved (a graph's pool is
+       reserved); then ``checks.check_graph_forward``: the replay bit-equal
+       to the eager forward, an earlier result kept across a later call;
+    2. the eval step at the DTU recipe's batch (B6 V5), replayed against
+       eager, every scalar bit-equal (``checks.check_graph_eval_step``);
+    3. the DTU train step (B6 V5 bf16): the captured step's first call
+       (counted: twice ``TRAIN_LAUNCHES``), a warm-up step and three rounds
+       of three timed steps, a profile of one replay, peak memory; then
+       ``checks.check_graph_train_step``: 3 replayed steps within 4x the
+       eager steps' run-to-run noise (K3's atomics);
+    4. the pipeline (``checks.run_pipeline``, as ``drive_pipeline``) with
+       one captured forward and captured filters: a first run that
+       captures (counted), then a timed run; its fused point count equal to
+       the eager run's (``eager_pipeline``);
+    5. the bench's captured chain: ``drivers``' run of ``bench.py``.
+
+    Returns the phase's line and the launches of its counted first calls."""
+    import contextlib
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
+        SyntheticEvalDataset,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.eval.depthgen import (
+        make_eval_forward,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    totals = {name: 0 for name in counters}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def counted(fn, want, what):
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in counters.items()}
+        if counts != want:
+            raise AssertionError(f"graphs {what}: launches {counts}, want {want}")
+        for name, n in counts.items():
+            totals[name] += n
+        return out, counts, seconds
+
+    def twice(launches):
+        return {k: 2 * n for k, n in launches.items()}
+
+    line = {"B": B, "V": V, "H": H, "W": W, "dtype": "bfloat16", "eval": {}, "train": {}}
+    model = checks.seeded_model(dtu_model_config(), SEED, dev)
+    batch = _scene(B, V, H, W, dev)
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    for mode in ("eager", "captured"):
+        forward = make_eval_forward(model)
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            fresh()
+            _, counts, first_s = counted(
+                lambda: forward(*args),
+                EVAL_LAUNCHES if mode == "eager" else twice(EVAL_LAUNCHES), f"eval {mode}")
+            round_ms = [_time_ms(lambda: forward(*args), 5) for _ in range(3)]
+            prof = profile_run(lambda: forward(*args))
+            line["eval"][mode] = {
+                "ms_per_forward": sorted(round_ms)[1], "ms_per_forward_rounds": round_ms,
+                "first_call_s": first_s, "launches_first_call": counts,
+                "device_ms": prof["device_ms"], "profile_wall_ms": prof["wall_ms"],
+                "device_busy_share": prof["device_busy_share"],
+                "shares": {k: v for k, v in prof.items() if k.startswith("share_")},
+                "top": prof["top"][:5],
+                "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                "graphs": len(forward.graphs)}
+        del forward
+    eager, captured = line["eval"]["eager"], line["eval"]["captured"]
+    if captured["graphs"] != 1 or eager["graphs"] != 0:
+        raise AssertionError(f"eval graphs: eager {eager['graphs']}, captured "
+                             f"{captured['graphs']}")
+    # the profiler sees a replay's kernels where its device time is the
+    # eager call's (the same kernels)
+    line["eval"]["profiler_sees_replayed_kernels"] = (
+        captured["device_ms"] > 0.5 * eager["device_ms"])
+    line["eval"]["vs_eager"] = checks.check_graph_forward(model, *args)
+    del model, batch, args
+    fresh()
+
+    train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
+    line["eval_step"] = checks.check_graph_eval_step(
+        checks.seeded_model(dtu_model_config(), SEED, dev), train_batch)
+
+    def make_model():
+        return MVS4Net(dtu_model_config(), device=dev,
+                       generator=torch.Generator().manual_seed(SEED + 5))
+
+    model = make_model()
+    step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
+                           lambda i: 1e-3)
+    fresh()
+    scalars, counts, first_s = counted(lambda: step(train_batch), twice(TRAIN_LAUNCHES),
+                                       "train step")
+    losses = [scalars["loss"].item(), step(train_batch)["loss"].item()]
+    round_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = [step(train_batch)["loss"] for _ in range(3)]
+        end.record()
+        end.synchronize()
+        round_ms.append(start.elapsed_time(end) / 3)
+        losses += [x.item() for x in out]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"captured train losses not finite: {losses}")
+    prof = profile_run(lambda: step(train_batch))
+    line["train"] = {
+        "B": TRAIN_B, "V": TRAIN_V, "ms_per_step": sorted(round_ms)[1],
+        "ms_per_step_rounds": round_ms, "first_call_s": first_s,
+        "launches_first_call": counts, "loss_per_step": losses,
+        "device_ms": prof["device_ms"], "profile_wall_ms": prof["wall_ms"],
+        "device_busy_share": prof["device_busy_share"],
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+        "graphs": len(step._captured.graphs)}
+    del model, step, scalars, out
+    fresh()
+    line["train"]["vs_eager"] = checks.check_graph_train_step(make_model, train_batch, 3)
+    del train_batch
+    fresh()
+
+    model = checks.seeded_model(checks.eval_dtu_config(), PIPELINE_SEED, dev)
+    ds = SyntheticEvalDataset(V=PIPELINE_V, H=H, W=W)
+    forward = make_eval_forward(model)
+    want = {k: 2 * n for k, n in PIPELINE_LAUNCHES_PER_VIEW.items()}
+    _, counts, first_s = counted(lambda: checks.run_pipeline(model, ds, dev, forward=forward),
+                                 want, "pipeline")
+    run = checks.run_pipeline(model, ds, dev, forward=forward)
+    n_points = len(run["points"])
+    if n_points != eager_pipeline["fused_points"]:
+        raise AssertionError(f"captured pipeline: {n_points} fused points, eager "
+                             f"{eager_pipeline['fused_points']}")
+    line["pipeline"] = {
+        "dtype": "float32", "first_run_s": first_s, "launches_first_run": counts,
+        "ms_per_view_forward": float(np.median(run["forward_s"])) * 1e3,
+        "ms_per_view_forward_all": [x * 1e3 for x in run["forward_s"]],
+        "ms_per_view_filter": float(np.median(run["filter_s"])) * 1e3,
+        "fused_points": n_points, "eager_fused_points": eager_pipeline["fused_points"],
+        "eager_ms_per_view_forward": eager_pipeline["ms_per_view_forward"],
+        "eager_ms_per_view_filter": eager_pipeline["ms_per_view_filter"],
+        "graphs": len(forward.graphs)}
+    del model, forward, run
+    fresh()
+    line["bench"] = {"captured_chain": drivers["bench"],
+                     "ms_per_forward": drivers["bench_detail"]["ms_per_forward"],
+                     "peak_memory_gb": drivers["bench_detail"]["peak_memory_gb"],
+                     "peak_reserved_gb": drivers["bench_detail"]["peak_reserved_gb"]}
+    return line, totals
 
 def _per_run(rows):
     """Sums over the timed rows of each set, per run of the set's path
@@ -1732,6 +1950,7 @@ def main() -> int:
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         warp_fwd as k4,
     )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
 
     counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3, "warp_fwd": k4, "attn_fuse": k5,
                 "band_conv": k6}
@@ -1832,12 +2051,17 @@ def main() -> int:
     print(json.dumps({"small_train_step_other_width": {
         "base": base, "group_cor_dim": list(groups),
         **checks.check_train_step(dev, base=base, group_cor_dim=groups)}}))
-    train, train_profile, train_counts = drive_train(dev, train_batch, counters)
+    # the eager readings: drive_train, drive_pipeline and drive_variants run
+    # the entry points as the port ran them before capture (graphs.eager);
+    # drive_graphs holds the captured forms against them
+    with graphs.eager():
+        train, train_profile, train_counts = drive_train(dev, train_batch, counters)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))
     del train_batch
     torch.cuda.empty_cache()
-    pipeline, pipeline_counts = drive_pipeline(dev, counters)
+    with graphs.eager():
+        pipeline, pipeline_counts = drive_pipeline(dev, counters)
     print(json.dumps({"pipeline": pipeline}))
     torch.cuda.empty_cache()
     train_cli = drive_train_cli(counters)
@@ -1846,7 +2070,8 @@ def main() -> int:
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     t0 = time.perf_counter()
-    variant_counts = drive_variants(dev, batch, train_batch, counters)
+    with graphs.eager():
+        variant_counts = drive_variants(dev, batch, train_batch, counters)
     print(json.dumps({"variants": {"count": len(checks.VARIANTS),
                                    "wall_s": time.perf_counter() - t0,
                                    "launches": variant_counts}}))
@@ -1876,6 +2101,11 @@ def main() -> int:
     drivers, drivers_counts = drive_drivers(dev, counters)
     drivers["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"drivers": drivers}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graphs_line, graphs_counts = drive_graphs(dev, counters, pipeline, drivers)
+    graphs_line["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"graphs": graphs_line}))
 
     kernel_line = []
     for name, src, replaces, also_serves, row_set in (
@@ -1899,12 +2129,15 @@ def main() -> int:
             "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
             "launches": (counts[name] + train_counts[name] + pipeline_counts[name]
                          + variant_counts[name] + space_counts[name] + ddp_counts[name]
-                         + debug_counts[name] + drivers_counts[name]),
+                         + debug_counts[name] + drivers_counts[name] + graphs_counts[name]),
             "launches_eval": counts[name], "launches_train": train_counts[name],
             "launches_pipeline": pipeline_counts[name],
             "launches_variants": variant_counts[name],
             "launches_space": space_counts[name], "launches_ddp": ddp_counts[name],
             "launches_debug": debug_counts[name], "launches_drivers": drivers_counts[name],
+            # the graphs phase's counted first calls: each captures, and its
+            # eager warm-up and its capture launch every kernel once
+            "launches_graphs": graphs_counts[name],
             "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
             "timed_per": "eval forward" if row_set == "eval" else "train step",
             "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),

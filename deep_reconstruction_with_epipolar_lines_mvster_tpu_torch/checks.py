@@ -22,6 +22,14 @@ both call these, so that each tolerance is stated once. Every check raises
   where the step is deterministic).
 - ``compare_debug_dumps``: the debug dumps (``utils/debug.py``) of a
   device against the CPU's.
+- ``check_graph_forward``, ``check_graph_eval_step``,
+  ``check_graph_train_step``: the captured paths (``utils/graphs.py``)
+  replayed against their eager calls: the eval forward and the eval step
+  bit for bit, the train step within a multiple of the eager step's own
+  run-to-run noise.
+
+Checks that read intermediate values on the host (``train_step_grads``,
+the DDP runs) run eagerly (``graphs.eager``).
 
 Why the train-step comparison pins two things. The float32 gradient of
 this network is ill-conditioned in two places, on any device: moving every
@@ -56,6 +64,7 @@ ConvNeXt layer scale of order 1, DCN offsets between pixels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from typing import Dict, Optional
@@ -68,6 +77,7 @@ from .config import LossConfig, ModelConfig, setup_device
 from .eval.fusion import FusionConfig
 from .ops.kernels.topdown import topdown_level_ref
 from .ops.topdown_chain import TopDownChain
+from .utils import graphs
 
 # relative to max(1, max|plain|): float32 sums in another order; in bf16
 # the Function keeps du, dprev and dskip in bf16 (as the JAX package's
@@ -273,9 +283,11 @@ def train_step_grads(model, batch, pin: Optional[Dict[str, list]] = None):
     hooks.append(model.feature.register_forward_hook(
         lambda m, i, out: [keep(f"o{k + 1}", o) for k, o in enumerate(out)] and None))
     try:
+        # eager: the hooks read the step's tensors on the host
         with mock.patch.object(net, "schedule_inverse_range",
                                pinned(net.schedule_inverse_range)), \
-                mock.patch.object(net, "schedule_range", pinned(net.schedule_range)):
+                mock.patch.object(net, "schedule_range", pinned(net.schedule_range)), \
+                graphs.eager():
             step = make_train_step(model, RECIPE_LOSS, make_optimizer(model, 1e-4),
                                    lambda i: 1e-3)
             loss = step(batch)["loss"].item()
@@ -497,7 +509,8 @@ def seeded_model(cfg: ModelConfig, seed: int, device):
 
 
 def run_pipeline(model, dataset, device, cfg: FusionConfig = EVAL_DTU_FUSION,
-                 nview_filter: int = 4, ply_path: Optional[str] = None) -> Dict[str, object]:
+                 nview_filter: int = 4, ply_path: Optional[str] = None,
+                 forward=None) -> Dict[str, object]:
     """The eval CLI's path without its image files: the depth maps of every
     reference view of ``dataset`` (``eval/depthgen.run_forward``, one view
     per batch), then the filter's work for each view (``eval/scene_filter.
@@ -506,13 +519,15 @@ def run_pipeline(model, dataset, device, cfg: FusionConfig = EVAL_DTU_FUSION,
     on ``device``; with ``ply_path`` the cloud is written there
     (``write_ply``). Returns the per-view depths, final masks and point
     counts, the fused points, and the host seconds per view of the forward
-    and of the filter (each ending in results on the host)."""
+    and of the filter (each ending in results on the host). ``forward``:
+    the eval forward to run, by default a new ``make_eval_forward(model)``
+    (on the card its first view captures the graph)."""
     from .data.loader import collate
     from .eval.depthgen import make_eval_forward, run_forward
     from .eval.ply import write_ply
     from .eval.scene_filter import fuse_view
 
-    forward = make_eval_forward(model)
+    forward = forward or make_eval_forward(model)
     depths, confs, cams, images, fwd_s = {}, {}, {}, {}, []
     for i, (v, _) in enumerate(dataset.pairs):
         sample = dataset[i]
@@ -687,13 +702,14 @@ def _ddp_run(make_model, batch, steps: int, dp_impl: Optional[str], device):
                 if not k.endswith("num_batches_tracked")}
 
     hook = optimizer.register_step_pre_hook(first_grads)
-    for i in range(steps):
-        t0 = time.perf_counter()
-        run["losses"].append(step(batch)["loss"].item())
-        run["ms"].append((time.perf_counter() - t0) * 1e3)
-        if i == 0:
-            run["params1"] = _params(model)
-            run["first_bn"] = {k: v for k, v in state().items() if k.endswith(_BN_STATS)}
+    with graphs.eager():    # data-parallel steps are eager: so is the bare one here
+        for i in range(steps):
+            t0 = time.perf_counter()
+            run["losses"].append(step(batch)["loss"].item())
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                run["params1"] = _params(model)
+                run["first_bn"] = {k: v for k, v in state().items() if k.endswith(_BN_STATS)}
     hook.remove()
     run["last"] = state()
     return run
@@ -886,6 +902,220 @@ def compare_debug_dumps(got: Dict[str, str], want: Dict[str, str],
             raise AssertionError(f"debug {name} on {what}: {share} of elements agree")
         worst[group] = min(worst[group], share)
     return {"arrays": len(want), "agreement_min": worst}
+
+
+# ----------------------------------------------------- the captured paths --
+
+# eager forwards whose agreement with each other bounds a replay's, where
+# the eager forward itself varies from run to run (check_graph_forward)
+GRAPH_EAGER_FORWARDS = 3
+# eager runs of the train step from the same seed, whose gaps from each
+# other are its run-to-run noise on the card (K3's float32 atomics); the
+# replayed step's median gap to them may be DDP_NOISE_MULT times that, the
+# rule of check_ddp_step
+GRAPH_EAGER_RUNS = 4
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes, so that equal means bit for bit (NaN and -0.0 too)."""
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def _leaves(tree):
+    return graphs.signature((tree,))[1]
+
+
+def _tree_gap(got, want) -> Dict[str, object]:
+    """Whether two output trees are equal bit for bit, and the largest
+    absolute difference over their finite entries."""
+    a, b = _leaves(got), _leaves(want)
+    if [(t.shape, t.dtype) for t in a] != [(t.shape, t.dtype) for t in b]:
+        raise AssertionError("the outputs differ in structure, shape or dtype")
+    gap = 0.0
+    for x, y in zip(a, b):
+        both = torch.isfinite(x) & torch.isfinite(y)
+        if both.any():
+            gap = max(gap, (x.float() - y.float()).abs()[both].max().item())
+    return {"bit_equal": all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b)),
+            "max_abs_diff": gap}
+
+
+def _agreement(got, want) -> float:
+    """The share of output elements equal (rtol 1e-5, as ``check_forward``
+    holds the card to the CPU; NaN equal to NaN) over two output trees."""
+    pairs = list(zip(_leaves(got), _leaves(want)))
+    same = sum(torch.isclose(x.float(), y.float(), rtol=1e-5, atol=0, equal_nan=True)
+               .sum().item() for x, y in pairs)
+    return same / sum(y.numel() for _, y in pairs)
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = flag
+
+
+def check_graph_forward(model, imgs, projs, dv) -> Dict[str, object]:
+    """``eval.depthgen.make_eval_forward(model)`` on the card, replayed,
+    against the same forward run eagerly (``graphs.eager``) on the same
+    inputs, in two settings:
+
+    1. with cuDNN's deterministic algorithms
+       (``torch.backends.cudnn.deterministic``), where the eager forward
+       gives the same bits run after run: two replays bit-equal to the
+       eager forward, and the first call's outputs unchanged across a later
+       call on other inputs (a replay writes fresh tensors);
+    2. as the port runs, cuDNN free to pick an algorithm whose sums run in
+       an order that varies between runs (the float32 transposed
+       convolutions of the regularizers run cuDNN's ``dgrad_engine``): the
+       two replays' agreement with ``GRAPH_EAGER_FORWARDS`` eager runs (the
+       share of output elements equal, ``_agreement``) at least the eager
+       runs' own lowest agreement with each other, or
+       ``FORWARD_DEPTH_AGREEMENT`` where that is lower; reported beside
+       whether the replay is bit-equal.
+
+    Returns the readings of both."""
+    from .eval.depthgen import make_eval_forward
+
+    args = (imgs, projs, dv)
+    with _cudnn_deterministic():
+        forward = make_eval_forward(model)
+        with graphs.eager():
+            want = forward(*args)
+            eager_gap = _tree_gap(forward(*args), want)
+        got = forward(*args)                          # captures, then replays
+        kept = [t.clone() for t in _leaves(got)]
+        replay = _tree_gap(forward(*args), want)
+        forward(imgs * 0.5, projs, dv)                # a later call, other inputs
+        torch.cuda.synchronize()
+        first = _tree_gap(got, want)
+        if not (eager_gap["bit_equal"] and first["bit_equal"] and replay["bit_equal"]):
+            raise AssertionError(f"deterministic cuDNN: eager against eager {eager_gap}, "
+                                 f"replays against eager {first}, {replay}")
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(_leaves(got), kept)):
+            raise AssertionError("a later call overwrote an earlier call's outputs")
+        graph_count = len(forward.graphs)
+    del forward
+
+    forward = make_eval_forward(model)
+    with graphs.eager():
+        eager = [forward(*args) for _ in range(GRAPH_EAGER_FORWARDS)]
+    replays = [forward(*args) for _ in range(2)]
+    eager_agree = min(_agreement(a, b) for i, b in enumerate(eager) for a in eager[i + 1:])
+    agree = min(_agreement(r, e) for r in replays for e in eager)
+    if agree < min(eager_agree, FORWARD_DEPTH_AGREEMENT):
+        raise AssertionError(f"captured eval forward agrees with eager at {agree}, the eager "
+                             f"runs with each other at {eager_agree}")
+    return {"deterministic_cudnn": {"vs_eager": first, "second_replay_vs_eager": replay,
+                                    "eager_vs_eager": eager_gap, "earlier_outputs_kept": True},
+            "default": {"vs_eager": _tree_gap(replays[0], eager[0]),
+                        "agreement_min": agree, "eager_agreement_min": eager_agree,
+                        "eager_vs_eager": _tree_gap(eager[1], eager[0])},
+            "graphs": graph_count}
+
+
+def check_graph_eval_step(model, batch, loss_cfg: LossConfig = RECIPE_LOSS) -> Dict[str, object]:
+    """``train.step.make_eval_step`` replayed against the same step run
+    eagerly on ``batch``: every scalar bit for bit."""
+    from .train.step import make_eval_step
+
+    step = make_eval_step(model, loss_cfg)
+    with graphs.eager():
+        want = step(batch)
+    step(batch)                                       # captures
+    got = step(batch)                                 # replays
+    gap = _tree_gap(got, want)
+    if not gap["bit_equal"]:
+        raise AssertionError(f"captured eval step against eager: {gap}")
+    return {"scalars": len(want), "bit_equal": True,
+            "loss": float(got["loss"]), "graphs": len(step.graphs)}
+
+
+def _graph_train_run(make_model, batch, steps: int, captured: bool) -> Dict[str, object]:
+    """``steps`` recipe-loss Adam steps (lr ``DDP_LR``, wd ``DDP_WD``) of a
+    fresh ``make_model()`` on ``batch``, captured or eager: the losses; the
+    gradients that ``.grad`` holds after the first call (the step's
+    contract) and the state after the last; the host ms of each step."""
+    from .train.step import make_optimizer, make_train_step
+
+    model = make_model()
+    step = make_train_step(model, RECIPE_LOSS, make_optimizer(model, DDP_WD),
+                           lambda i: DDP_LR)
+    run: Dict[str, object] = {"losses": [], "ms": []}
+    with (graphs.eager() if not captured else contextlib.nullcontext()):
+        for i in range(steps):
+            t0 = time.perf_counter()
+            run["losses"].append(step(batch)["loss"].item())
+            run["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                run["grads"] = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                                .float().cpu() for n, p in model.named_parameters()}
+    run["last"] = {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+                   if not k.endswith("num_batches_tracked")}
+    run["graphs"] = len(step._captured.graphs)
+    return run
+
+
+def check_graph_train_step(make_model, batch, steps: int = 3) -> Dict[str, object]:
+    """The captured train step (``train.step.TrainStep`` on the card)
+    against ``GRAPH_EAGER_RUNS`` eager runs from the same seed, ``steps``
+    steps each, all with cuDNN's deterministic algorithms, so that the
+    noise is K3's atomics' alone and a replay that took other cuDNN
+    algorithms than the eager step would show, by the rule of
+    ``check_ddp_step``: the first loss within
+    ``DDP_FIRST_STEP_RTOL``; the first step's gradients (as ``.grad``
+    holds them after the call) and the BatchNorm statistics after the last
+    step within ``DDP_NOISE_MULT`` times the eager runs' largest pairwise
+    gap, all together and each gradient tensor; each later loss within
+    ``DDP_NOISE_MULT`` times the eager runs' spread or ``DDP_LOSS_FLOOR``
+    of what the first update moved it. Returns the noise, the gaps and the
+    host ms per step after the first, captured and eager."""
+    with _cudnn_deterministic():
+        eager = [_graph_train_run(make_model, batch, steps, False)
+                 for _ in range(GRAPH_EAGER_RUNS)]
+        run = _graph_train_run(make_model, batch, steps, True)
+    noise = _gap_stat([_ddp_gaps(a, b) for i, b in enumerate(eager) for a in eager[i + 1:]],
+                      max)
+    if run["graphs"] != 1:
+        raise AssertionError(f"the train step captured {run['graphs']} graphs, want 1")
+    gap = _gap_stat([_ddp_gaps(run, b) for b in eager], np.median)
+    ref = eager[0]["losses"][0]
+    first = abs(run["losses"][0] - ref) / max(1.0, abs(ref))
+    if first > DDP_FIRST_STEP_RTOL:
+        raise AssertionError(f"captured train step: first loss {run['losses'][0]}, eager {ref}")
+    for key in ("grads", "bn_stats_last"):
+        if not gap[key] <= DDP_NOISE_MULT * noise[key]:
+            raise AssertionError(f"captured train step: {key} gap {gap[key]}, eager runs' "
+                                 f"{noise[key]}")
+    worst = max(noise["grad_tensors"], key=lambda n: gap["grad_tensors"][n] / max(
+        DDP_NOISE_MULT * max(noise["grad_tensors"][n], noise["grads"]), 1e-30))
+    limit = DDP_NOISE_MULT * max(noise["grad_tensors"][worst], noise["grads"])
+    if gap["grad_tensors"][worst] > limit:
+        raise AssertionError(f"captured train step: gradient of {worst} gap "
+                             f"{gap['grad_tensors'][worst]}, limit {limit}")
+    losses = np.array([r["losses"] for r in eager])
+    centre = np.median(losses, axis=0)
+    floor = DDP_LOSS_FLOOR * abs(centre[1] - centre[0]) if steps > 1 else 0.0
+    limits = [max(DDP_NOISE_MULT * (hi - lo), floor)
+              for hi, lo in zip(losses.max(0)[1:], losses.min(0)[1:])]
+    off = np.abs(np.array(run["losses"][1:]) - centre[1:])
+    if not np.isfinite(run["losses"]).all() or (off > limits).any():
+        raise AssertionError(f"captured train step: losses {run['losses']}, eager "
+                             f"{losses.tolist()}, limits {limits}")
+    return {"steps": steps, "eager_runs": GRAPH_EAGER_RUNS, "noise_mult": DDP_NOISE_MULT,
+            "noise": {k: v for k, v in noise.items() if k != "grad_tensors"},
+            "gaps": {k: v for k, v in gap.items() if k != "grad_tensors"},
+            "first_loss_bit_equal": run["losses"][0] == ref,
+            "worst_grad_tensor": {"name": worst, "gap": gap["grad_tensors"][worst],
+                                  "limit": limit},
+            "losses": run["losses"], "eager_losses": losses.tolist(), "loss_limits": limits,
+            "ms_per_step": float(np.median(run["ms"][1:] or run["ms"])),
+            "eager_ms_per_step": float(np.median([m for r in eager for m in r["ms"][1:]]
+                                                 or eager[0]["ms"]))}
 
 
 def main() -> None:

@@ -305,7 +305,8 @@ def main(argv=None):
                    device=device, resume=args.resume, dp_impl=args.dp_impl)
     if args.mode == "test":
         # the reference's --mode test crashes on an out-of-scope optimizer
-        # (train_mvs4.py:271); a working validation sweep, as in JAX
+        # (train_mvs4.py:271); a working validation sweep, as in JAX, its
+        # eval step captured on the card as JAX jits it (JAX cli/train.py:361)
         from ..train.metrics import DictAverageMeter
         from ..train.step import make_eval_step
 
@@ -319,7 +320,8 @@ def main(argv=None):
         print("final", meter.mean())
         return meter.mean()
     # profile (unimplemented upstream, train_mvs4.py:605-606): the train
-    # step's first call against its steady state, then one traced step
+    # step's first call (on the card its capture, JAX cli/train.py:382's
+    # jit) against its steady state (replays), then one traced step
     from ..train.profiler import device_memory_stats, profile_step_fn, profile_trace
     from ..train.schedule import warmup_multistep
     from ..train.step import make_optimizer, make_train_step

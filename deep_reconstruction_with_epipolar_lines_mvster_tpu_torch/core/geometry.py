@@ -50,9 +50,9 @@ def extrinsics_inverse(extr: torch.Tensor) -> torch.Tensor:
     t = extr[..., :3, 3:4]
     rot_t = rot.transpose(-1, -2)
     top = torch.cat([rot_t, -rot_t @ t], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=extr.dtype, device=extr.device
-    ).expand(*top.shape[:-2], 1, 4)
+    # the bottom row [0, 0, 0, 1] made on the device (no host copy)
+    bottom = torch.zeros_like(extr[..., 3:4, :])
+    bottom[..., 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -156,17 +156,24 @@ def align_corners_taps(n_out: int, n_in: int):
     return i0, (1.0 - frac).astype(np.float32), frac.astype(np.float32)
 
 
-def _resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
-    n_in = x.shape[axis]
+@functools.lru_cache(maxsize=64)
+def _device_taps(n_out: int, n_in: int, device: torch.device, dtype: torch.dtype):
+    """:func:`align_corners_taps` as tensors on ``device``: ``(i0, i1, w0,
+    w1)``, the weights in ``dtype``, cached per ``(n_out, n_in, device,
+    dtype)`` so that a call copies nothing from the host (as
+    ``ops/kernels/topdown.py:_taps``)."""
     i0, w0, w1 = align_corners_taps(n_out, n_in)
-    dev = x.device
-    i0 = torch.as_tensor(i0, device=dev)
-    i1 = (i0 + 1).clamp(max=n_in - 1)
+    i0 = torch.as_tensor(i0, device=device)
+    return (i0, (i0 + 1).clamp(max=n_in - 1),
+            torch.as_tensor(w0, device=device).to(dtype),
+            torch.as_tensor(w1, device=device).to(dtype))
+
+
+def _resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    i0, i1, w0, w1 = _device_taps(n_out, x.shape[axis], x.device, x.dtype)
     shape = [1] * x.dim()
     shape[axis] = n_out
-    w0 = torch.as_tensor(w0, device=dev).to(x.dtype).view(shape)
-    w1 = torch.as_tensor(w1, device=dev).to(x.dtype).view(shape)
-    return x.index_select(axis, i0) * w0 + x.index_select(axis, i1) * w1
+    return x.index_select(axis, i0) * w0.view(shape) + x.index_select(axis, i1) * w1.view(shape)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -192,14 +199,20 @@ def align_corners_matrix(n_out: int, n_in: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=64)
+def _device_matrix(n_out: int, n_in: int, device: torch.device, dtype: torch.dtype):
+    """:func:`align_corners_matrix` on ``device`` in ``dtype``, cached."""
+    return torch.as_tensor(align_corners_matrix(n_out, n_in), device=device).to(dtype)
+
+
 def resize_align_corners_adjoint(dy: torch.Tensor, in_hw) -> torch.Tensor:
     """Adjoint of :func:`resize_align_corners` from ``in_hw``: ``dy [N, Ho,
     Wo, C] -> [N, H, W, C]``, the transposed interpolation matrices applied
     to both axes, in the dtype of ``dy``."""
     N, Ho, Wo, C = dy.shape
     H, W = in_hw
-    mh = torch.as_tensor(align_corners_matrix(Ho, H), device=dy.device).to(dy.dtype)
-    mw = torch.as_tensor(align_corners_matrix(Wo, W), device=dy.device).to(dy.dtype)
+    mh = _device_matrix(Ho, H, dy.device, dy.dtype)
+    mw = _device_matrix(Wo, W, dy.device, dy.dtype)
     t = torch.matmul(dy.permute(0, 1, 3, 2), mw)             # [N, Ho, C, W]
     t = torch.matmul(mh.t(), t.reshape(N, Ho, C * W))        # [N, H, C*W]
     return t.reshape(N, H, C, W).permute(0, 1, 3, 2)

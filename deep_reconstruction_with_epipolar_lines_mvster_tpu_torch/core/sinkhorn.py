@@ -52,11 +52,12 @@ def sinkhorn_loss(
 
     if not continuous:
         gt_idx = (hypo - gt[:, None]).abs().argmin(dim=1)            # [B, H, W]
-        gt_dist = torch.nn.functional.one_hot(gt_idx.reshape(B, H * W), D).to(f32)
+        # one-hot by comparison: F.one_hot reads the indices' range on the host
+        gt_dist = (gt_idx.reshape(B, H * W, 1) == torch.arange(D, device=dev)).to(f32)
         cost = base_cost[None, None]                                 # [1, 1, D, D]
     else:
         gt_dist = torch.zeros((B, H * W, D + 1), dtype=f32, device=dev)
-        gt_dist[:, :, -1] = 1.0
+        gt_dist[:, :, -1].fill_(1.0)
         itv = 1.0 / hypo[:, 2] - 1.0 / hypo[:, 1]                     # [B, H, W]
         gt_bin = (1.0 / gt - 1.0 / hypo[:, 0]) / itv
         gt_bin = torch.where(mask, gt_bin, torch.full_like(gt_bin, 10.0))

@@ -204,11 +204,13 @@ def batch_samples(samples) -> Dict:
 def batch_to_torch(batch: Dict, device) -> Dict:
     """A stacked batch as tensors on ``device``: the model inputs ``imgs``,
     ``proj_matrices`` and ``depth_values``, the train targets ``depth``
-    and ``mask`` per stage, and a padded batch's ``valid`` mask."""
-    import torch
+    and ``mask`` per stage, and a padded batch's ``valid`` mask. To a card
+    the arrays go through pinned memory without blocking the host
+    (``utils/graphs.to_device``)."""
+    from ..utils.graphs import to_device
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return to_device(a, device)
 
     return {
         "imgs": t(batch["imgs"]),

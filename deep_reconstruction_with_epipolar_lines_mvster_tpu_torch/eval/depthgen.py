@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import sharded_eval_forward
+from ..utils import graphs
 
 
 def _normalize01(x: np.ndarray) -> np.ndarray:
@@ -55,11 +56,16 @@ def make_eval_forward(model, devices=None, *, space: int = 1, space_halo: int = 
     test_mvs4.py:474-489), as tensors on the model's device (on
     ``devices[0]`` with ``devices``).
 
+    Without ``devices`` the forward is captured (``utils/graphs.capture``,
+    JAX's ``jax.jit(forward)``): on the card one CUDA graph per input
+    signature, replayed on every later call, its outputs fresh tensors; on
+    the CPU the eager forward.
+
     ``devices`` (JAX's ``mesh``): the forward over that device list laid
     out ``(data, space)`` (``parallel.mesh.sharded_eval_forward``): the
     batch split over ``len(devices) // space`` data shards, each image's
     cost-volume stages over ``space`` row windows with ``space_halo`` rows
-    of overlap, one model replica a device."""
+    of overlap, one model replica a device; eager."""
     model.eval()
     run = model if devices is None else sharded_eval_forward(
         model, devices, space=space, space_halo=space_halo)
@@ -77,7 +83,7 @@ def make_eval_forward(model, devices=None, *, space: int = 1, space_halo: int = 
                                  for s in (2, 3, 4)]
         return res
 
-    return forward
+    return forward if devices is not None else graphs.capture(forward, "eval forward")
 
 
 def _bucket_hw(h: int, w: int, bucket, max_hw) -> Tuple[int, int]:
@@ -100,7 +106,8 @@ def run_forward(forward, batch, device, *, shape_bucket=0, max_hw=None):
     ``device``, wait for it, and return ``(out, seconds, shape)``: ``out``
     as numpy arrays cropped back to the native shape, the seconds from the
     host-to-device copy to the results on the host, and the padded
-    ``(H, W, V, D)``."""
+    ``(H, W, V, D)``. The inputs go to a card through pinned memory
+    (``utils/graphs.to_device``)."""
     imgs = np.asarray(batch["imgs"])
     dv = np.asarray(batch["depth_values"])
     Bv, Vv, H, W = imgs.shape[:4]
@@ -112,7 +119,7 @@ def run_forward(forward, batch, device, *, shape_bucket=0, max_hw=None):
         padded = imgs
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return graphs.to_device(a, device)
 
     t0 = time.perf_counter()
     res = forward(t(padded), {k: t(v) for k, v in batch["proj_matrices"].items()}, t(dv))
@@ -152,9 +159,9 @@ def generate_depth_maps(
     Shape bucketing (``shape_bucket``: 0 off, int N = round HxW up to
     N-multiples, ``'max'`` = pad every sample to ``max_hw``) pads the images
     bottom/right with zeros and crops the outputs back, as the JAX package
-    does to share one compile. The port compiles nothing per shape; the
-    option is kept so that the two give the same depth maps for the same
-    flags. The padded image is not bit-exact for the valid region (the FPN
+    does to share one compile; on the card the port likewise captures one
+    graph per padded shape (a smaller last batch is a shape of its own). The
+    padded image is not bit-exact for the valid region (the FPN
     top-down and the hypothesis windows use align-corners resizes over the
     global extent); ``shape_bucket=0`` keeps the native shape.
 

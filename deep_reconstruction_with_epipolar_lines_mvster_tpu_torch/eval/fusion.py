@@ -35,6 +35,7 @@ import torch
 
 from ..config import resolve_device
 from ..core.geometry import extrinsics_inverse, grid_sample_2d, intrinsics_inverse
+from ..utils import graphs
 
 
 class FusionConfig(NamedTuple):
@@ -121,6 +122,31 @@ def check_geometric_consistency(depth_ref, intr_ref, extr_ref, depth_src, intr_s
     return mask, torch.where(mask, depth_rep, torch.zeros_like(depth_rep))
 
 
+def _filter(depth_ref, conf_ref, intr_ref, extr_ref, src_depths, src_intrs, src_extrs,
+            cfg: FusionConfig) -> Dict[str, torch.Tensor]:
+    """The device work of ``filter_ref_view`` on tensors, the source views
+    stacked ``[S, ...]``."""
+    masks, depths_rep = check_geometric_consistency(
+        depth_ref, intr_ref, extr_ref, src_depths, src_intrs, src_extrs,
+        condmask_pixel=cfg.condmask_pixel, condmask_depth=cfg.condmask_depth,
+    )                                                                      # [S, H, W]
+    geo_count = masks.to(torch.int32).sum(dim=0)
+    fused = (depths_rep.sum(dim=0) + depth_ref) / (geo_count + 1).to(torch.float32)
+    photo_mask = conf_ref > cfg.photomask
+    geo_mask = geo_count >= cfg.geomask
+    return {
+        "photo_mask": photo_mask,
+        "geo_mask": geo_mask,
+        "final_mask": photo_mask & geo_mask,
+        "fused_depth": fused,
+    }
+
+
+# captured on the card once per (H, W, source views, cfg), as the JAX
+# package jits its per-view check (JAX eval/fusion.py:128)
+_filter_graphs = graphs.capture(_filter, "filter_ref_view")
+
+
 def filter_ref_view(
     depth_ref,
     conf_ref,
@@ -135,26 +161,15 @@ def filter_ref_view(
 ) -> Dict[str, np.ndarray]:
     """Filter + fuse one reference view against its source views, all
     source views in one batched computation on ``device`` (the card unless
-    ``device="cpu"``). Inputs are numpy arrays or tensors; returns numpy."""
+    ``device="cpu"``). On the card the computation is a CUDA graph per
+    ``(H, W)``, number of source views and ``cfg`` (``utils/graphs``).
+    Inputs are numpy arrays or tensors; returns numpy."""
     dev = resolve_device(device)
-    depth_ref = _t(depth_ref, dev)
-    masks, depths_rep = check_geometric_consistency(
-        depth_ref, _t(intr_ref, dev), _t(extr_ref, dev),
+    out = _filter_graphs(
+        _t(depth_ref, dev), _t(conf_ref, dev), _t(intr_ref, dev), _t(extr_ref, dev),
         torch.stack([_t(d, dev) for d in src_depths]),
         torch.stack([_t(k, dev) for k in src_intrs]),
-        torch.stack([_t(e, dev) for e in src_extrs]),
-        condmask_pixel=cfg.condmask_pixel, condmask_depth=cfg.condmask_depth,
-    )                                                                      # [S, H, W]
-    geo_count = masks.to(torch.int32).sum(dim=0)
-    fused = (depths_rep.sum(dim=0) + depth_ref) / (geo_count + 1).to(torch.float32)
-    photo_mask = _t(conf_ref, dev) > cfg.photomask
-    geo_mask = geo_count >= cfg.geomask
-    out = {
-        "photo_mask": photo_mask,
-        "geo_mask": geo_mask,
-        "final_mask": photo_mask & geo_mask,
-        "fused_depth": fused,
-    }
+        torch.stack([_t(e, dev) for e in src_extrs]), cfg)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 

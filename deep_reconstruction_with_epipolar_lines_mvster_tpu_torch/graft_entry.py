@@ -13,13 +13,16 @@ Counterpart of the JAX repo's ``__graft_entry__.py``:
   into a batch of tensors (``_example_batch``, ``:52-64``).
 - ``entry``: ``(fn, example_args)``, ``fn`` the eval forward returning the
   stage-4 depth and photometric confidence (``entry``, ``:103-122``). On
-  the card it runs K1, K2, K5 and K6.
+  the card it runs K1, K2, K5 and K6, captured in a CUDA graph on its
+  first call and replayed after (``eval.depthgen.make_eval_forward``, as
+  the JAX ``fn`` is jitted).
 - ``dryrun_multichip(n)``: one train step of each data-parallel form over
   ``n`` ranks, and at ``n >= 2`` the row-sharded eval at halo 8 and the
   flagship at 256x320 with halo 48 (``:125-279``). The ranks are processes
   started by ``torchrun --standalone`` (NCCL on the cards, gloo on the
   CPU); the eval parts run on rank 0 over the ``(data, space=2)`` device
-  list (``parallel.mesh.sharded_eval_forward``).
+  list (``parallel.mesh.sharded_eval_forward``); both parts run eagerly,
+  as the port's mesh paths do.
 
 Everything runs on the card unless the caller passes ``device="cpu"``;
 without CUDA it raises. Unlike the JAX dry run, which moves to a virtual
@@ -75,7 +78,8 @@ def example_batch(B: int = 1, V: int = 4, H: int = 256, W: int = 320, seed: int 
 def eval_fn(model):
     """``fn(imgs, proj_matrices, depth_values) -> (depth, confidence)``:
     ``model``'s eval forward as the eval CLI builds it
-    (``eval.depthgen.make_eval_forward``), stage 4's outputs."""
+    (``eval.depthgen.make_eval_forward``: on the card a captured graph per
+    input signature), stage 4's outputs."""
     forward = make_eval_forward(model)
 
     def fn(imgs, proj_matrices, depth_values):

@@ -19,11 +19,15 @@ recipe loss, Adam lr 1e-3, wd 1e-4); with ``--path pipeline`` it builds the
 eval pipeline's model instead (``checks.eval_dtu_config()``, the
 scripts/eval_dtu.sh model in float32) and times its eval forward on one
 reference view of V=4 at 512x640, the forward that the eval CLI runs per
-view. It warms up with two calls, times
-``--rounds`` rounds of ``--reps`` calls with CUDA events, and adds the
-device time of one call under ``torch.profiler``. It uses only what every
-version of the port since the eval pipeline has: ``ModelConfig``,
-``MVS4Net(cfg, device=, generator=)``, ``data.synthetic``,
+view. Each path runs through its entry point, as a user calls it:
+``eval.depthgen.make_eval_forward`` for the eval and pipeline paths, the
+``TrainStep`` for the train path (captured CUDA graphs where the
+checkout captures, eager where it does not). It warms up with two calls,
+times ``--rounds`` rounds of ``--reps`` calls with CUDA events, and adds
+the device time of one call under ``torch.profiler`` (which traces the
+kernels of a replayed graph). It uses only what every version of the port
+since the eval pipeline has: ``ModelConfig``, ``MVS4Net(cfg, device=,
+generator=)``, ``data.synthetic``, ``eval.depthgen.make_eval_forward``,
 ``checks.RECIPE_LOSS``, ``checks.eval_dtu_config`` and ``train.step``.
 
 With ``--path kernels`` a process times the kernels of its checkout row by
@@ -191,12 +195,11 @@ def measure(repo: str, rounds: int, reps: int, path: str) -> dict:
     scenes = [synthetic.make_plane_scene(V=V, H=H, W=W, seed=i) for i in range(B)]
     batch = synthetic.batch_to_torch(synthetic.batch_samples(scenes), "cuda")
     if path in ("eval", "pipeline"):
-        model.eval()
+        forward = importlib.import_module(f"{PKG}.eval.depthgen").make_eval_forward(model)
         args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
 
         def call():
-            with torch.inference_mode():
-                model(*args)
+            forward(*args)
     else:
         checks = importlib.import_module(f"{PKG}.checks")
         step = importlib.import_module(f"{PKG}.train.step")

@@ -39,10 +39,15 @@ def save_checkpoint(logdir: str, epoch: int, state) -> str:
     """Write ``state`` (a ``train.step.TrainStep``: its model, optimizer and
     step counter) as the checkpoint of ``epoch``; returns the path."""
     os.makedirs(logdir, exist_ok=True)
+    optimizer = state.optimizer.state_dict()
+    for group in optimizer["param_groups"]:
+        # the train step's learning rate is a tensor on the device; the
+        # file keeps the reference's Python float
+        group["lr"] = float(group["lr"])
     payload = {
         "epoch": int(epoch),
         "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": optimizer,
         "step": int(state.step),
     }
     path = checkpoint_path(logdir, epoch)
@@ -67,11 +72,26 @@ def find_latest_checkpoint(logdir: str) -> Optional[str]:
 def restore_checkpoint(path: str, state) -> int:
     """Full resume into ``state`` (a ``TrainStep``): the model's parameters
     and buffers, the optimizer's moments and step counts, and the step
-    counter. Returns the epoch to continue at, the saved one + 1."""
+    counter. Returns the epoch to continue at, the saved one + 1.
+
+    The optimizer's ``load_state_dict`` replaces its state tensors, which a
+    captured train step would still read: the step's graphs are dropped,
+    and its next call captures anew (``fit`` restores before its first
+    step, so that nothing is captured twice)."""
     blob = torch.load(path, map_location="cpu")
     state.model.load_state_dict(blob["model"])
+    # Adam's ``capturable`` follows the device it runs on, not the one that
+    # wrote the file; a capturable Adam keeps its step counts on that device
+    capturable = [g["capturable"] for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(blob["optimizer"])
+    for group, flag in zip(state.optimizer.param_groups, capturable):
+        group["capturable"] = flag
+        for p in group["params"] if flag else ():
+            st = state.optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(p.device, torch.float32)
     state.step = int(blob["step"])
+    state.reset_graphs()
     return int(blob["epoch"]) + 1
 
 

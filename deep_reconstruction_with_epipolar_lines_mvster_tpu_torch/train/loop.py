@@ -7,6 +7,9 @@ checkpoint (the schedule is a pure function of the restored step), the
 train steps with the scalars and images logged every ``summary_freq``
 steps, a checkpoint every ``save_freq`` epochs, and validation with a
 ``DictAverageMeter`` every ``eval_freq``-th epoch and after the last one.
+On the card the train and eval steps are captured graphs
+(``train/step.py``), fed by pinned copies of each batch
+(``data/synthetic.batch_to_torch``).
 
 Data-parallel over the ranks of the default process group (from
 ``parallel.init_distributed``), the loaders giving each rank its share of
@@ -82,6 +85,8 @@ def fit(
         data_parallel(train_step, dp_impl, device=device)
         group = train_step.dp.group
 
+    # the restore comes before the first step: on the card that step
+    # captures the graph, which then reads the restored optimizer state
     start_epoch = 0
     if resume:
         latest = find_latest_checkpoint(logdir)

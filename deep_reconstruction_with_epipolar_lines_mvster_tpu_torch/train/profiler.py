@@ -63,8 +63,9 @@ def device_memory_stats() -> Dict[str, Dict[str, float]]:
 
 def profile_step_fn(step_fn: Callable[[], Any], device: torch.device, *,
                     iters: int = 10) -> Dict[str, float]:
-    """Time ``step_fn``: its first call (the kernels' build and load and
-    the allocator's growth included), one warm-up call, then ``iters``
+    """Time ``step_fn``: its first call (the kernels' build and load, the
+    allocator's growth and, for a captured step on the card, its warm-up
+    and capture included), one warm-up call, then ``iters``
     calls, each group ending in a synchronize of ``device``."""
     t0 = time.perf_counter()
     step_fn()

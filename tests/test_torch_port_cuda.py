@@ -467,13 +467,14 @@ def test_eval_pipeline_matches_cpu(dev):
     """The eval pipeline (depth maps of 4 views at 64x128, the consistency
     filter, the fused cloud) on the card against the CPU, by
     ``checks.check_pipeline``: depth equal at >= 99% of each view's pixels,
-    final masks agreeing at >= 99%, point counts within 1%. Each view's
-    forward launches K1 12, K2 3, K5 4 times and K6 as its float32 route
-    rule gives."""
+    final masks agreeing at >= 99%, point counts within 1%. The forward is
+    captured: the first view's call launches K1 12, K2 3, K5 4 times and K6
+    as its float32 route rule gives, once in the warm-up and once in the
+    capture, and the other three views replay the graph."""
     before = (k1.launches, k2.launches, k5.launches, k6.launches)
     checks.check_pipeline(dev)
     assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2],
-            k6.launches - before[3]) == (48, 12, 16, 4 * _k6_per_forward(torch.float32))
+            k6.launches - before[3]) == (24, 6, 8, 2 * _k6_per_forward(torch.float32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -636,11 +637,12 @@ def test_band_conv_plan_names_the_float32_launch_shape(dev, shape, copy):
 
 def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
     """One epoch of the train CLI on the card (``synthetic://64x128/2``, B1,
-    V3, the DTU recipe's model in bf16): the two train steps launch K4 and
-    K3 8 times each and K6 never; the two validation batches launch K6 as
-    its bf16 route rule gives (the FPN stem's 3x3 stride-1 layers on the
-    route, Reg2D.conv0 at four stages); the losses in ``metrics.jsonl`` are
-    finite."""
+    V3, the DTU recipe's model in bf16): the steps are captured, so the
+    first train step launches K4 and K3 8 times each twice (its warm-up and
+    its capture) and K6 never, and the second replays; the first validation
+    batch launches K6 twice as its bf16 route rule gives (the FPN stem's 3x3
+    stride-1 layers on the route, Reg2D.conv0 at four stages), and the
+    second replays; the losses in ``metrics.jsonl`` are finite."""
     before = (k3.launches, k4.launches, k6.launches)
     logdir = str(tmp_path / "run")
     state = train_cli.main([
@@ -977,7 +979,9 @@ def test_entry_fn_matches_cpu(dev):
     ``checks.check_forward`` holds it, and the confidence within 1e-3
     relative at 99% of the pixels where the depth agrees; then
     ``entry()``'s own bf16 ``fn`` on its example arguments (B1 V4 256x320)
-    through K1 (12 launches), K2 (3), K5 (4) and K6, its depth finite."""
+    through K1 (12 launches), K2 (3), K5 (4) and K6, each counted twice in
+    its first call, which captures (the warm-up's and the capture's
+    launches), its depth finite."""
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
 
     outs = []
@@ -998,7 +1002,7 @@ def test_entry_fn_matches_cpu(dev):
     torch.cuda.synchronize()
     after = (k1.launches, k2.launches, k5.launches, k6.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (
-        12, 3, 4, _k6_per_forward(torch.bfloat16))
+        24, 6, 8, 2 * _k6_per_forward(torch.bfloat16))
     assert depth.shape == (1, 256, 320) and torch.isfinite(depth).all()
 
 
@@ -1018,3 +1022,124 @@ def test_bench_runs_on_the_card(dev, capsys):
     assert line["device"] and line["device"] != "cpu"
     detail = json.loads(printed[-2])["bench"]
     assert detail["h100_bound_ms"] > 0 and 0 < detail["mfu"] < 1 and 0 < detail["bound_share"] < 1
+
+
+# ------------------------------------------------------------------------
+# Capture and replay (utils/graphs.py, the counterpart of jax.jit): each
+# captured entry point replayed against its eager call.
+
+def _small_args(dev):
+    """The model inputs of ``checks.small_step_batch`` (B2 V3 64x128)."""
+    b = checks.small_step_batch(dev)
+    return b["imgs"], b["proj_matrices"], b["depth_values"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_eval_forward_is_bit_equal_to_eager(dev, dtype):
+    """The flagship's eval forward (``make_eval_forward``) captured and
+    replayed at B2 V3 64x128 (``checks.check_graph_forward``): with cuDNN's
+    deterministic algorithms bit-equal to the eager forward in either
+    dtype, an earlier call's outputs not overwritten by a later call; as
+    the port runs, bit-equal in bf16, and in float32 (whose transposed
+    convolutions take a cuDNN algorithm that sums in a run-dependent
+    order) agreeing with the eager runs as well as they agree with each
+    other."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+
+    model = checks.seeded_model(graft_entry.dtu_model_config(dtype), 1, dev)
+    out = checks.check_graph_forward(model, *_small_args(dev))
+    assert out["deterministic_cudnn"]["vs_eager"]["bit_equal"] and out["graphs"] == 1
+    if dtype == "bfloat16":
+        assert out["default"]["vs_eager"]["bit_equal"]
+
+
+@pytest.mark.parametrize("variant", [v for _, v in checks.VARIANTS],
+                         ids=[n for n, _ in checks.VARIANTS])
+def test_captured_eval_forward_of_each_variant(dev, variant):
+    """Each model variant's eval forward (the flagship with one change,
+    float32, B2 V3 64x128) replayed against its eager forward
+    (``checks.check_graph_forward``): bit-equal with cuDNN's deterministic
+    algorithms; as the port runs, agreeing with the eager runs as well as
+    they agree with each other."""
+    import dataclasses
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+
+    cfg = dataclasses.replace(graft_entry.dtu_model_config("float32"), **variant)
+    checks.check_graph_forward(checks.seeded_model(cfg, 1, dev), *_small_args(dev))
+
+
+def test_captured_train_step_matches_eager_within_its_noise(dev):
+    """Three replayed train steps (the flagship in float32, B2 V3 64x128,
+    recipe loss, capturable Adam) against four eager runs from the same
+    weights, all with cuDNN's deterministic algorithms: the first loss
+    within 1e-6, the first step's gradients (as ``.grad`` holds them after
+    the call) and the last BatchNorm statistics within 4x the eager runs'
+    own noise (K3's float32 atomics), the later losses likewise
+    (``checks.check_graph_train_step``); one graph."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+
+    def make_model():
+        return MVS4Net(graft_entry.dtu_model_config("float32"), device=dev,
+                       generator=torch.Generator().manual_seed(5))
+
+    out = checks.check_graph_train_step(make_model, checks.small_step_batch(dev), 3)
+    assert len(out["losses"]) == 3
+
+
+def test_captured_eval_step_scalars_equal_eager(dev):
+    """The eval step replayed: every scalar bit-equal to the eager step's
+    (``checks.check_graph_eval_step``)."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+
+    model = checks.seeded_model(graft_entry.dtu_model_config("bfloat16"), 1, dev)
+    assert checks.check_graph_eval_step(model, checks.small_step_batch(dev))["bit_equal"]
+
+
+def test_capture_of_a_host_read_raises(dev):
+    """A function that reads a device value on the host (``.item()``)
+    cannot be captured: the call raises ``CaptureError`` naming the
+    function and its input signature, keeps no graph, and raises again on
+    the next call; nothing falls back to an eager result. (Its one eager
+    run is the capture's warm-up, whose result is thrown away.)"""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    runs = []
+
+    def reads_host(x):
+        runs.append(1)
+        return x * x.sum().item()
+
+    fn = graphs.capture(reads_host, "reads_host")
+    x = torch.ones(4, device=dev)
+    for _ in range(2):
+        with pytest.raises(graphs.CaptureError, match="reads_host.*signature"):
+            fn(x)
+        assert fn.graphs == {}
+    assert len(runs) == 4          # a warm-up and a capture attempt per call
+    ok = graphs.capture(lambda x: x * 2, "double")          # the card still captures
+    assert torch.equal(ok(x), torch.full((4,), 2.0, device=dev))
+
+
+def test_a_new_shape_captures_a_second_graph(dev):
+    """The eval forward at a second input shape captures a second graph;
+    the first shape's replays keep theirs; each replay equals the eager
+    forward at its shape."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.eval.depthgen import (
+        make_eval_forward,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    model = checks.seeded_model(graft_entry.dtu_model_config("float32"), 1, dev)
+    forward = make_eval_forward(model)
+    small = graft_entry.example_batch(B=1, V=3, H=64, W=64, device=dev)
+    large = graft_entry.example_batch(B=1, V=3, H=64, W=128, device=dev)
+    for n, b in ((1, small), (1, small), (2, large), (2, small)):
+        args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+        got = forward(*args)
+        assert len(forward.graphs) == n
+        with graphs.eager():
+            want = forward(*args)
+        assert torch.equal(got["depth"], want["depth"])

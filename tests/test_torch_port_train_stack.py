@@ -131,7 +131,8 @@ def test_checkpoint_round_trip_resumes_the_lr_curve(tmp_path):
     for step in (2, 3):
         run(batch)
         resumed(batch)
-        lrs = {g["lr"] for g in run.optimizer.param_groups + resumed.optimizer.param_groups}
+        lrs = {float(g["lr"])
+               for g in run.optimizer.param_groups + resumed.optimizer.param_groups}
         assert lrs == {sched(step)}
     assert sched(2) != sched(3)
     for (k, a), b in zip(run.model.named_parameters(), resumed.model.parameters()):
