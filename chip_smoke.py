@@ -97,17 +97,25 @@
    (``parallel.mesh.sharded_eval_forward`` over ``[cuda:0] * S``: the
    decomposition, not multi-card speed): the B4 V4 512x640 flagship in
    float32 and bf16 at S 2 and 4, and a Tanks&Temples-sized B1 V5
-   1024x1920 bf16 view at S 4, halo 48; the counters set to 0 just before
-   one sharded forward and read just after (S times the unsharded
-   forward's), every stage held to the unsharded forward
-   (``checks.compare_space``), timed and profiled; K1, K5 and K6 at every
-   window shape against their plain versions (sets
+   1024x1920 bf16 view at S 4, halo 48; each eager and captured (one CUDA
+   graph per rank per round, replayed) beside each other: the counters
+   set to 0 just before one sharded forward and read just after (eager S
+   times the unsharded forward's; the captured form's first call 2S
+   times, a replay none), every stage held to the unsharded forward
+   (``checks.compare_space``), timed, profiled, peak memory; the replay
+   held to the eager form (``checks.check_graph_space``); K1, K5 and K6 at
+   every window shape against their plain versions (sets
    ``space_<run>_S<S>_<dtype>``).
 12. Data-parallel training (``drive_ddp``): an NCCL group of one rank, the
    DTU recipe through ``parallel.mesh.data_parallel`` for each ``dp_impl``
-   against the bare step from the same seed (``checks.check_ddp_step``),
-   the counters around all of it; then ``torchrun --standalone
-   --nproc_per_node 1`` running the train CLI for one epoch.
+   against the bare step from the same seed, eager
+   (``checks.check_ddp_step``) and captured (``checks.check_graph_ddp_step``:
+   against eager runs of its form, ``gspmd`` with a one-rank group, and
+   against the bare step); each form eager and captured beside each other
+   (ms a step, busy share, peak memory, the NCCL kernels of one profiled
+   step); the counters around each part; then ``torchrun --standalone
+   --nproc_per_node 1`` running the train CLI for one epoch, its steps
+   captured.
 13. The debug dumps (``drive_debug``): the eval CLI with ``--debug_model
    255`` on a 4-view 512x640 scene, on the card (counted: the captured
    forward's warm-up and capture, the dump's eager forward, and K4 for bits
@@ -119,8 +127,10 @@
    line printed back), the first call of ``graft_entry.entry()``'s ``fn``
    at the bench shape, which captures (counted: twice K1 12, K2 3, K5 4,
    K6 12), and a replay that counts none, ``scripts/bench_scaling.py``
-   at one rank (its set-up split and row), the dry run
-   ``graft_entry 1`` and ``tools/train_demo.py`` for its 300 steps.
+   at one rank (its set-up split and row; its data-parallel step
+   captured, the timed steps replays), the dry run ``graft_entry 1`` (its
+   data-parallel steps captured) and ``tools/train_demo.py`` for its 300
+   steps.
 15. The captured entry points (``drive_graphs``; ``utils/graphs.py``, the
    counterpart of the JAX package's ``jax.jit``) beside their eager forms
    in this call: the eval forward at B4 V4 512x640 bf16 eager and
@@ -133,7 +143,8 @@
    captured chain from phase 14.
 
 Phases 7, 8 and 10 read the eager forms (``utils/graphs.eager``): the
-readings that phase 15 holds the captured forms against. Launch counters
+readings that phase 15 holds the captured forms against; phases 11 and
+12 read their mesh paths both ways. Launch counters
 count the launches the wrappers make: a captured function's first call
 with a new input signature launches every kernel twice (its eager warm-up
 and its capture), and a replay launches none; the ``kernels`` line's
@@ -885,7 +896,8 @@ def profile_run(fn):
     the total, the device's busy share of the call's wall time, the share
     of each of the port's kernels and of the convolution library (cuDNN's
     and CUTLASS's convolutions and GEMMs: ``share_conv_library``), sorted
-    by ``tools/trace_table.py:category``, and the ten largest kernels."""
+    by ``tools/trace_table.py:category``, the count of NCCL kernels, and
+    the ten largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,6 +924,7 @@ def profile_run(fn):
     return {
         "device_ms": total, "wall_ms": wall_ms,
         "device_busy_share": total / wall_ms if wall_ms else 0.0,
+        "nccl_kernels": sum(n for k, _, n in kernels if "nccl" in k.lower()),
         **{f"share_{name}": share(label) for name, label in trace_table.PORT_KERNELS.items()},
         "share_conv_library": share("conv_library", "gemm"),
         "top": [{"kernel": k[:120], "ms": ms, "calls": n}
@@ -1368,15 +1381,24 @@ def drive_space(dev, counters, rows):
     """The row-sharded eval (``--space``) on one card: per run of
     ``SPACE_RUNS``, the unsharded forward counted and timed, then for each
     shard count S ``parallel.mesh.sharded_eval_forward`` over
-    ``[card] * S`` (the windows' arithmetic, not multi-card speed): the
-    counters set to 0 just before one forward and read just after (S times
-    the unsharded forward's launches), every stage held to the unsharded
-    forward (``checks.compare_space``), ms per forward from the host (the
-    median of three) and between CUDA events (three back to back), the
-    device time of one profiled forward (``profile_run``) and its busy
-    share, peak memory; then K1, K5 and K6 at the window shapes
-    against their plain versions (``_window_rows``, appended to ``rows``).
-    Returns the phase's line and the launches of the counted forwards."""
+    ``[card] * S`` (the windows' arithmetic, not multi-card speed), eager
+    (``graphs.eager``) and captured (one CUDA graph per rank per round,
+    replayed) beside each other: the counters set to 0 just before one
+    forward and read just after (eager S times the unsharded forward's
+    launches; the captured form's first call 2S times, its eager warm-up's
+    and its capture's, and a replay none), every stage held to the
+    unsharded forward (``checks.compare_space``), ms per forward from the
+    host (the median of three) and between CUDA events (three back to
+    back), the device time of one profiled forward (``profile_run``) and
+    its busy share, peak memory allocated and reserved; the replay held to
+    the eager form (``checks.check_graph_space``: bit-equal with
+    deterministic cuDNN, and in bf16 without it); then K1, K5 and K6 at the
+    window shapes against their plain versions (``_window_rows``, appended
+    to ``rows``). Returns the phase's line and the launches of the counted
+    forwards."""
+    import contextlib
+    import gc
+
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
@@ -1386,6 +1408,7 @@ def drive_space(dev, counters, rows):
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
         sharded_eval_forward,
     )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     totals = {name: 0 for name in counters}
@@ -1417,26 +1440,50 @@ def drive_space(dev, counters, rows):
             whole_ms = _time_ms(lambda: model(*args), 3)
             whole_peak = torch.cuda.max_memory_allocated() / 1e9
         for S in shard_counts:
-            fwd = sharded_eval_forward(model, [dev] * S, space=S, space_halo=SPACE_HALO)
-            fwd(*args)                                             # warm-up
-            torch.cuda.reset_peak_memory_stats()
-            got, counts = counted(lambda: fwd(*args))              # the space path
-            expect = {k: S * n for k, n in whole_counts.items()}
-            if counts != expect:
-                raise AssertionError(f"space {name} S{S}: launches {counts}, want {expect}")
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            agreement = checks.compare_space(got, want, dtype, depth_range,
-                                             what=f"space {name} {dtype_name} S{S}")
-            del got
-            host = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fwd(*args)
-                torch.cuda.synchronize()
-                host.append((time.perf_counter() - t0) * 1e3)
-            events_ms = _time_ms(lambda: fwd(*args), 3)
-            prof = profile_run(lambda: fwd(*args))
+            forms = {}
+            for mode in ("eager", "captured"):
+                fwd = sharded_eval_forward(model, [dev] * S, space=S, space_halo=SPACE_HALO)
+                with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    if mode == "eager":
+                        fwd(*args)                                 # warm-up
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    got, counts = counted(lambda: fwd(*args))      # the space path
+                    times = 1 if mode == "eager" else 2
+                    expect = {k: times * S * n for k, n in whole_counts.items()}
+                    if counts != expect:
+                        raise AssertionError(f"space {name} S{S} {mode}: launches {counts}, "
+                                             f"want {expect}")
+                    agreement = checks.compare_space(got, want, dtype, depth_range,
+                                                     what=f"space {name} {dtype_name} S{S} {mode}")
+                    del got
+                    _, replay_counts = counted(lambda: fwd(*args))
+                    if mode == "captured" and any(replay_counts.values()):
+                        raise AssertionError(f"space {name} S{S}: a replay launched "
+                                             f"{replay_counts}")
+                    host = []
+                    for _ in range(3):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fwd(*args)
+                        torch.cuda.synchronize()
+                        host.append((time.perf_counter() - t0) * 1e3)
+                    events_ms = _time_ms(lambda: fwd(*args), 3)
+                    prof = profile_run(lambda: fwd(*args))
+                    forms[mode] = {
+                        "ms_per_forward_host": sorted(host)[1],
+                        "ms_per_forward_host_all": host, "ms_per_forward_events": events_ms,
+                        "device_ms": prof["device_ms"],
+                        "device_busy_share": prof["device_busy_share"],
+                        "kernel_shares": {k: prof[f"share_{k}"] for k in counters},
+                        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                        "launches_first_call": counts,
+                        "graphs": sum(len(e.segments) for e in fwd.graphs.values()),
+                        "vs_unsharded": agreement}
+                del fwd
+            vs_eager = checks.check_graph_space(model, [dev] * S, S, *args, SPACE_HALO)
             stages = [s for s in range(4)
                       if _row_window(img_h >> (3 - s), 0, S, SPACE_HALO) is not None]
             windows, copy_bytes = {}, 0
@@ -1452,15 +1499,12 @@ def drive_space(dev, counters, rows):
             runs.append({
                 "run": name, "B": nb, "V": nv, "H": img_h, "W": img_w, "dtype": dtype_name,
                 "S": S, "halo": SPACE_HALO, "window_rows": windows,
-                "ms_per_forward_host": sorted(host)[1], "ms_per_forward_events": events_ms,
-                "device_ms": prof["device_ms"], "device_busy_share": prof["device_busy_share"],
-                "kernel_shares": {k: prof[f"share_{k}"] for k in counters},
-                "unsharded_ms_per_forward": whole_ms, "peak_memory_gb": peak,
-                "unsharded_peak_memory_gb": whole_peak,
-                "launches_per_forward": counts, "launches_per_rank":
-                    {k: n / S for k, n in counts.items()},
-                "window_copy_bytes_per_forward": copy_bytes,
-                "vs_unsharded": agreement, "row_set": row_set,
+                "unsharded_ms_per_forward": whole_ms, "unsharded_peak_memory_gb": whole_peak,
+                "launches_per_rank": {k: n / S for k, n in
+                                      forms["eager"]["launches_first_call"].items()},
+                "window_copy_bytes_per_forward": copy_bytes, "row_set": row_set,
+                "eager": forms["eager"], "captured": forms["captured"],
+                "replay_vs_eager": vs_eager,
             })
         del model, batch, args, want
         torch.cuda.empty_cache()
@@ -1471,17 +1515,98 @@ DP_STEPS = 3
 TORCHRUN_LOGDIR = TRAIN_CLI_LOGDIR + "_torchrun"
 
 
+def _ddp_readings(dev, make_model, batch, dp_impl, counters, captured):
+    """The recipe step through ``data_parallel(step, dp_impl)`` as a world
+    of one runs it, eager (``graphs.eager``) or captured: its first call
+    (counted: eager ``TRAIN_LAUNCHES``, captured ``DDP_WARMUP_STEPS`` + 1
+    times them, the eager warm-up steps' and the capture's), a second
+    call, three rounds of three steps between CUDA events, one profiled
+    step (device time, busy share, the NCCL kernels it shows), peak memory
+    allocated and reserved."""
+    import contextlib
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
+        data_parallel,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train import step as step_mod
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    model = make_model()
+    step = data_parallel(step_mod.make_train_step(
+        model, checks.RECIPE_LOSS, step_mod.make_optimizer(model, checks.DDP_WD),
+        lambda i: checks.DDP_LR), dp_impl, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.nullcontext() if captured else graphs.eager():
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        losses = [step(batch)["loss"].item()]
+        first_s = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in counters.items()}
+        times = step_mod.DDP_WARMUP_STEPS + 1 if captured else 1
+        want = {k: times * n for k, n in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"ddp {dp_impl} captured={captured}: first call launched "
+                                 f"{counts}, want {want}")
+        losses.append(step(batch)["loss"].item())
+        round_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = [step(batch)["loss"] for _ in range(3)]
+            end.record()
+            end.synchronize()
+            round_ms.append(start.elapsed_time(end) / 3)
+            losses += [x.item() for x in out]
+        prof = profile_run(lambda: step(batch))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ddp {dp_impl} captured={captured}: losses {losses}")
+    return {"ms_per_step": sorted(round_ms)[1], "ms_per_step_rounds": round_ms,
+            "first_call_s": first_s, "launches_first_call": counts,
+            "device_ms": prof["device_ms"], "device_busy_share": prof["device_busy_share"],
+            "nccl_kernels_one_step": prof["nccl_kernels"],
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "graphs": len(step._captured.graphs), "losses": losses}
+
+
 def drive_ddp(dev, batch, counters):
     """Data-parallel training on one card: a world of one rank over NCCL
-    (a ``file://`` store in a temporary directory); ``checks.check_ddp_step``
-    on the DTU recipe (B6 V5 512x640 bf16, ``DP_STEPS`` steps of each
-    ``dp_impl`` against ``checks.DDP_BARE_RUNS`` runs of the bare
-    ``TrainStep`` from the same seed, whose gaps from each other are the
-    step's run-to-run noise); the counters set to 0 before and read after
-    (every step ``TRAIN_LAUNCHES``). Then
-    ``torchrun --standalone --nproc_per_node 1`` runs the train CLI for one
-    epoch on ``synthetic://512x640/12`` (``TRAIN_CLI_FLAGS``), which joins
-    an NCCL group of one rank and trains through ``data_parallel``."""
+    (a ``file://`` store in a temporary directory), the DTU recipe (B6 V5
+    512x640 bf16), the counters set to 0 before each part and read after
+    it:
+
+    1. ``checks.check_ddp_step``: ``DP_STEPS`` eager steps of each
+       ``dp_impl`` against ``checks.DDP_BARE_RUNS`` runs of the bare
+       ``TrainStep`` from the same seed, whose gaps from each other are the
+       step's run-to-run noise (every step ``TRAIN_LAUNCHES``);
+    2. ``checks.check_graph_ddp_step``: each ``dp_impl`` captured, held to
+       eager runs of its form (``gspmd`` with a one-rank group, so that its
+       BatchNorm and loss all-reduces are in the graph) and to the bare
+       step, with deterministic cuDNN; a captured run's first call
+       launches every kernel ``DDP_WARMUP_STEPS`` + 1 times, its replays
+       none;
+    3. each ``dp_impl`` eager and captured beside each other
+       (``_ddp_readings``): ms a step, busy share, peak memory, and the
+       NCCL kernels of one profiled step (none in a world of one: NCCL
+       reduces one rank's buffer in place without a kernel), the captured
+       one's equal to the eager one's.
+
+    Then ``torchrun --standalone --nproc_per_node 1`` runs the train CLI
+    for one epoch on ``synthetic://512x640/12`` (``TRAIN_CLI_FLAGS``),
+    which joins an NCCL group of one rank and trains through
+    ``data_parallel``, its steps captured: the first step's host time
+    holds its warm-up and capture, the second is a replay."""
     import shutil
     import tempfile
 
@@ -1495,6 +1620,22 @@ def drive_ddp(dev, batch, counters):
         run_torchrun,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import DP_IMPLS
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        DDP_WARMUP_STEPS,
+    )
+
+    def part(fn, steps_eager, captured_runs, what):
+        torch.cuda.synchronize()
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in counters.items()}
+        n = steps_eager + captured_runs * (DDP_WARMUP_STEPS + 1)
+        want = {k: n * v for k, v in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"ddp {what}: launches {counts}, want {want}")
+        return out, counts
 
     store = tempfile.mkdtemp()
     dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
@@ -1503,18 +1644,35 @@ def drive_ddp(dev, batch, counters):
             return MVS4Net(dtu_model_config(), device=dev,
                            generator=torch.Generator().manual_seed(SEED + 5))
 
-        for mod in counters.values():
-            mod.launches = 0
-        check = checks.check_ddp_step(dev, make_model, batch, DP_STEPS, DP_IMPLS)
-        torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in counters.items()}
+        bare_steps = checks.DDP_BARE_RUNS * DP_STEPS
+        check, counts = part(
+            lambda: checks.check_ddp_step(dev, make_model, batch, DP_STEPS, DP_IMPLS),
+            bare_steps + len(DP_IMPLS) * DP_STEPS, 0, "eager check")
+        # the captured check: per form GRAPH_EAGER_RUNS eager runs and one
+        # captured run, gspmd's second captured run without the group
+        graph_check, graph_counts = part(
+            lambda: checks.check_graph_ddp_step(dev, make_model, batch, DP_STEPS, DP_IMPLS),
+            bare_steps + len(DP_IMPLS) * checks.GRAPH_EAGER_RUNS * DP_STEPS,
+            len(DP_IMPLS) + ("gspmd" in DP_IMPLS), "captured check")
+        counts = {k: v + graph_counts[k] for k, v in counts.items()}
+        forms = {}
+        for dp_impl in DP_IMPLS:
+            forms[dp_impl] = {mode: _ddp_readings(dev, make_model, batch, dp_impl, counters,
+                                                  mode == "captured")
+                              for mode in ("eager", "captured")}
+            eager, captured = forms[dp_impl]["eager"], forms[dp_impl]["captured"]
+            counts = {k: v + eager["launches_first_call"][k]
+                      + captured["launches_first_call"][k] for k, v in counts.items()}
+            if captured["graphs"] != 1 or eager["graphs"] != 0:
+                raise AssertionError(f"ddp {dp_impl}: graphs eager {eager['graphs']}, "
+                                     f"captured {captured['graphs']}")
+            if captured["nccl_kernels_one_step"] != eager["nccl_kernels_one_step"]:
+                raise AssertionError(f"ddp {dp_impl}: NCCL kernels of a replay "
+                                     f"{captured['nccl_kernels_one_step']}, of an eager step "
+                                     f"{eager['nccl_kernels_one_step']}")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    runs = checks.DDP_BARE_RUNS + len(DP_IMPLS)
-    want = {k: runs * DP_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
-    if counts != want:
-        raise AssertionError(f"ddp: launches {counts}, want {want}")
 
     shutil.rmtree(TORCHRUN_LOGDIR, ignore_errors=True)
     flags = list(TRAIN_CLI_FLAGS)
@@ -1531,11 +1689,14 @@ def drive_ddp(dev, batch, counters):
         if name.endswith(".ckpt"):
             os.remove(os.path.join(TORCHRUN_LOGDIR, name))
     return {"world": 1, "backend": "nccl", "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W,
-            "dtype": "bfloat16", **check, "launches": counts,
+            "dtype": "bfloat16", **check, "captured_check": graph_check, "forms": forms,
+            "ddp_warmup_steps": DDP_WARMUP_STEPS, "launches": counts,
             "torchrun": {"seconds": torchrun_s,
                          "loss_per_step": [r["loss"] for r in records if r["mode"] == "train"],
                          "step_ms": [r["step_s"] * 1e3 for r in records
                                      if r["mode"] == "train"],
+                         "test_step_ms": [r["step_s"] * 1e3 for r in records
+                                          if r["mode"] == "test"],
                          "fulltest_loss": records[-1]["loss"]}}, counts
 
 

@@ -17,19 +17,22 @@ both call these, so that each tolerance is stated once. Every check raises
 - ``compare_space``: the row-sharded eval forward (``--space``) against the
   unsharded forward.
 - ``check_ddp_step``: train steps through ``parallel.mesh.data_parallel``
-  on a world of one rank against runs of the bare ``TrainStep`` from the
-  same seed, within a multiple of their own run-to-run noise (bit for bit
-  where the step is deterministic).
+  on a world of one rank, eager or captured, against runs of the bare
+  ``TrainStep`` from the same seed, within a multiple of their own
+  run-to-run noise (bit for bit where the step is deterministic).
 - ``compare_debug_dumps``: the debug dumps (``utils/debug.py``) of a
   device against the CPU's.
 - ``check_graph_forward``, ``check_graph_eval_step``,
-  ``check_graph_train_step``: the captured paths (``utils/graphs.py``)
-  replayed against their eager calls: the eval forward and the eval step
-  bit for bit, the train step within a multiple of the eager step's own
-  run-to-run noise.
+  ``check_graph_train_step``, ``check_graph_ddp_step``,
+  ``check_graph_space``: the captured paths (``utils/graphs.py``)
+  replayed against their eager calls: the eval forward, the eval step and
+  the sharded forward bit for bit (the float32 forwards under cuDNN's
+  deterministic algorithms), the train step and the data-parallel step
+  within a multiple of the eager step's own run-to-run noise.
 
-Checks that read intermediate values on the host (``train_step_grads``,
-the DDP runs) run eagerly (``graphs.eager``).
+Checks that read intermediate values on the host (``train_step_grads``)
+run eagerly (``graphs.eager``); the train-step runs read theirs after each
+call.
 
 Why the train-step comparison pins two things. The float32 gradient of
 this network is ill-conditioned in two places, on any device: moving every
@@ -674,14 +677,34 @@ def _params(model) -> Dict[str, torch.Tensor]:
     return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
 
 
-def _ddp_run(make_model, batch, steps: int, dp_impl: Optional[str], device):
+def _one_rank_group(step) -> None:
+    """Give the ``gspmd`` step's BatchNorm statistics and masked means a
+    process group of this one rank (``data_parallel`` gives none in a world
+    of one, where they would be the rank's own), so that their all-reduces
+    run: one more communicator than DDP's, inside the step."""
+    import torch.distributed as dist
+
+    from .models.layers import TorchBatchNorm
+
+    group = dist.new_group()
+    for m in step.model.modules():
+        if isinstance(m, TorchBatchNorm):
+            m.sync_group = group
+    step.dp.group = step.dp.loss_group = group
+
+
+def _ddp_run(make_model, batch, steps: int, dp_impl: Optional[str], device, *,
+             captured: bool = False, one_rank_group: bool = False):
     """``steps`` recipe-loss Adam steps (lr ``DDP_LR``, wd ``DDP_WD``) of a
-    fresh ``make_model()`` on ``batch``, bare or through ``data_parallel``:
-    the losses; the parameters before and after the first step, the first
-    step's gradients as the optimizer takes them (after DDP's reduction)
-    and the BatchNorm statistics after it; the state after the last step;
-    the host ms of each step (to its loss on the host). Tensors on the CPU
-    in float32."""
+    fresh ``make_model()`` on ``batch``, bare or through ``data_parallel``
+    (with ``one_rank_group``, ``_one_rank_group``), eager
+    (``graphs.eager``) or, with ``captured``, as the port runs them (on
+    the card a captured step, replayed): the losses; the parameters before
+    and after the first step, the first step's gradients as ``.grad``
+    holds them after the call (after DDP's reduction) and the BatchNorm
+    statistics after it; the state after the last step; the host ms of
+    each step (to its loss on the host); the step's graphs. Tensors on the
+    CPU in float32."""
     from .parallel.mesh import data_parallel
     from .train.step import make_optimizer, make_train_step
 
@@ -690,28 +713,26 @@ def _ddp_run(make_model, batch, steps: int, dp_impl: Optional[str], device):
     step = make_train_step(model, RECIPE_LOSS, optimizer, lambda i: DDP_LR)
     if dp_impl is not None:
         data_parallel(step, dp_impl, device=device)
-    run: Dict[str, object] = {"params0": _params(model), "grads": {}, "losses": [], "ms": []}
-
-    def first_grads(opt, args, kwargs):
-        if not run["grads"]:
-            run["grads"] = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
-                            for n, p in model.named_parameters()}
+        if one_rank_group:
+            _one_rank_group(step)
+    run: Dict[str, object] = {"params0": _params(model), "losses": [], "ms": []}
 
     def state():
         return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
                 if not k.endswith("num_batches_tracked")}
 
-    hook = optimizer.register_step_pre_hook(first_grads)
-    with graphs.eager():    # data-parallel steps are eager: so is the bare one here
+    with contextlib.nullcontext() if captured else graphs.eager():
         for i in range(steps):
             t0 = time.perf_counter()
             run["losses"].append(step(batch)["loss"].item())
             run["ms"].append((time.perf_counter() - t0) * 1e3)
             if i == 0:
+                run["grads"] = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                                .float().cpu() for n, p in model.named_parameters()}
                 run["params1"] = _params(model)
                 run["first_bn"] = {k: v for k, v in state().items() if k.endswith(_BN_STATS)}
-    hook.remove()
     run["last"] = state()
+    run["graphs"] = len(step._captured.graphs)
     return run
 
 
@@ -769,15 +790,97 @@ def _gap_stat(gaps, reduce):
     return float(reduce(gaps))
 
 
+def _bare_reference(bare, steps: int) -> Dict[str, object]:
+    """The bare runs' noise (their largest pairwise gaps), their losses,
+    the losses' median per step and the limits of a later loss
+    (``check_ddp_step``)."""
+    noise = _gap_stat([_ddp_gaps(a, b) for i, b in enumerate(bare) for a in bare[i + 1:]], max)
+    losses = np.array([r["losses"] for r in bare])
+    centre = np.median(losses, axis=0)
+    floor = DDP_LOSS_FLOOR * abs(centre[1] - centre[0]) if steps > 1 else 0.0
+    limits = [max(DDP_NOISE_MULT * (hi - lo), floor)
+              for hi, lo in zip(losses.max(0)[1:], losses.min(0)[1:])]
+    return {"runs": bare, "noise": noise, "losses": losses, "centre": centre,
+            "loss_limits": limits}
+
+
+def _hold_ddp_run(run: Dict, ref: Dict, device, what: str) -> Dict[str, object]:
+    """Hold a ``run`` to reference runs (``_bare_reference``: the bare step,
+    or the eager form of the run's own step) by ``check_ddp_step``'s rule;
+    its readings."""
+    bare, noise, centre = ref["runs"], ref["noise"], ref["centre"]
+    first = bare[0]
+    loss_gap = abs(run["losses"][0] - first["losses"][0]) / max(1.0, abs(first["losses"][0]))
+    bn_gap = max((_max_rel(run["first_bn"][k], v) for k, v in first["first_bn"].items()),
+                 default=0.0)
+    if loss_gap > DDP_FIRST_STEP_RTOL or bn_gap > DDP_FIRST_STEP_RTOL:
+        raise AssertionError(f"{what}: first loss {run['losses'][0]} (reference "
+                             f"{first['losses'][0]}), BatchNorm gap {bn_gap}")
+    for name, g in run["grads"].items():
+        if not name.endswith("prob.bias") and g.abs().max().item() == 0.0:
+            raise AssertionError(f"{what}: no gradient on {name}")
+    gap = _gap_stat([_ddp_gaps(run, b) for b in bare], np.median)
+    for key in ("grads", "bn_stats_last"):
+        if not gap[key] <= DDP_NOISE_MULT * noise[key]:
+            raise AssertionError(f"{what}: {key} gap {gap[key]}, reference runs' "
+                                 f"{noise[key]}")
+    limits = {n: DDP_NOISE_MULT * max(v, noise["grads"])
+              for n, v in noise["grad_tensors"].items()}
+
+    def share(n):
+        g, limit = gap["grad_tensors"][n], limits[n]
+        return g / limit if limit else (float("inf") if g else 0.0)
+
+    worst = max(limits, key=share)
+    if share(worst) > 1.0:
+        raise AssertionError(f"{what}: gradient of {worst} gap {gap['grad_tensors'][worst]}, "
+                             f"reference runs' {noise['grad_tensors'][worst]}")
+    update_gap = _replayed_update(run, device)
+    if update_gap > DDP_FIRST_STEP_RTOL:
+        raise AssertionError(f"{what}: first update {update_gap} from Adam's on its gradients")
+    off = np.abs(np.array(run["losses"][1:]) - centre[1:])
+    if not np.isfinite(run["losses"]).all() or (off > ref["loss_limits"]).any():
+        raise AssertionError(f"{what}: losses {run['losses']}, reference "
+                             f"{ref['losses'].tolist()}, limits {ref['loss_limits']}")
+    return {"losses": run["losses"],
+            "first_loss_bit_equal": loss_gap == 0, "first_bn_stats_bit_equal": bn_gap == 0,
+            "gaps": {k: v for k, v in gap.items() if k != "grad_tensors"},
+            "worst_grad_tensor": {"name": worst, "gap": gap["grad_tensors"][worst],
+                                  "noise": noise["grad_tensors"][worst],
+                                  "limit": limits[worst], "share_of_limit": share(worst)},
+            "first_update_vs_replayed_adam": update_gap,
+            "loss_offsets": off.tolist(),
+            "ms_per_step": float(np.median(run["ms"][1:] or run["ms"]))}
+
+
+def _bare_runs(make_model, batch, steps: int, device) -> Dict[str, object]:
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() != 1:
+        raise RuntimeError("the data-parallel checks need a default process group of one rank")
+    return _bare_reference([_ddp_run(make_model, batch, steps, None, device)
+                            for _ in range(DDP_BARE_RUNS)], steps)
+
+
+def _bare_summary(ref: Dict, steps: int) -> Dict[str, object]:
+    return {"steps": steps, "bare_runs": DDP_BARE_RUNS, "noise_mult": DDP_NOISE_MULT,
+            "noise": {k: v for k, v in ref["noise"].items() if k != "grad_tensors"},
+            "bare_losses": ref["losses"].tolist(), "loss_limits": ref["loss_limits"],
+            "bare_ms_per_step": float(np.median([m for r in ref["runs"] for m in r["ms"][1:]]
+                                                or ref["runs"][0]["ms"]))}
+
+
 def check_ddp_step(device, make_model, batch, steps: int = 3,
-                   dp_impls=("gspmd", "shard_map")) -> Dict[str, object]:
+                   dp_impls=("gspmd", "shard_map"), *, captured: bool = False
+                   ) -> Dict[str, object]:
     """``steps`` train steps through ``data_parallel(step, dp_impl)`` for
     each of ``dp_impls``, on a world of one rank (the default process group
-    must exist), against ``DDP_BARE_RUNS`` runs of the bare ``TrainStep``,
-    each run from a fresh ``make_model()``. The bare runs' largest pairwise
-    gap (``_ddp_gaps``) is the step's run-to-run noise; a data-parallel
-    run's gap is its median gap to the bare runs. Each data-parallel run
-    holds:
+    must exist), eager or, with ``captured``, as the port runs them (a
+    captured graph on the card), against ``DDP_BARE_RUNS`` eager runs of
+    the bare ``TrainStep``, each run from a fresh ``make_model()``. The
+    bare runs' largest pairwise gap (``_ddp_gaps``) is the step's
+    run-to-run noise; a data-parallel run's gap is its median gap to the
+    bare runs. Each data-parallel run holds (``_hold_ddp_run``):
 
     - the first step's loss and the BatchNorm running statistics after it
       (the forward's work, before any update) within
@@ -805,68 +908,12 @@ def check_ddp_step(device, make_model, batch, steps: int = 3,
     would fail by chance; what moves them, the gradients and the update,
     is held above. Returns the noise, and per run its gaps, losses and the
     host ms per step after the first, beside the bare step's."""
-    import torch.distributed as dist
-
-    if not dist.is_initialized() or dist.get_world_size() != 1:
-        raise RuntimeError("check_ddp_step needs a default process group of one rank")
-    bare = [_ddp_run(make_model, batch, steps, None, device) for _ in range(DDP_BARE_RUNS)]
-    noise = _gap_stat([_ddp_gaps(a, b) for i, b in enumerate(bare) for a in bare[i + 1:]], max)
-    bare_losses = np.array([r["losses"] for r in bare])
-    centre = np.median(bare_losses, axis=0)
-    floor = DDP_LOSS_FLOOR * abs(centre[1] - centre[0]) if steps > 1 else 0.0
-    loss_limits = [max(DDP_NOISE_MULT * (hi - lo), floor)
-                   for hi, lo in zip(bare_losses.max(0)[1:], bare_losses.min(0)[1:])]
-    out = {"steps": steps, "bare_runs": DDP_BARE_RUNS, "noise_mult": DDP_NOISE_MULT,
-           "noise": {k: v for k, v in noise.items() if k != "grad_tensors"},
-           "bare_losses": bare_losses.tolist(), "loss_limits": loss_limits,
-           "bare_ms_per_step": float(np.median([m for r in bare for m in r["ms"][1:]]
-                                               or bare[0]["ms"])),
-           "impls": []}
+    ref = _bare_runs(make_model, batch, steps, device)
+    out = {**_bare_summary(ref, steps), "captured": captured, "impls": []}
     for dp_impl in dp_impls:
-        run = _ddp_run(make_model, batch, steps, dp_impl, device)
-        what = f"data_parallel {dp_impl} on {device}"
-        ref = bare[0]
-        loss_gap = abs(run["losses"][0] - ref["losses"][0]) / max(1.0, abs(ref["losses"][0]))
-        bn_gap = max((_max_rel(run["first_bn"][k], v) for k, v in ref["first_bn"].items()),
-                     default=0.0)
-        if loss_gap > DDP_FIRST_STEP_RTOL or bn_gap > DDP_FIRST_STEP_RTOL:
-            raise AssertionError(f"{what}: first loss {run['losses'][0]} (bare "
-                                 f"{ref['losses'][0]}), BatchNorm gap {bn_gap}")
-        for name, g in run["grads"].items():
-            if not name.endswith("prob.bias") and g.abs().max().item() == 0.0:
-                raise AssertionError(f"{what}: no gradient on {name}")
-        gap = _gap_stat([_ddp_gaps(run, b) for b in bare], np.median)
-        for key in ("grads", "bn_stats_last"):
-            if not gap[key] <= DDP_NOISE_MULT * noise[key]:
-                raise AssertionError(f"{what}: {key} gap {gap[key]}, bare runs' {noise[key]}")
-        limits = {n: DDP_NOISE_MULT * max(v, noise["grads"])
-                  for n, v in noise["grad_tensors"].items()}
-
-        def share(n):
-            g, limit = gap["grad_tensors"][n], limits[n]
-            return g / limit if limit else (float("inf") if g else 0.0)
-
-        worst = max(limits, key=share)
-        if share(worst) > 1.0:
-            raise AssertionError(f"{what}: gradient of {worst} gap {gap['grad_tensors'][worst]}, "
-                                 f"bare runs' {noise['grad_tensors'][worst]}")
-        update_gap = _replayed_update(run, device)
-        if update_gap > DDP_FIRST_STEP_RTOL:
-            raise AssertionError(f"{what}: first update {update_gap} from Adam's on its gradients")
-        off = np.abs(np.array(run["losses"][1:]) - centre[1:])
-        if not np.isfinite(run["losses"]).all() or (off > loss_limits).any():
-            raise AssertionError(f"{what}: losses {run['losses']}, bare {bare_losses.tolist()}, "
-                                 f"limits {loss_limits}")
-        out["impls"].append({
-            "dp_impl": dp_impl, "losses": run["losses"],
-            "first_loss_bit_equal": loss_gap == 0, "first_bn_stats_bit_equal": bn_gap == 0,
-            "gaps": {k: v for k, v in gap.items() if k != "grad_tensors"},
-            "worst_grad_tensor": {"name": worst, "gap": gap["grad_tensors"][worst],
-                                  "noise": noise["grad_tensors"][worst],
-                                  "limit": limits[worst], "share_of_limit": share(worst)},
-            "first_update_vs_replayed_adam": update_gap,
-            "loss_offsets": off.tolist(),
-            "ms_per_step": float(np.median(run["ms"][1:] or run["ms"]))})
+        run = _ddp_run(make_model, batch, steps, dp_impl, device, captured=captured)
+        out["impls"].append({"dp_impl": dp_impl, **_hold_ddp_run(
+            run, ref, device, f"data_parallel {dp_impl} on {device}")})
     return out
 
 
@@ -1035,87 +1082,139 @@ def check_graph_eval_step(model, batch, loss_cfg: LossConfig = RECIPE_LOSS) -> D
             "loss": float(got["loss"]), "graphs": len(step.graphs)}
 
 
-def _graph_train_run(make_model, batch, steps: int, captured: bool) -> Dict[str, object]:
-    """``steps`` recipe-loss Adam steps (lr ``DDP_LR``, wd ``DDP_WD``) of a
-    fresh ``make_model()`` on ``batch``, captured or eager: the losses; the
-    gradients that ``.grad`` holds after the first call (the step's
-    contract) and the state after the last; the host ms of each step."""
-    from .train.step import make_optimizer, make_train_step
-
-    model = make_model()
-    step = make_train_step(model, RECIPE_LOSS, make_optimizer(model, DDP_WD),
-                           lambda i: DDP_LR)
-    run: Dict[str, object] = {"losses": [], "ms": []}
-    with (graphs.eager() if not captured else contextlib.nullcontext()):
-        for i in range(steps):
-            t0 = time.perf_counter()
-            run["losses"].append(step(batch)["loss"].item())
-            run["ms"].append((time.perf_counter() - t0) * 1e3)
-            if i == 0:
-                run["grads"] = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
-                                .float().cpu() for n, p in model.named_parameters()}
-    run["last"] = {k: v.detach().float().cpu() for k, v in model.state_dict().items()
-                   if not k.endswith("num_batches_tracked")}
-    run["graphs"] = len(step._captured.graphs)
-    return run
-
-
 def check_graph_train_step(make_model, batch, steps: int = 3) -> Dict[str, object]:
     """The captured train step (``train.step.TrainStep`` on the card)
     against ``GRAPH_EAGER_RUNS`` eager runs from the same seed, ``steps``
-    steps each, all with cuDNN's deterministic algorithms, so that the
-    noise is K3's atomics' alone and a replay that took other cuDNN
-    algorithms than the eager step would show, by the rule of
-    ``check_ddp_step``: the first loss within
-    ``DDP_FIRST_STEP_RTOL``; the first step's gradients (as ``.grad``
-    holds them after the call) and the BatchNorm statistics after the last
-    step within ``DDP_NOISE_MULT`` times the eager runs' largest pairwise
-    gap, all together and each gradient tensor; each later loss within
+    steps each (``_ddp_run``), all with cuDNN's deterministic algorithms,
+    so that the noise is K3's atomics' alone and a replay that took other
+    cuDNN algorithms than the eager step would show, by the rule of
+    ``check_ddp_step`` (``_hold_ddp_run``): the first loss and BatchNorm
+    statistics within ``DDP_FIRST_STEP_RTOL``; the first step's gradients
+    (as ``.grad`` holds them after the call) and the BatchNorm statistics
+    after the last step within ``DDP_NOISE_MULT`` times the eager runs'
+    largest pairwise gap, all together and each gradient tensor; the first
+    update Adam's on those gradients; each later loss within
     ``DDP_NOISE_MULT`` times the eager runs' spread or ``DDP_LOSS_FLOOR``
-    of what the first update moved it. Returns the noise, the gaps and the
-    host ms per step after the first, captured and eager."""
+    of what the first update moved it; one graph. Returns the noise, the
+    readings and the host ms per step after the first, captured and
+    eager."""
+    device = batch["imgs"].device
     with _cudnn_deterministic():
-        eager = [_graph_train_run(make_model, batch, steps, False)
-                 for _ in range(GRAPH_EAGER_RUNS)]
-        run = _graph_train_run(make_model, batch, steps, True)
-    noise = _gap_stat([_ddp_gaps(a, b) for i, b in enumerate(eager) for a in eager[i + 1:]],
-                      max)
+        eager = _bare_reference([_ddp_run(make_model, batch, steps, None, device)
+                                 for _ in range(GRAPH_EAGER_RUNS)], steps)
+        run = _ddp_run(make_model, batch, steps, None, device, captured=True)
     if run["graphs"] != 1:
         raise AssertionError(f"the train step captured {run['graphs']} graphs, want 1")
-    gap = _gap_stat([_ddp_gaps(run, b) for b in eager], np.median)
-    ref = eager[0]["losses"][0]
-    first = abs(run["losses"][0] - ref) / max(1.0, abs(ref))
-    if first > DDP_FIRST_STEP_RTOL:
-        raise AssertionError(f"captured train step: first loss {run['losses'][0]}, eager {ref}")
-    for key in ("grads", "bn_stats_last"):
-        if not gap[key] <= DDP_NOISE_MULT * noise[key]:
-            raise AssertionError(f"captured train step: {key} gap {gap[key]}, eager runs' "
-                                 f"{noise[key]}")
-    worst = max(noise["grad_tensors"], key=lambda n: gap["grad_tensors"][n] / max(
-        DDP_NOISE_MULT * max(noise["grad_tensors"][n], noise["grads"]), 1e-30))
-    limit = DDP_NOISE_MULT * max(noise["grad_tensors"][worst], noise["grads"])
-    if gap["grad_tensors"][worst] > limit:
-        raise AssertionError(f"captured train step: gradient of {worst} gap "
-                             f"{gap['grad_tensors'][worst]}, limit {limit}")
-    losses = np.array([r["losses"] for r in eager])
-    centre = np.median(losses, axis=0)
-    floor = DDP_LOSS_FLOOR * abs(centre[1] - centre[0]) if steps > 1 else 0.0
-    limits = [max(DDP_NOISE_MULT * (hi - lo), floor)
-              for hi, lo in zip(losses.max(0)[1:], losses.min(0)[1:])]
-    off = np.abs(np.array(run["losses"][1:]) - centre[1:])
-    if not np.isfinite(run["losses"]).all() or (off > limits).any():
-        raise AssertionError(f"captured train step: losses {run['losses']}, eager "
-                             f"{losses.tolist()}, limits {limits}")
+    summary = _bare_summary(eager, steps)
     return {"steps": steps, "eager_runs": GRAPH_EAGER_RUNS, "noise_mult": DDP_NOISE_MULT,
-            "noise": {k: v for k, v in noise.items() if k != "grad_tensors"},
-            "gaps": {k: v for k, v in gap.items() if k != "grad_tensors"},
-            "first_loss_bit_equal": run["losses"][0] == ref,
-            "worst_grad_tensor": {"name": worst, "gap": gap["grad_tensors"][worst],
-                                  "limit": limit},
-            "losses": run["losses"], "eager_losses": losses.tolist(), "loss_limits": limits,
-            "ms_per_step": float(np.median(run["ms"][1:] or run["ms"])),
-            "eager_ms_per_step": float(np.median([m for r in eager for m in r["ms"][1:]]
-                                                 or eager[0]["ms"]))}
+            "noise": summary["noise"], "eager_losses": summary["bare_losses"],
+            "loss_limits": summary["loss_limits"],
+            **_hold_ddp_run(run, eager, device, "captured train step"),
+            "eager_ms_per_step": summary["bare_ms_per_step"]}
+
+
+def check_graph_ddp_step(device, make_model, batch, steps: int = 3,
+                         dp_impls=("gspmd", "shard_map")) -> Dict[str, object]:
+    """The data-parallel step captured on a world of one rank (the default
+    process group must exist), each of ``dp_impls``, all runs with cuDNN's
+    deterministic algorithms, so that the noise is K3's atomics' alone:
+
+    - held to its eager form: ``GRAPH_EAGER_RUNS`` eager runs of the same
+      form are the noise, and the captured run holds to them by
+      ``check_ddp_step``'s rule (``_hold_ddp_run``: the first loss and
+      BatchNorm statistics within ``DDP_FIRST_STEP_RTOL``, the gradients,
+      each tensor's and the last BatchNorm statistics within
+      ``DDP_NOISE_MULT`` times the noise, the later losses, the first update
+      Adam's on its gradients); ``gspmd`` runs here with a process group
+      of this one rank for its BatchNorm statistics and masked means
+      (``_one_rank_group``), so that their all-reduces are in the graph
+      beside DDP's; one graph;
+    - held to the bare step: a captured run of the form as
+      ``data_parallel`` makes it in a world of one (no group: the same
+      arithmetic as the bare step) against ``DDP_BARE_RUNS`` eager bare
+      runs, by the same rule.
+
+    Returns the bare runs' noise and, per form, each hold's readings and
+    the host ms a step captured and eager."""
+    with _cudnn_deterministic():
+        bare = _bare_runs(make_model, batch, steps, device)
+        out = {**_bare_summary(bare, steps), "eager_runs": GRAPH_EAGER_RUNS, "impls": []}
+        for dp_impl in dp_impls:
+            group = dp_impl == "gspmd"
+            eager = _bare_reference([_ddp_run(make_model, batch, steps, dp_impl, device,
+                                              one_rank_group=group)
+                                     for _ in range(GRAPH_EAGER_RUNS)], steps)
+            run = _ddp_run(make_model, batch, steps, dp_impl, device, captured=True,
+                           one_rank_group=group)
+            want = int(torch.device(device).type == "cuda")     # the CPU captures nothing
+            if run["graphs"] != want:
+                raise AssertionError(f"data_parallel {dp_impl}: {run['graphs']} graphs, "
+                                     f"want {want}")
+            what = f"captured data_parallel {dp_impl} on {device}"
+            vs_eager = _hold_ddp_run(run, eager, device, f"{what} against eager")
+            plain = _ddp_run(make_model, batch, steps, dp_impl, device,
+                             captured=True) if group else run
+            out["impls"].append({
+                "dp_impl": dp_impl, "one_rank_group": group,
+                "eager_noise": {k: v for k, v in eager["noise"].items() if k != "grad_tensors"},
+                "vs_eager": vs_eager,
+                "vs_bare": _hold_ddp_run(plain, bare, device, f"{what} against bare"),
+                "ms_per_step": vs_eager["ms_per_step"],
+                "eager_ms_per_step": float(np.median([m for r in eager["runs"]
+                                                      for m in r["ms"][1:]]))})
+    return out
+
+
+def check_graph_space(model, devices, space: int, imgs, projs, dv,
+                      space_halo: int = 48) -> Dict[str, object]:
+    """``parallel.mesh.sharded_eval_forward(model, devices, space)``
+    replayed against the same forward run eagerly on the same inputs, as
+    ``check_graph_forward`` holds the bare forward: with cuDNN's
+    deterministic algorithms two replays bit-equal to the eager forward in
+    either dtype, the first call's outputs unchanged across a later call on
+    other inputs; as the port runs, bit-equal in bf16 (reported in float32,
+    whose transposed convolutions may sum in a run-dependent order); and
+    that replay held to the unsharded forward of ``model`` by
+    ``compare_space``. Returns the readings."""
+    from .parallel.mesh import sharded_eval_forward
+
+    args = (imgs, projs, dv)
+    dtype = model.cfg.torch_dtype
+    depth_range = (dv[:, -1] - dv[:, 0]).max().item()
+    with _cudnn_deterministic():
+        forward = sharded_eval_forward(model, devices, space=space, space_halo=space_halo)
+        with graphs.eager():
+            want = forward(*args)
+            eager_gap = _tree_gap(forward(*args), want)
+        got = forward(*args)                          # captures, then replays
+        kept = [t.clone() for t in _leaves(got)]
+        replay = _tree_gap(forward(*args), want)
+        forward(imgs * 0.5, projs, dv)                # a later call, other inputs
+        torch.cuda.synchronize()
+        first = _tree_gap(got, want)
+        if not (eager_gap["bit_equal"] and first["bit_equal"] and replay["bit_equal"]):
+            raise AssertionError(f"sharded forward, deterministic cuDNN: eager against eager "
+                                 f"{eager_gap}, replays against eager {first}, {replay}")
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(_leaves(got), kept)):
+            raise AssertionError("sharded forward: a later call overwrote an earlier "
+                                 "call's outputs")
+        segments = [len(e.segments) for e in forward.graphs.values()]
+    del forward
+    forward = sharded_eval_forward(model, devices, space=space, space_halo=space_halo)
+    with graphs.eager():
+        eager = forward(*args)
+    got = forward(*args)
+    default = _tree_gap(got, eager)
+    if dtype == torch.bfloat16 and not default["bit_equal"]:
+        raise AssertionError(f"captured sharded forward against eager in bf16: {default}")
+    with torch.inference_mode():
+        whole = model(*args)
+    return {"deterministic_cudnn": {"vs_eager": first, "second_replay_vs_eager": replay,
+                                    "eager_vs_eager": eager_gap, "earlier_outputs_kept": True},
+            "default": {"vs_eager": default},
+            "graphs": segments[0] if len(segments) == 1 else segments,
+            "vs_unsharded": compare_space(got, whole, dtype, depth_range,
+                                          what=f"captured space S{space}")}
 
 
 def main() -> None:

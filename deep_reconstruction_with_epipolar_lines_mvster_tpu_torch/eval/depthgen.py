@@ -65,7 +65,9 @@ def make_eval_forward(model, devices=None, *, space: int = 1, space_halo: int = 
     out ``(data, space)`` (``parallel.mesh.sharded_eval_forward``): the
     batch split over ``len(devices) // space`` data shards, each image's
     cost-volume stages over ``space`` row windows with ``space_halo`` rows
-    of overlap, one model replica a device; eager."""
+    of overlap, one model replica a device; captured there as one graph
+    per rank per round (``graphs.Lockstep``), the outputs picked from its
+    fresh tensors."""
     model.eval()
     run = model if devices is None else sharded_eval_forward(
         model, devices, space=space, space_halo=space_halo)

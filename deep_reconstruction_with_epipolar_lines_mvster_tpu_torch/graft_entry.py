@@ -21,8 +21,11 @@ Counterpart of the JAX repo's ``__graft_entry__.py``:
   flagship at 256x320 with halo 48 (``:125-279``). The ranks are processes
   started by ``torchrun --standalone`` (NCCL on the cards, gloo on the
   CPU); the eval parts run on rank 0 over the ``(data, space=2)`` device
-  list (``parallel.mesh.sharded_eval_forward``); both parts run eagerly,
-  as the port's mesh paths do.
+  list (``parallel.mesh.sharded_eval_forward``). On the cards both parts
+  are captured CUDA graphs, as the port's mesh paths are: the train steps
+  capture on their first call (after DDP's eager warm-up steps), the
+  sharded forward one graph per rank per round; on the CPU they run
+  eagerly.
 
 Everything runs on the card unless the caller passes ``device="cpu"``;
 without CUDA it raises. Unlike the JAX dry run, which moves to a virtual

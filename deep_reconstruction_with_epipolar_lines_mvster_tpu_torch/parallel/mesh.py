@@ -30,8 +30,17 @@ eval:
   ``(data, space)``, one model replica a device, the ranks driven in
   lockstep from one thread: batch shards over ``data``, and over ``space``
   the model's row windows (``models/mvs4net.py``) whose rows each rank
-  gathers from the others by peer copies into its own device (JAX ``shard_eval_forward_space`` and
-  ``shard_eval_forward_shard_map``, ``:117-200``).
+  gathers from the others by peer copies into its own device (JAX
+  ``shard_eval_forward_space`` and ``shard_eval_forward_shard_map``,
+  ``:117-200``).
+
+On the card both are captured into CUDA graphs and replayed, as the JAX
+package jits its mesh steps and sharded forward (``utils/graphs.py``): the
+data-parallel step, DDP's gradient all-reduces and the collectives of
+both forms included, is the ``TrainStep``'s own captured step (its warm-up
+runs the eager iterations that DDP needs before a capture); the sharded
+forward is a ``graphs.Lockstep``, one graph per rank per round. The CPU
+and ``graphs.eager()`` run them eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import graphs
 from .distributed import mean_tensors_across_ranks, world_size
 
 DP_IMPLS = ("gspmd", "shard_map")
@@ -113,6 +123,22 @@ class DataParallel:
                  for t in (m.running_mean, m.running_var)], self.group)
 
 
+@contextlib.contextmanager
+def _side_stream(device: torch.device):
+    """A side stream of ``device`` current within the block, where it is a
+    card, and the card's stream waiting for it after: PyTorch's notes on
+    CUDA graphs ask for ``DistributedDataParallel`` to be built on one
+    before its iterations are captured."""
+    if device.type != "cuda":
+        yield
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
 def data_parallel(step, dp_impl: str = "gspmd", *, device=None):
     """Make ``step`` (a ``train.step.TrainStep``) this rank's share of a
     data-parallel step over the default process group, in the form
@@ -129,9 +155,15 @@ def data_parallel(step, dp_impl: str = "gspmd", *, device=None):
         raise ValueError(f"dp_impl {dp_impl!r}: one of {DP_IMPLS}")
     model = step.model
     device = torch.device(device) if device is not None else next(model.parameters()).device
-    runner = DistributedDataParallel(
-        model, device_ids=[device] if device.type == "cuda" else None,
-        broadcast_buffers=False, find_unused_parameters=False)
+    with _side_stream(device):
+        runner = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            broadcast_buffers=False, find_unused_parameters=False)
+    # the reducer times its first ten iterations, and then one in every
+    # "sample rate", with CUDA events that it reads on the host, which a
+    # captured iteration cannot do: the step's warm-up passes the first ten,
+    # and no later iteration is sampled
+    runner._set_ddp_runtime_logging_sample_rate(2 ** 31 - 1)
     group = dist.new_group() if world_size() > 1 else None
     global_batch = dp_impl == "gspmd" and group is not None
     for m in model.modules():
@@ -176,58 +208,65 @@ def sharded_eval_forward(model, devices: Sequence, *, space: int = 1, space_halo
     len(devices) // space`` (device ``d * space + p`` runs data shard ``d``'s
     row window ``p``), under ``inference_mode``. The batch splits over
     ``data`` in contiguous equal parts (raises where it does not divide).
-    One host thread drives every rank's ``MVS4Net.forward_steps`` in
-    lockstep: it launches each rank's stage on that rank's device (the
-    devices run them concurrently), then gives each rank the windowed
-    stage's rows of its space group, copied into its device and joined.
-    The outputs of every stage come back at full height on ``devices[0]``,
-    joined along the batch. A device may repeat (``[cuda:0] * 4`` runs four
-    windows on one card, the decomposition without the parallelism)."""
+    Every rank's ``MVS4Net.forward_steps`` advances in lockstep: in round 0
+    each rank takes its slice of the inputs onto its device and runs to
+    its first windowed stage; in each later round it joins the stage's rows
+    of its space group, copied into its device, and runs to the next; in a
+    last round the outputs of every stage are joined along the batch at
+    full height on ``devices[0]``. A device may repeat (``[cuda:0] * 4``
+    runs four windows on one card, the decomposition without the
+    parallelism).
+
+    The forward is a ``utils/graphs.Lockstep`` over the ranks, as the JAX
+    package jits its sharded forward: on the card one CUDA graph per rank
+    per round, captured on the first call with a new input signature and
+    replayed, the ranks of a round running concurrently; on the CPU and
+    inside ``graphs.eager()`` the rounds run eagerly from one thread."""
     devices = [_indexed(torch.device(d)) for d in devices]
     if space < 1 or len(devices) % space:
         raise ValueError(f"{len(devices)} devices do not lay out as (data, space={space})")
     data = len(devices) // space
     replicas = _replicas(model, devices)
 
-    def card(dev):
-        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
     @torch.inference_mode()
-    def forward(imgs, projs, dv):
+    def drive(segment, imgs, projs, dv):
         B = imgs.shape[0]
         if B % data:
             raise ValueError(f"batch of {B} does not split over {data} data shards")
         b = B // data
-        steps = []
-        for i, dev in enumerate(devices):
-            rows = slice(i // space * b, (i // space + 1) * b)
-            with card(dev):
-                steps.append(replicas[dev].forward_steps(
-                    imgs[rows].to(dev), {k: v[rows].to(dev) for k, v in projs.items()},
-                    dv[rows].to(dev), space_rank=i % space, space_shards=space,
-                    space_halo=space_halo))
-        own, results = [None] * len(steps), {}
+        steps, own, results = [None] * len(devices), [None] * len(devices), {}
 
         def advance(i, sent):
-            with card(devices[i]):
-                try:
-                    own[i] = steps[i].send(sent)
-                except StopIteration as done:
-                    results[i] = done.value
+            try:
+                own[i] = steps[i].send(sent)
+            except StopIteration as done:
+                results[i] = done.value
 
-        for i in range(len(steps)):
+        def start(i, dev):
+            rows = slice(i // space * b, (i // space + 1) * b)
+            steps[i] = replicas[dev].forward_steps(
+                imgs[rows].to(dev), {k: v[rows].to(dev) for k, v in projs.items()},
+                dv[rows].to(dev), space_rank=i % space, space_shards=space,
+                space_halo=space_halo)
             advance(i, None)
-        while not results:
-            joined = []
-            for i, dev in enumerate(devices):
-                group = own[i // space * space:(i // space + 1) * space]
-                with card(dev):
-                    joined.append({k: torch.cat([r[k][0].to(dev) for r in group], dim=axis)
-                                   for k, (_, axis) in group[0].items()})
-            for i, sent in enumerate(joined):
-                advance(i, sent)
-        if len(results) != len(steps):
-            raise RuntimeError("the ranks' forwards took different numbers of steps")
-        return _cat_outputs([results[d * space] for d in range(data)], devices[0])
 
-    return forward
+        def join(sent, i, dev):
+            group = sent[i // space * space:(i // space + 1) * space]
+            advance(i, {k: torch.cat([r[k][0].to(dev) for r in group], dim=axis)
+                        for k, (_, axis) in group[0].items()})
+
+        for i, dev in enumerate(devices):
+            segment(i, dev, lambda i=i, dev=dev: start(i, dev))
+        rounds = []     # every round's rows stay alive until the forward returns
+        while not results:
+            rounds.append(list(own))
+            for i, dev in enumerate(devices):
+                segment(i, dev, lambda i=i, dev=dev, sent=rounds[-1]: join(sent, i, dev))
+        if len(results) != len(devices):
+            raise RuntimeError("the ranks' forwards took different numbers of steps")
+        out = {}
+        segment(0, devices[0], lambda: out.update(
+            _cat_outputs([results[d * space] for d in range(data)], devices[0])))
+        return out
+
+    return graphs.Lockstep(drive, devices, "sharded eval forward")

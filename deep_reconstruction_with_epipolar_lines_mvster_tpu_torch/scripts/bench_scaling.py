@@ -12,12 +12,15 @@ ranks; each joins the group (``parallel.distributed.init_distributed``:
 NCCL on the cards, gloo on the CPU) and trains through
 ``parallel.mesh.data_parallel`` (``gspmd``): one warm-up step, then 5 timed
 steps, the time on rank 0's host clock around work that ends in a
-device synchronize.
+device synchronize. On the cards the step is a captured CUDA graph: the
+warm-up step is its first call (``train.step.DDP_WARMUP_STEPS`` eager
+steps, then the capture and one replay), the timed steps replay it.
 
 Printed per world size: a ``setup`` line (rank 0's seconds for the process
 group, the kernels' build (a no-op when the libraries are current), the
-model build, the DDP wrap, the first step, the first step's forward, and
-the second step, the first timed one), then one row with the JAX keys
+model build, the DDP wrap, the first step, the first step's first forward
+(on the cards, the first eager warm-up step's), and the second step, the
+first timed one), then one row with the JAX keys
 ``devices``, ``global_batch``, ``step_s``, ``samples_per_s`` and
 ``scaling_efficiency`` (samples/s over n x the one-rank rate).
 
@@ -82,7 +85,13 @@ def _rank(H: int, W: int, V: int, per_rank: int, device_kind: str) -> None:
                                          warmup_multistep(1e-3, [100_000], 0.5)),
                          "gspmd", device=dev)
     mark("ddp_wrap_s")
-    first = model.register_forward_hook(lambda *_: mark("first_step_forward_s"))
+
+    def first_forward(*_):
+        # once: a later forward may be under capture, which a sync would break
+        first.remove()
+        mark("first_step_forward_s")
+
+    first = model.register_forward_hook(first_forward)
     try:
         losses = [step(batch)["loss"]]
         mark("first_step_s")

@@ -8,7 +8,8 @@ train steps with the scalars and images logged every ``summary_freq``
 steps, a checkpoint every ``save_freq`` epochs, and validation with a
 ``DictAverageMeter`` every ``eval_freq``-th epoch and after the last one.
 On the card the train and eval steps are captured graphs
-(``train/step.py``), fed by pinned copies of each batch
+(``train/step.py``), their data-parallel forms under ``torchrun`` too
+(the collectives inside the graphs), fed by pinned copies of each batch
 (``data/synthetic.batch_to_torch``).
 
 Data-parallel over the ranks of the default process group (from

@@ -15,8 +15,9 @@ On the card both steps are captured (``utils/graphs.capture``), as the JAX
 package jits them (JAX ``train/loop.py:98-104``): one CUDA graph per batch
 signature holds the train step's forward, loss, backward and Adam update,
 another the eval step's forward and scalars; every later call replays its
-graph. The data-parallel forms (``dp``, the eval step's ``group``) stay
-eager.
+graph. So do their data-parallel forms (``dp``, the eval step's
+``group``), as the JAX package jits them under its mesh: the graph then
+also holds DDP's gradient all-reduces and the step's own collectives.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ from ..parallel.distributed import mean_scalars
 from ..utils import graphs
 from .metrics import depth_metrics
 from .schedule import Schedule
+
+# eager data-parallel steps before a capture: DDP's reducer rebuilds its
+# gradient buckets after its first iteration and times its first ten with
+# CUDA events read on the host, neither of which a capture may hold
+# (PyTorch's notes on DDP under CUDA graphs ask for 11; tools/ddp_capture.py
+# shows a capture after 10 failing)
+DDP_WARMUP_STEPS = 11
 
 
 def image_summaries(outputs, batch, num_stages: int = 4) -> Dict[str, torch.Tensor]:
@@ -94,7 +102,9 @@ class TrainStep:
     DDP-wrapped model, the loss's masked means over the global batch under
     ``gspmd``, the BatchNorm running statistics averaged over the ranks
     after the update under ``shard_map``, and the scalars averaged over the
-    ranks, as the JAX step's under a mesh; eager."""
+    ranks, as the JAX step's under a mesh; captured the same way, its
+    collectives inside the graph, after a warm-up of ``DDP_WARMUP_STEPS``
+    eager steps."""
 
     def __init__(self, model, loss_cfg: LossConfig, optimizer: torch.optim.Optimizer,
                  schedule: Schedule, *, num_stages: int = 4, with_images: bool = False):
@@ -120,7 +130,7 @@ class TrainStep:
         self.lr.fill_(self.schedule(self.step))
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr
-        out = (self._step if self.dp is not None else self._captured)(batch)
+        out = self._captured(batch)
         self.step += 1
         return out
 
@@ -154,17 +164,20 @@ class TrainStep:
     def _warm_up(self, batch) -> None:
         """The capture's warm-up (``utils/graphs``): one eager step, which
         makes what a step creates on first use (Adam's moments and step
-        counts, the gradients, the kernel libraries, cached tables); then
-        the model's parameters and buffers and the optimizer's state are
-        put back as they were (a moment that the step created is zeroed,
-        as Adam creates it), so that the call still takes one step, the
+        counts, the gradients, the kernel libraries, cached tables), or
+        under ``dp`` ``DDP_WARMUP_STEPS`` of them (DDP's bucket rebuild
+        and timed iterations, the process groups' communicators); then the
+        model's parameters and buffers and the optimizer's state are put
+        back as they were (a moment that the steps created is zeroed, as
+        Adam creates it), so that the call still takes one step, the
         replay's."""
         state = [*self.model.parameters(), *self.model.buffers(),
                  *(v for st in self.optimizer.state.values() for v in st.values()
                    if isinstance(v, torch.Tensor))]
         with torch.no_grad():
             kept = {id(t): (t, t.clone()) for t in state}
-        self._step(batch)
+        for _ in range(1 if self.dp is None else DDP_WARMUP_STEPS):
+            self._step(batch)
         with torch.no_grad():
             for t, saved in kept.values():
                 t.copy_(saved)
@@ -189,8 +202,8 @@ def make_eval_step(model, loss_cfg: LossConfig, *, num_stages: int = 4,
     returns ``(scalars, image_summaries(...))``. ``group`` (a process
     group): this rank's slice of a batch split over the group's ranks, the
     scalars those of the whole batch on every rank, as the JAX eval step's
-    under a mesh. Without ``group`` the step is captured on the card
-    (module docstring); with it, eager."""
+    under a mesh. The step is captured on the card (module docstring), the
+    group's all-reduces inside its graph."""
     eval_loss_cfg = dataclasses.replace(loss_cfg, mono=False)
     last = f"stage{num_stages}"
 
@@ -213,4 +226,4 @@ def make_eval_step(model, loss_cfg: LossConfig, *, num_stages: int = 4,
             return scalars, image_summaries(outputs, batch, num_stages)
         return scalars
 
-    return step_fn if group is not None else graphs.capture(step_fn, "eval step")
+    return graphs.capture(step_fn, "eval step")

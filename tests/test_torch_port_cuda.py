@@ -835,8 +835,10 @@ def test_space_windows_match_the_unsharded_forward(dev, dtype, S):
     """The row-sharded forward over ``[card] * S`` (256x128, halo 48: stage
     4 on S windows) against the unsharded forward on the card, every
     stage, at ``checks.compare_space``'s limits (float32: the JAX package's
-    agreement limits; bf16: statistical); K1, K5 and K6 launch S times as
-    often as in the unsharded forward."""
+    agreement limits; bf16: statistical); K1, K5 and K6 launch 2S times as
+    often as in the unsharded forward in the first call, which captures
+    (the eager warm-up's S windows and the capture's), and not at all in a
+    replay."""
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
         sharded_eval_forward,
     )
@@ -848,10 +850,15 @@ def test_space_windows_match_the_unsharded_forward(dev, dtype, S):
         want = model(*args)
         whole = [n - m for n, m in zip((k1.launches, k5.launches, k6.launches), before)]
     before = (k1.launches, k5.launches, k6.launches)
-    got = sharded_eval_forward(model, [dev] * S, space=S)(*args)
+    forward = sharded_eval_forward(model, [dev] * S, space=S)
+    got = forward(*args)
     torch.cuda.synchronize()
     assert [n - m for n, m in zip((k1.launches, k5.launches, k6.launches), before)] == \
-        [S * n for n in whole]
+        [2 * S * n for n in whole]
+    before = (k1.launches, k5.launches, k6.launches)
+    forward(*args)
+    torch.cuda.synchronize()
+    assert (k1.launches, k5.launches, k6.launches) == before
     dv = b["depth_values"]
     checks.compare_space(got, want, dtype, (dv[:, -1] - dv[:, 0]).max().item())
 
@@ -969,6 +976,59 @@ def test_world_one_ddp_check_fails_on_a_broken_reduction(dev, kind, tmp_path):
                                   dp_impls=("gspmd",))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["zero", "1.01", "roll"])
+def test_captured_ddp_check_fails_on_a_broken_reduction(dev, kind, tmp_path):
+    """``checks.check_ddp_step`` with the data-parallel step captured (its
+    first call warms up, captures and replays; the others replay) raises
+    where DDP's reduction zeroes the gradients, scales them by 1.01 or
+    rolls each bucket by one entry (``_broken_reduction``): the
+    communication hook runs inside the graph."""
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        cfg = checks.small_step_model().cfg
+
+        def make_model():
+            return MVS4Net(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+
+        with _broken_reduction(kind), pytest.raises(AssertionError, match="gradient|grads"):
+            checks.check_ddp_step(dev, make_model, checks.small_step_batch(dev), 2,
+                                  dp_impls=("gspmd",), captured=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_captured_ddp_step_matches_eager_and_bare(dev, tmp_path):
+    """The data-parallel step captured on an NCCL group of one rank, both
+    ``dp_impl`` forms (``gspmd`` with a one-rank group for its BatchNorm
+    and loss all-reduces), two float32 steps, with cuDNN's deterministic
+    algorithms (``checks.check_graph_ddp_step``): against four eager runs
+    of its form and against four bare eager runs by ``check_ddp_step``'s
+    rule (first loss and BatchNorm statistics within 1e-6, gradients and
+    the last statistics within 4x the runs' noise, the first update
+    Adam's on its gradients); one graph a form."""
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        cfg = checks.small_step_model().cfg
+
+        def make_model():
+            return MVS4Net(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+
+        out = checks.check_graph_ddp_step(dev, make_model, checks.small_step_batch(dev), 2)
+    finally:
+        dist.destroy_process_group()
+    assert [r["dp_impl"] for r in out["impls"]] == ["gspmd", "shard_map"]
 
 
 def test_entry_fn_matches_cpu(dev):
@@ -1143,3 +1203,63 @@ def test_a_new_shape_captures_a_second_graph(dev):
         with graphs.eager():
             want = forward(*args)
         assert torch.equal(got["depth"], want["depth"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("space", [1, 2, 4])
+def test_captured_sharded_forward_matches_eager(dev, dtype, space):
+    """``sharded_eval_forward`` replayed against its eager form
+    (``checks.check_graph_space``): ``space`` 1 over ``[card] * 2`` (two
+    data shards of a B2 batch), ``space`` 2 and 4 over ``[card] * S`` (row
+    windows of stage 4 at 256x128, halo 48, B1): with cuDNN's
+    deterministic algorithms bit-equal in either dtype and the first
+    call's outputs kept across a later call; as the port runs bit-equal in
+    bf16; at ``compare_space``'s limits against the unsharded forward;
+    one graph a rank a round (``space`` 1: a round and the join; S: two
+    rounds and the join)."""
+    model, b = _space_models_and_batch(dev, dtype, B=2 if space == 1 else 1)
+    devices = [dev] * (2 if space == 1 else space)
+    out = checks.check_graph_space(model, devices, space, b["imgs"], b["proj_matrices"],
+                                   b["depth_values"])
+    assert out["graphs"] == (3 if space == 1 else 2 * space + 1)
+
+
+def test_capture_of_a_mesh_path_raises(dev, tmp_path):
+    """A host read (``.item()``) in a mesh path fails its capture with
+    ``CaptureError`` and keeps no graph, whose eager warm-up ran: the
+    sharded forward (a read in a regularizer of its windows) and the
+    data-parallel train step (a read in a forward hook)."""
+    import torch.distributed as dist
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
+        data_parallel,
+        sharded_eval_forward,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    model, b = _space_models_and_batch(dev, torch.bfloat16)
+    regnet = model._regnet
+    model._regnet = lambda s, hypo: (lambda vol: regnet(s, hypo)(vol) * (
+        vol.float().mean().item() * 0.0 + 1.0))
+    forward = sharded_eval_forward(model, [dev] * 2, space=2)
+    with pytest.raises(graphs.CaptureError, match="sharded eval forward"):
+        forward(b["imgs"], b["proj_matrices"], b["depth_values"])
+    assert forward.graphs == {}
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        train = checks.seeded_model(checks.small_step_model().cfg, 3, dev)
+        step = make_train_step(train, checks.RECIPE_LOSS, make_optimizer(train, 1e-4),
+                               lambda i: 1e-3)
+        data_parallel(step, "shard_map", device=dev)
+        train.register_forward_hook(lambda m, i, o: (o["stage4"]["depth"].sum().item(), None)[1])
+        with pytest.raises(graphs.CaptureError, match="train step"):
+            step(checks.small_step_batch(dev))
+        assert step._captured.graphs == {}
+    finally:
+        dist.destroy_process_group()
