@@ -1,0 +1,7 @@
+"""``device_idle.train``: the idle share of the profiled stretch (``readers.device_idle``)."""
+
+from benchmark import readers
+
+
+def read(res):
+    return readers.device_idle(res)
