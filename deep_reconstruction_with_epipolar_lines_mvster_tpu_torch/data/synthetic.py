@@ -206,17 +206,26 @@ def batch_to_torch(batch: Dict, device) -> Dict:
     ``proj_matrices`` and ``depth_values``, the train targets ``depth``
     and ``mask`` per stage, and a padded batch's ``valid`` mask. To a card
     the arrays go through pinned memory without blocking the host
-    (``utils/graphs.to_device``)."""
+    (``utils/graphs.to_device``). The call is a ``feed`` span, and the bytes
+    it moves are counted in ``feed.bytes`` (``utils/trace``)."""
+    from ..utils import trace
     from ..utils.graphs import to_device
 
+    moved = 0
+
     def t(a):
+        nonlocal moved
+        moved += np.asarray(a).nbytes
         return to_device(a, device)
 
-    return {
-        "imgs": t(batch["imgs"]),
-        "proj_matrices": {k: t(v) for k, v in batch["proj_matrices"].items()},
-        "depth_values": t(batch["depth_values"]),
-        "depth": {k: t(v) for k, v in batch["depth"].items()},
-        "mask": {k: t(v) for k, v in batch["mask"].items()},
-        **({"valid": t(batch["valid"])} if "valid" in batch else {}),
-    }
+    with trace.span("feed"):
+        out = {
+            "imgs": t(batch["imgs"]),
+            "proj_matrices": {k: t(v) for k, v in batch["proj_matrices"].items()},
+            "depth_values": t(batch["depth_values"]),
+            "depth": {k: t(v) for k, v in batch["depth"].items()},
+            "mask": {k: t(v) for k, v in batch["mask"].items()},
+            **({"valid": t(batch["valid"])} if "valid" in batch else {}),
+        }
+    trace.count("feed.bytes", moved)
+    return out

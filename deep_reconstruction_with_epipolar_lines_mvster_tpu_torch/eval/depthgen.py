@@ -23,14 +23,13 @@ caller without Pillow or OpenCV (``chip_smoke.py``) runs the same path.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ..parallel.mesh import sharded_eval_forward
-from ..utils import graphs
+from ..utils import graphs, trace
 
 
 def _normalize01(x: np.ndarray) -> np.ndarray:
@@ -106,28 +105,36 @@ def run_forward(forward, batch, device, *, shape_bucket=0, max_hw=None):
     """The device work of one collated batch: pad the images to the shape
     bucket (bottom/right zeros, as the JAX package does), run ``forward`` on
     ``device``, wait for it, and return ``(out, seconds, shape)``: ``out``
-    as numpy arrays cropped back to the native shape, the seconds from the
-    host-to-device copy to the results on the host, and the padded
-    ``(H, W, V, D)``. The inputs go to a card through pinned memory
-    (``utils/graphs.to_device``)."""
-    imgs = np.asarray(batch["imgs"])
-    dv = np.asarray(batch["depth_values"])
-    Bv, Vv, H, W = imgs.shape[:4]
-    Hb, Wb = _bucket_hw(H, W, shape_bucket, max_hw)
-    if (Hb, Wb) != (H, W):
-        padded = np.zeros((Bv, Vv, Hb, Wb, imgs.shape[-1]), imgs.dtype)
-        padded[:, :, :H, :W] = imgs
-    else:
-        padded = imgs
+    as numpy arrays cropped back to the native shape, the seconds of the
+    call's ``forward`` span (the pad and the copies to the device to the
+    results on the host), and the padded ``(H, W, V, D)``. The inputs go to
+    a card through pinned memory (``utils/graphs.to_device``).
 
-    def t(a):
-        return graphs.to_device(a, device)
-
-    t0 = time.perf_counter()
-    res = forward(t(padded), {k: t(v) for k, v in batch["proj_matrices"].items()}, t(dv))
-    out = {k: ([x.float().cpu().numpy() for x in v] if isinstance(v, list)
-               else v.float().cpu().numpy()) for k, v in res.items()}
-    seconds = time.perf_counter() - t0
+    Spans (``utils/trace``): ``forward.copy_in`` (the pad and the copies
+    in), the captured call (``graph.replay`` on the card), ``forward.wait``
+    (one synchronise of the device's stream, where the first copy out would
+    block) and ``forward.copy_out`` (the results to the host)."""
+    with trace.span("forward") as whole:
+        with trace.span("forward.copy_in"):
+            imgs = np.asarray(batch["imgs"])
+            dv = np.asarray(batch["depth_values"])
+            Bv, Vv, H, W = imgs.shape[:4]
+            Hb, Wb = _bucket_hw(H, W, shape_bucket, max_hw)
+            if (Hb, Wb) != (H, W):
+                padded = np.zeros((Bv, Vv, Hb, Wb, imgs.shape[-1]), imgs.dtype)
+                padded[:, :, :H, :W] = imgs
+            else:
+                padded = imgs
+            args = (graphs.to_device(padded, device),
+                    {k: graphs.to_device(v, device) for k, v in batch["proj_matrices"].items()},
+                    graphs.to_device(dv, device))
+        res = forward(*args)
+        with trace.span("forward.wait"):
+            if torch.device(device).type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+        with trace.span("forward.copy_out"):
+            out = {k: ([x.float().cpu().numpy() for x in v] if isinstance(v, list)
+                       else v.float().cpu().numpy()) for k, v in res.items()}
     if (Hb, Wb) != (H, W):  # crop back to the native shape per stage
         out["depth"] = out["depth"][:, :H, :W]
         out["confidence"] = out["confidence"][:, :H, :W]
@@ -135,7 +142,7 @@ def run_forward(forward, batch, device, *, shape_bucket=0, max_hw=None):
             if key in out:
                 out[key] = [a[:, : H * a.shape[1] // Hb, : W * a.shape[2] // Wb]
                             for a in out[key]]
-    return out, seconds, (Hb, Wb, Vv, dv.shape[-1])
+    return out, whole.seconds, (Hb, Wb, Vv, dv.shape[-1])
 
 
 def generate_depth_maps(

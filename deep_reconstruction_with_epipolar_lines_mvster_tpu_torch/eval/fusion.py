@@ -35,7 +35,7 @@ import torch
 
 from ..config import resolve_device
 from ..core.geometry import extrinsics_inverse, grid_sample_2d, intrinsics_inverse
-from ..utils import graphs
+from ..utils import graphs, trace
 
 
 class FusionConfig(NamedTuple):
@@ -163,14 +163,20 @@ def filter_ref_view(
     source views in one batched computation on ``device`` (the card unless
     ``device="cpu"``). On the card the computation is a CUDA graph per
     ``(H, W)``, number of source views and ``cfg`` (``utils/graphs``).
-    Inputs are numpy arrays or tensors; returns numpy."""
-    dev = resolve_device(device)
-    out = _filter_graphs(
-        _t(depth_ref, dev), _t(conf_ref, dev), _t(intr_ref, dev), _t(extr_ref, dev),
-        torch.stack([_t(d, dev) for d in src_depths]),
-        torch.stack([_t(k, dev) for k in src_intrs]),
-        torch.stack([_t(e, dev) for e in src_extrs]), cfg)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    Inputs are numpy arrays or tensors; returns numpy. Spans
+    (``utils/trace``): ``fusion.filter``, and inside it ``fusion.upload``
+    (the inputs to ``device``), the captured call (``graph.replay`` on the
+    card) and ``fusion.download`` (the results to the host)."""
+    with trace.span("fusion.filter"):
+        dev = resolve_device(device)
+        with trace.span("fusion.upload"):
+            args = (_t(depth_ref, dev), _t(conf_ref, dev), _t(intr_ref, dev),
+                    _t(extr_ref, dev), torch.stack([_t(d, dev) for d in src_depths]),
+                    torch.stack([_t(k, dev) for k in src_intrs]),
+                    torch.stack([_t(e, dev) for e in src_extrs]))
+        out = _filter_graphs(*args, cfg)
+        with trace.span("fusion.download"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def fused_world_points(
@@ -183,13 +189,16 @@ def fused_world_points(
     device=None,
 ):
     """Masked world-space vertices (+ colours) for one reference view
-    (test_mvs4.py:781-793), backprojected on ``device``; numpy results."""
-    dev = resolve_device(device)
-    pts = backproject_to_world(_t(fused_depth, dev), _t(intr, dev), _t(extr, dev))
-    m = torch.as_tensor(np.asarray(final_mask, bool) if not isinstance(final_mask, torch.Tensor)
-                        else final_mask, dtype=torch.bool, device=dev)
-    xyz = pts[m].cpu().numpy()
-    rgb = None
-    if image01 is not None:
-        rgb = (np.asarray(image01)[m.cpu().numpy()] * 255.0).astype(np.uint8)
-    return xyz, rgb
+    (test_mvs4.py:781-793), backprojected on ``device``; numpy results.
+    The call is a ``fusion.gather`` span (``utils/trace``)."""
+    with trace.span("fusion.gather"):
+        dev = resolve_device(device)
+        pts = backproject_to_world(_t(fused_depth, dev), _t(intr, dev), _t(extr, dev))
+        m = torch.as_tensor(np.asarray(final_mask, bool)
+                            if not isinstance(final_mask, torch.Tensor) else final_mask,
+                            dtype=torch.bool, device=dev)
+        xyz = pts[m].cpu().numpy()
+        rgb = None
+        if image01 is not None:
+            rgb = (np.asarray(image01)[m.cpu().numpy()] * 255.0).astype(np.uint8)
+        return xyz, rgb

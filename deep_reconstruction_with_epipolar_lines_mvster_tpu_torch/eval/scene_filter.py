@@ -19,6 +19,7 @@ from typing import Dict, List, Mapping, Sequence
 import numpy as np
 
 from ..data.io import read_cam_file, read_image, read_pair_file, read_pfm
+from ..utils import trace
 from .fusion import FusionConfig, filter_ref_view, fused_world_points
 from .ply import write_ply
 
@@ -33,19 +34,22 @@ def fuse_view(ref_view: int, src_views: Sequence[int], depths: Mapping, confs: M
     ``images`` map a view to its depth map, confidence and [0, 1] image (or
     ``None``), ``cams`` to its ``(intrinsics, extrinsics)``. Returns the
     masks and fused depth of ``filter_ref_view``, the points ``xyz`` and
-    colours ``rgb``, and each mask's share of the pixels (``shares``)."""
-    intr, extr = cams[ref_view]
-    out = filter_ref_view(
-        depths[ref_view], confs[ref_view], intr, extr,
-        [depths[s] for s in src_views],
-        [cams[s][0] for s in src_views],
-        [cams[s][1] for s in src_views],
-        cfg, device=device,
-    )
-    xyz, rgb = fused_world_points(out["fused_depth"], out["final_mask"], intr, extr,
-                                  images[ref_view], device=device)
-    shares = {k: float(out[f"{k}_mask"].mean()) for k in ("photo", "geo", "final")}
-    return {**out, "xyz": xyz, "rgb": rgb, "shares": shares}
+    colours ``rgb``, and each mask's share of the pixels (``shares``). The
+    call is a ``fusion.view`` span (``utils/trace``), around the filter's
+    ``fusion.filter`` and the points' ``fusion.gather``."""
+    with trace.span("fusion.view"):
+        intr, extr = cams[ref_view]
+        out = filter_ref_view(
+            depths[ref_view], confs[ref_view], intr, extr,
+            [depths[s] for s in src_views],
+            [cams[s][0] for s in src_views],
+            [cams[s][1] for s in src_views],
+            cfg, device=device,
+        )
+        xyz, rgb = fused_world_points(out["fused_depth"], out["final_mask"], intr, extr,
+                                      images[ref_view], device=device)
+        shares = {k: float(out[f"{k}_mask"].mean()) for k in ("photo", "geo", "final")}
+        return {**out, "xyz": xyz, "rgb": rgb, "shares": shares}
 
 
 def filter_scene(

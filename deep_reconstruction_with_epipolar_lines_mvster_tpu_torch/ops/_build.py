@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -63,7 +65,8 @@ def library_path(name: str) -> Path:
 def build(names) -> dict:
     """Compile every named source that has no current library, one ``nvcc``
     process per source, all started together. Returns ``{name: (seconds,
-    compiler log)}`` for the sources it compiled. Raises on any failure."""
+    compiler log)}`` for the sources it compiled, counted in
+    ``kernels.built`` (``utils/trace``). Raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -85,18 +88,22 @@ def build(names) -> dict:
         os.replace(tmp, lib)
         lib.with_suffix(".log").write_text(log)
         done[name] = (time.perf_counter() - t0, log)
+    trace.count("kernels.built", len(done))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return done
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed; its
+    first load (the build, if any, and the ``dlopen``) is a ``kernels.load``
+    span (``utils/trace``)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with trace.span("kernels.load"):
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
 

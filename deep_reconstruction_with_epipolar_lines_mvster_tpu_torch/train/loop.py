@@ -25,12 +25,12 @@ batch; rank 0 alone prints, logs and writes checkpoints.
 record carries the step's ``lr`` (which the JAX loop prints but does not
 record) and each ``train`` and ``test`` record the host seconds of its step
 (``step_s``: from the batch's copy to the device to its scalars on the
-host).
+host) and of the wait on the loader for its batch (``data_s``). Both are
+read from spans (``utils/trace``): ``fit.step`` or ``fit.val_step``, and
+``data.wait``.
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 import torch.distributed as dist
@@ -39,15 +39,30 @@ from ..config import LossConfig, TrainConfig
 from ..data.synthetic import batch_to_torch
 from ..parallel import data_parallel, is_host0
 from ..parallel.distributed import sync_hosts
+from ..utils import trace
 from .checkpoint import find_latest_checkpoint, restore_checkpoint, save_checkpoint
 from .logging import MetricWriter, format_progress
 from .metrics import DictAverageMeter
 from .schedule import make_schedule
 from .step import TrainStep, make_eval_step, make_optimizer, make_train_step
 
+_END = object()
+
 
 def _images_to_host(images):
     return {k: v.float().cpu().numpy() for k, v in images.items()}
+
+
+def _fetched(loader):
+    """``(batch, wait)`` for each batch of ``loader``: ``wait`` is the
+    ``data.wait`` span of its fetch."""
+    batches = iter(loader)
+    while True:
+        with trace.span("data.wait") as wait:
+            batch = next(batches, _END)
+        if batch is _END:
+            return
+        yield batch, wait
 
 
 def fit(
@@ -104,15 +119,18 @@ def fit(
         if host0:
             print(f"Epoch {epoch + 1}:")
         train_loader.set_epoch(epoch)
-        for it, batch in enumerate(train_loader):
-            t0 = time.perf_counter()
+        for it, (batch, wait) in enumerate(_fetched(train_loader)):
             global_step = steps_per_epoch * epoch + it
-            scalars, images = train_step(put(batch))
-            if host0 and global_step % train_cfg.summary_freq == 0:
-                scalars = {k: float(v) for k, v in scalars.items()}
-                dt = time.perf_counter() - t0
+            log = host0 and global_step % train_cfg.summary_freq == 0
+            with trace.span("fit.step") as step_span:
+                scalars, images = train_step(put(batch))
+                if log:
+                    scalars = {k: float(v) for k, v in scalars.items()}
+            if log:
+                dt = step_span.seconds
                 lr = schedule(global_step)
-                writer.scalars("train", {**scalars, "lr": lr, "step_s": dt}, global_step)
+                writer.scalars("train", {**scalars, "lr": lr, "step_s": dt,
+                                         "data_s": wait.seconds}, global_step)
                 writer.images("train", _images_to_host(images), global_step)
                 print(format_progress(epoch, train_cfg.epochs, it, steps_per_epoch, lr,
                                       scalars, dt), flush=True)
@@ -125,15 +143,15 @@ def fit(
             epoch % train_cfg.eval_freq == 0 or epoch == train_cfg.epochs - 1
         ):
             meter = DictAverageMeter()
-            for it, batch in enumerate(val_loader):
-                t0 = time.perf_counter()
-                scalars, images = eval_step(put(batch))
-                scalars = {k: float(v) for k, v in scalars.items()}
-                dt = time.perf_counter() - t0
+            for it, (batch, wait) in enumerate(_fetched(val_loader)):
+                with trace.span("fit.val_step") as step_span:
+                    scalars, images = eval_step(put(batch))
+                    scalars = {k: float(v) for k, v in scalars.items()}
                 meter.update(scalars)
                 if host0 and it % train_cfg.summary_freq == 0:
                     step = steps_per_epoch * epoch + it
-                    writer.scalars("test", {**scalars, "step_s": dt}, step)
+                    writer.scalars("test", {**scalars, "step_s": step_span.seconds,
+                                            "data_s": wait.seconds}, step)
                     writer.images("test", _images_to_host(images), step)
             if host0:
                 avg = meter.mean()

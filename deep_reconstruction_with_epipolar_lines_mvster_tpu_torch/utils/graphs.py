@@ -41,6 +41,11 @@ exchange tensors between rounds: one graph per rank per round.
   captured function warms up or captures (nested jits are inlined), and
   any call inside ``eager()`` (``jax.disable_jit``).
 
+A call that replays is a ``graph.replay`` span (``utils/trace``): the
+static-input copies, the replay's enqueue and the output clones; a new
+signature's warm-up and record before it is a ``graph.capture`` span,
+counted in ``graph.captures``.
+
 Kernel launch counters (``ops/kernels/*.launches``) count the launches
 that the wrappers make: on a new signature the warm-up and the capture
 each launch every kernel once (a warm-up of several eager calls, as the
@@ -57,6 +62,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import trace
 
 _LOCAL = threading.local()
 
@@ -175,8 +182,11 @@ class Captured:
             return self.fn(*args, **kwargs)
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture(key, leaves, device)
-        return self._replay(entry, leaves)
+            with trace.span("graph.capture"):
+                entry = self.graphs[key] = self._capture(key, leaves, device)
+            trace.count("graph.captures")
+        with trace.span("graph.replay"):
+            return self._replay(entry, leaves)
 
     def _card(self, leaves: List[torch.Tensor]) -> Optional[torch.device]:
         return _card(self.name, leaves)
@@ -333,8 +343,11 @@ class Lockstep:
             return self.drive(_run_segment, *args, **kwargs)
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture(key, leaves, device)
-        return self._replay(entry, leaves)
+            with trace.span("graph.capture"):
+                entry = self.graphs[key] = self._capture(key, leaves, device)
+            trace.count("graph.captures")
+        with trace.span("graph.replay"):
+            return self._replay(entry, leaves)
 
     def _capture(self, key, leaves: List[torch.Tensor], device: torch.device) -> _Rounds:
         inputs = _static_inputs(leaves)
