@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's six CUDA kernels from ``csrc/`` (one ``nvcc`` per
+1. Builds the port's seven CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints the build seconds and ptxas's
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
@@ -16,10 +16,15 @@
    stage, and in float32 at one view of the B1 pipeline), K5 (attention
    accumulation, also in float32 at one B1 pipeline view) and K6 (3x3 conv
    + folded BatchNorm + ReLU, beside ``F.conv2d`` + ``relu_`` on the folded
-   weights and the unfused conv + BatchNorm + ReLU it replaces, at every 3x3
+   weights and the unfused route it replaces (the library's conv, then
+   BatchNorm + ReLU as one ``norm_act`` pass), at every 3x3
    stride-1 layer of the stem and Reg2D.conv0, timed in both dtypes, the
    rows that back its route rule in ``models/layers.py``, and in float32 at
-   one B1 pipeline view) at the eval forward's shapes; K2 (FPN top-down level) at the eval
+   one B1 pipeline view) and ``norm_act`` (eval BatchNorm + ReLU after a
+   library convolution, at every shape of its calls in the eval forward in
+   both dtypes and at one B1 pipeline view, beside its plain version, the
+   chain of PyTorch kernels it replaced, and PyTorch's eval
+   ``F.batch_norm`` + ``relu_``) at the eval forward's shapes; K2 (FPN top-down level) at the eval
    forward's, the train step's (its 3 forward launches and the backward's 3
    ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
    (warp backward) at the train step's on two sets of hypotheses (the full
@@ -40,8 +45,9 @@
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
    and BatchNorm statistics on plane-scene inputs: the launch counters are
    set to 0 just before one forward and read just after (K1 12 launches,
-   K2 3, K5 4, K6 12: every 3x3 stride-1 layer on its bf16 route), then
-   three rounds of five forwards are timed.
+   K2 3, K5 4, K6 12: every 3x3 stride-1 layer on its bf16 route;
+   ``norm_act`` 39: every other eval BatchNorm, ``checks.
+   norm_act_modules``), then three rounds of five forwards are timed.
 4. Checks the eval output: finite depth of the expected shape, and, on a
    small input, the card's forward against the CPU's plain forward with the
    same weights in float32 (``checks.check_forward``), at FPN base 8 and
@@ -58,7 +64,8 @@
    (``small_train_step_other_width``).
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
    Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
-   before one step and read just after (K4 16, K3 16, K2 6, K6 0), then a
+   before one step and read just after (K4 16, K3 16, K2 6, K6 0,
+   ``norm_act`` 0), then a
    warm-up step and three rounds of three timed steps, and a profile of one
    step.
 8. Drives the eval pipeline of the eval CLI at full width
@@ -67,7 +74,7 @@
    every reference view, each view filtered against its 3 sources, the
    fused PLY written under ``chiprun_out/``; the counters are set to 0 just
    before the run and read just after (per view K1 12, K2 3, K5 4, K6 10:
-   its float32 route stops at 32 channels),
+   its float32 route stops at 32 channels; ``norm_act`` 41),
    and a profile of one more run. Then the same pipeline at 64x128 on the
    card against the CPU (``checks.check_pipeline``). K6's launches per
    forward follow its route rule (``_k6_launches``).
@@ -666,8 +673,8 @@ def check_band_conv(dev):
     in each of ``BAND_CONV_SETS``, with random weights, folded scale and
     bias, and the times of the kernel, the plain version, the library
     yardstick (``F.conv2d`` on the folded weight and bias, then in-place
-    ``relu_``) and the unfused route K6 replaces (cuDNN conv,
-    ``TorchBatchNorm`` in eval, ``F.relu``). The bound counts x read and
+    ``relu_``) and the unfused route K6 replaces (cuDNN conv, then
+    ``TorchBatchNorm`` in eval with its ReLU: one ``norm_act`` pass). The bound counts x read and
     the output written once; operations at the bf16 tensor-core rate in
     bf16, at the float32 CUDA-core rate in float32. A row's ``instance`` is
     its route and launch shape (``band_conv.plan``)."""
@@ -703,7 +710,7 @@ def check_band_conv(dev):
                 return F.conv2d(x_nchw, w_lib, b_lib, 1, 1).relu_()
 
             def run_unfused(x=x, wt=wt, bn=bn):
-                return F.relu(bn(conv2d_nhwc(x, wt, padding=1)))
+                return bn(conv2d_nhwc(x, wt, padding=1), relu=True)
 
             nbytes = (x.numel() + got.numel()) * x.element_size() + (wt.numel() + 2 * co) * 4
             is_bf16 = dtype == torch.bfloat16
@@ -716,6 +723,104 @@ def check_band_conv(dev):
                         run_unfused, row_set=rset, timed=True, layers=layers,
                         instance=k6.plan(n, h, w, ci, co, dtype))
             rows[-1]["layer"] = name
+    return rows
+
+
+# norm_act's row sets: (set, dtype, batch): the eval forward at B4 in both
+# dtypes, and one view of the float32 pipeline (B1, the same model and
+# hypotheses at every stage)
+NORM_ACT_SETS = (("eval", "bfloat16", B), ("eval_float32", "float32", B),
+                 ("pipeline_float32", "float32", 1))
+
+
+def _head(batch, n):
+    """The first ``n`` samples of a batch of tensors (nested dicts)."""
+    return {k: _head(v, n) if isinstance(v, dict) else v[:n] for k, v in batch.items()}
+
+
+def _norm_act_calls(dev, batch, dtype_name):
+    """``{(shape, relu): calls}`` of ``norm_act`` in one eager eval forward
+    of the flagship (``dtu_model_config``, seeded) in ``dtype_name`` on
+    ``batch``, and ``checks.norm_act_modules`` of that model."""
+    from collections import Counter
+    from unittest import mock
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        norm_act as na,
+    )
+
+    model = checks.seeded_model(dtu_model_config(dtype_name), SEED, dev)
+    calls, real = Counter(), na.norm_act
+
+    def record(x, *rest):
+        calls[(tuple(x.shape), rest[-1])] += 1
+        return real(x, *rest)
+
+    with mock.patch.object(na, "norm_act", record), torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    return calls, checks.norm_act_modules(model, getattr(torch, dtype_name))
+
+
+def check_norm_act(dev, batch):
+    """``norm_act`` against ``norm_act_ref`` at every shape of its calls in
+    each of ``NORM_ACT_SETS`` (the shapes read from a forward), with random
+    BatchNorm statistics and affine parameters, timed beside the plain
+    version (the chain of PyTorch elementwise kernels the eval BatchNorm and
+    its ReLU were before the kernel) and the library yardstick (PyTorch's
+    own eval ``F.batch_norm`` on the channels-last view, then an in-place
+    ``relu_``: two passes). A row's ``max_abs_diff`` is the largest
+    ``|kernel - plain|`` over ``norm_act.limit`` at its element (at most 1),
+    ``max_abs_gap`` the largest difference itself, ``library_share_of_limit``
+    the library's largest ``|library - plain|`` over the same limit. The
+    bound counts x read and the output written once (and the four ``[C]``
+    tensors); 3 operations an element (multiply, add, max) on the CUDA
+    cores."""
+    import torch
+    import torch.nn.functional as F
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        norm_act as na,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = []
+    for row_set, dtype_name, b in NORM_ACT_SETS:
+        dtype = getattr(torch, dtype_name)
+        calls, modules = _norm_act_calls(dev, _head(batch, b), dtype_name)
+        if sum(calls.values()) != modules:
+            raise AssertionError(f"norm_act {row_set}: {sum(calls.values())} calls, "
+                                 f"{modules} library-route eval BatchNorms")
+        for (shape, relu), n in sorted(calls.items()):
+            C = shape[-1]
+            x = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+            bn = (torch.rand(C, generator=gen, device=dev) * 1.5 + 0.5,
+                  torch.randn(C, generator=gen, device=dev) * 0.2,
+                  torch.randn(C, generator=gen, device=dev) * 0.2,
+                  torch.rand(C, generator=gen, device=dev) * 1.5 + 0.5)
+            args = (x, *bn, 1e-5, relu)
+            got, want = na.norm_act(*args), na.norm_act_ref(*args)
+
+            def run_library(x=x, bn=bn, relu=relu):
+                w, b, mean, var = bn
+                y = F.batch_norm(x.movedim(-1, 1), mean, var, w, b, False, 0.0, 1e-5)
+                return (y.relu_() if relu else y).movedim(1, -1)
+
+            lib = run_library()
+            torch.cuda.synchronize()
+            gap = (got.float() - want.float()).abs()
+            share = (gap / na.limit(got, want, *args[:-1])).max().item()
+            lib_share = ((lib.float() - want.float()).abs()
+                         / na.limit(lib, want, *args[:-1])).max().item()
+            nbytes = 2 * x.numel() * x.element_size() + 4 * 4 * C
+            _record(rows, "norm_act", "pipeline" if row_set.startswith("pipeline") else "eval",
+                    list(shape), dtype, share, 1.0, n, lambda a=args: na.norm_act(*a),
+                    lambda a=args: na.norm_act_ref(*a), nbytes, 3 * x.numel(), FP32_FLOPS,
+                    run_library=run_library, row_set=row_set, timed=True, relu=relu,
+                    max_abs_gap=gap.max().item(), library_share_of_limit=lib_share)
     return rows
 
 
@@ -967,6 +1072,9 @@ def drive_train(dev, batch, counters):
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        norm_act as na,
+    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
         make_optimizer,
         make_train_step,
@@ -978,12 +1086,15 @@ def drive_train(dev, batch, counters):
                            lambda i: 1e-3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
+    for mod in (*counters.values(), na):
         mod.launches = 0
     losses = [step(batch)["loss"].item()]            # the main path, counted
     counts = {name: mod.launches for name, mod in counters.items()}
     if counts != TRAIN_LAUNCHES:
         raise AssertionError(f"launches per train step {counts}, want {TRAIN_LAUNCHES}")
+    norm_act_step = na.launches
+    if norm_act_step != 0:
+        raise AssertionError(f"norm_act launched {norm_act_step} times in a train step")
     for name, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise AssertionError(f"{name}: gradient missing or not finite")
@@ -1009,7 +1120,9 @@ def drive_train(dev, batch, counters):
     train = {
         "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
-        "loss_per_step": losses, "launches_per_step": counts, "timed_steps": reps * rounds,
+        "loss_per_step": losses, "launches_per_step": counts,
+        "norm_act_launches_per_step": norm_act_step,
+        "timed_steps": reps * rounds,
         "peak_memory_gb": peak_gb,
     }
     return train, prof, counts
@@ -1030,13 +1143,16 @@ def drive_pipeline(dev, counters):
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
         SyntheticEvalDataset,
     )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        norm_act as na,
+    )
 
     model = checks.seeded_model(checks.eval_dtu_config(), PIPELINE_SEED, dev)
     ds = SyntheticEvalDataset(V=PIPELINE_V, H=H, W=W)
     checks.run_pipeline(model, ds, dev)              # warm-up
     os.makedirs(os.path.dirname(PIPELINE_PLY), exist_ok=True)
     torch.cuda.synchronize()
-    for mod in counters.values():
+    for mod in (*counters.values(), na):
         mod.launches = 0
     run = checks.run_pipeline(model, ds, dev, ply_path=PIPELINE_PLY)   # counted
     counts = {name: mod.launches for name, mod in counters.items()}
@@ -1044,6 +1160,10 @@ def drive_pipeline(dev, counters):
     if per_view != PIPELINE_LAUNCHES_PER_VIEW:
         raise AssertionError(f"pipeline launches per view {per_view}, "
                              f"want {PIPELINE_LAUNCHES_PER_VIEW}")
+    norm_act_view = na.launches / len(ds)
+    if norm_act_view != checks.norm_act_modules(model, torch.float32):
+        raise AssertionError(f"pipeline: norm_act launched {norm_act_view} times a view, want "
+                             f"{checks.norm_act_modules(model, torch.float32)}")
     n_points = len(run["points"])
     if n_points == 0 or not np.isfinite(run["points"]).all():
         raise AssertionError(f"fused cloud of {n_points} points, or not finite")
@@ -1060,7 +1180,8 @@ def drive_pipeline(dev, counters):
         "ms_per_view_forward_all": [x * 1e3 for x in run["forward_s"]],
         "ms_per_view_filter": float(np.median(run["filter_s"])) * 1e3,
         "ms_per_view_filter_all": [x * 1e3 for x in run["filter_s"]],
-        "launches_per_view": per_view, "fused_points": n_points,
+        "launches_per_view": per_view, "norm_act_launches_per_view": norm_act_view,
+        "fused_points": n_points,
         "points_per_view": run["point_counts"],
         "final_mask_share": float(np.mean([m.mean() for m in run["final_masks"].values()])),
         "ply": PIPELINE_PLY, "ply_bytes": os.path.getsize(PIPELINE_PLY),
@@ -2100,6 +2221,9 @@ def main() -> int:
         band_conv as k6,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        norm_act as na,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         topdown as k2,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -2139,7 +2263,7 @@ def main() -> int:
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch) + check_warp_cor_pipeline(dev) + check_topdown(dev) \
-        + check_band_conv(dev) + check_attn_fuse_workspace(dev)
+        + check_band_conv(dev) + check_norm_act(dev, batch) + check_attn_fuse_workspace(dev)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows
@@ -2159,13 +2283,17 @@ def main() -> int:
     with torch.inference_mode():
         model(*args)                      # warm-up
         torch.cuda.synchronize()
-        for mod in counters.values():
+        for mod in (*counters.values(), na):
             mod.launches = 0
         out = model(*args)                # the main path, counted
         torch.cuda.synchronize()
         counts = {name: mod.launches for name, mod in counters.items()}
         if counts != EVAL_LAUNCHES:
             raise AssertionError(f"launches per forward {counts}, want {EVAL_LAUNCHES}")
+        norm_act_eval = na.launches
+        if norm_act_eval != checks.norm_act_modules(model, torch.bfloat16):
+            raise AssertionError(f"norm_act launched {norm_act_eval} times a forward, want "
+                                 f"{checks.norm_act_modules(model, torch.bfloat16)}")
         depth = out["stage4"]["depth"]
         conf = out["stage4"]["photometric_confidence"]
         if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
@@ -2195,7 +2323,8 @@ def main() -> int:
         "B": B, "V": V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_forward": fwd_ms, "depth_maps_per_s": B * 1e3 / fwd_ms,
         "ms_per_forward_rounds": round_ms,
-        "launches_per_forward": counts, "timed_forwards": reps * rounds,
+        "launches_per_forward": counts, "norm_act_launches_per_forward": norm_act_eval,
+        "timed_forwards": reps * rounds,
         "stage4_confidence_finite_share": conf_finite,
         "peak_memory_gb": peak_gb,
         "small_input_vs_cpu_float32": small,
@@ -2347,6 +2476,24 @@ def main() -> int:
             # the row windows of the space phase, per sharded forward
             entry["space_windows"] = {k: v for k, v in sums.items() if k.startswith("space_")}
         kernel_line.append(entry)
+    # norm_act replaces no TPU kernel: XLA fused the eval BatchNorm and ReLU
+    # into the convolutions there; the unfused route here ran them as a
+    # chain of PyTorch kernels (its plain version, plain_ms)
+    sums = _per_run([r for r in rows if r["kernel"] == "norm_act"])
+    kernel_line.append({
+        "name": "norm_act", "route": "cuda", "source": f"{PKG}/csrc/norm_act.cu",
+        "replaces": None, "also_serves": [],
+        "launches_eval": norm_act_eval, "launches_train": train["norm_act_launches_per_step"],
+        "launches_pipeline_view": pipeline["norm_act_launches_per_view"],
+        "timed_per": "eval forward",
+        "max_share_of_limit": max(r["max_abs_diff"] for r in rows if r["kernel"] == "norm_act"),
+        **{k: sums["eval"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "bytes", "library_ms", "library_device_ms")},
+        "library_max_share_of_limit": max(r["library_share_of_limit"] for r in rows
+                                          if r["kernel"] == "norm_act"),
+        "float32_forward": sums["eval_float32"],
+        "pipeline_float32_view": sums["pipeline_float32"],
+    })
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

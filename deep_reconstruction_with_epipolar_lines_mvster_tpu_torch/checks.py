@@ -511,6 +511,25 @@ def seeded_model(cfg: ModelConfig, seed: int, device):
     return model.to(device)
 
 
+def norm_act_modules(model, dtype) -> int:
+    """The eval-mode ``TorchBatchNorm`` modules of ``model`` whose forward
+    on activations of ``dtype`` takes kernel ``norm_act``
+    (``models/layers.TorchBatchNorm.eval_norm``): each one but those folded
+    into K6 (the blocks whose ``on_band_conv(dtype)`` holds) and those of
+    the mono depth decoder, which only training runs. The flagship's eval
+    forward calls each of them once, so this is ``norm_act``'s launches a
+    forward on the card; 0 in train mode."""
+    from .models.layers import ConvBnReLU, ConvBnReLU3D, TorchBatchNorm
+
+    mono = getattr(model, "mono_depth_decoder", None)
+    train_only = set() if mono is None else set(mono.modules())
+    mods = [m for m in model.modules() if m not in train_only]
+    norms = sum(isinstance(m, TorchBatchNorm) and not m.training for m in mods)
+    folded = sum(isinstance(m, (ConvBnReLU, ConvBnReLU3D)) and m.on_band_conv(dtype)
+                 for m in mods)
+    return norms - folded
+
+
 def run_pipeline(model, dataset, device, cfg: FusionConfig = EVAL_DTU_FUSION,
                  nview_filter: int = 4, ply_path: Optional[str] = None,
                  forward=None) -> Dict[str, object]:

@@ -86,8 +86,9 @@ class NADCN(nn.Module):
 
     def forward(self, x, view_groups: int = 1):
         norm = self._modules["0"]
-        x = norm(x) if isinstance(norm, GroupNorm) else norm(x, view_groups)
-        return self._modules["2"](F.relu(x))
+        if isinstance(norm, GroupNorm):
+            return self._modules["2"](F.relu(norm(x)))
+        return self._modules["2"](norm(x, view_groups, relu=True))
 
 
 class _TopDownFPN(nn.Module):

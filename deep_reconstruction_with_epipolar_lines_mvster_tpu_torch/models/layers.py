@@ -23,8 +23,11 @@ In eval, a 3x3 (or (1,3,3)) stride-1 conv + BatchNorm + ReLU with at most
 K6 (``ops/kernels/band_conv.py``) with the BatchNorm folded into a scale and
 a bias; every other block (GroupNorm, no ReLU, wider, strided), and every
 block in training, is the convolution library's conv followed by its norm
-and ReLU. The route follows the module's shape, norm, mode and the
-activations' dtype only.
+and ReLU. There, on the card, an eval ``TorchBatchNorm`` and the ReLU after
+it are one pass of kernel ``norm_act`` (``ops/kernels/norm_act.py``) over
+the activations, made contiguous; the CPU takes its plain version. The
+route follows the module's shape, norm and mode and the activations'
+device only.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import norm_act as _norm_act
 from ..ops.kernels.band_conv import band_conv
 from ..parallel.distributed import all_reduce_sum, world_size
 
@@ -42,10 +46,11 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax momentum; torch's 0.1
 
 # The widest eval 3x3 stride-1 conv + BatchNorm + ReLU that runs as K6, per
-# activation dtype: where K6 beats the unfused route (cuDNN conv,
-# TorchBatchNorm in eval, ReLU) at every layer of the flagship forward up to
-# that width (chip_smoke.py's band_conv kernel_shapes rows, which time both
-# at each layer's shape and dtype in one call).
+# activation dtype: where K6 beats the unfused route (cuDNN conv, then
+# TorchBatchNorm in eval with its ReLU, one norm_act pass) at every layer of
+# the flagship forward up to that width (chip_smoke.py's band_conv
+# kernel_shapes rows, which time both at each layer's shape and dtype in one
+# call).
 BAND_CONV_MAX_CHANNELS = {torch.bfloat16: 64, torch.float32: 32}
 
 
@@ -100,7 +105,8 @@ class TorchBatchNorm(nn.Module):
     ``TorchBatchNorm``. Buffers and parameters are named as in
     ``nn.BatchNorm*d``.
 
-    - eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``;
+    - eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``,
+      on the card one ``norm_act`` pass (``eval_norm``);
     - train: batch statistics per contiguous view group of the folded batch
       (fold index ``b*V + v``, so the group axis is the inner one of
       ``reshape(N // G, G, ...)``), normalized with the biased variance; the
@@ -113,7 +119,9 @@ class TorchBatchNorm(nn.Module):
     ``dp_impl="gspmd"`` on more than one rank): the train-mode statistics
     are those of the global batch, every rank's samples, as GSPMD computes
     them: the batch sum and then the sum of squared deviations all-reduced
-    over the group (differentiable), in float32."""
+    over the group (differentiable), in float32.
+
+    ``relu``: the ReLU of the output, in eval fused into the same pass."""
 
     sync_group = None
 
@@ -126,11 +134,10 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x, groups: int = 1):
-        xf = x.float()
+    def forward(self, x, groups: int = 1, relu: bool = False):
         if not self.training:
-            y = (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-            return (y * self.weight + self.bias).to(x.dtype)
+            return self.eval_norm(x, relu)
+        xf = x.float()
         G = groups
         N, C = x.shape[0], x.shape[-1]
         if N % G:
@@ -152,7 +159,14 @@ class TorchBatchNorm(nn.Module):
             self.running_mean.mul_(m ** G).add_((1 - m) * (w[:, None] * mean.reshape(G, C)).sum(0))
             self.running_var.mul_(m ** G).add_((1 - m) * (w[:, None] * var_unb).sum(0))
             self.num_batches_tracked.add_(G)
-        return (y * self.weight + self.bias).to(x.dtype)
+        y = (y * self.weight + self.bias).to(x.dtype)
+        return F.relu(y) if relu else y
+
+    def eval_norm(self, x, relu: bool = False):
+        """The eval transform (and ReLU): kernel ``norm_act`` on the card
+        (its plain version on the CPU); it raises on what it cannot take."""
+        return _norm_act.norm_act(x.contiguous(), self.weight, self.bias, self.running_mean,
+                                  self.running_var, self.eps, relu)
 
     def folded(self):
         """The eval transform as ``(scale, bias)``, float32 ``[C]``:
@@ -239,12 +253,18 @@ class ConvBnReLU(nn.Module):
         self.stride = stride
         self.relu = relu
 
+    def on_band_conv(self, dtype) -> bool:
+        """Whether the block runs as K6 on activations of ``dtype``."""
+        return self.stride == 1 and _band_conv_route(self, self.conv.weight, dtype)
+
     def forward(self, x, view_groups: int = 1):
-        if self.stride == 1 and _band_conv_route(self, self.conv.weight, x.dtype):
+        if self.on_band_conv(x.dtype):
             return band_conv(x.contiguous(), self.conv.weight, *self.bn.folded())
         x = conv2d_nhwc(x, self.conv.weight, self.conv.bias, stride=self.stride,
                         padding=self.conv.weight.shape[-1] // 2)
-        x = self.bn(x, view_groups) if self.gn is None else self.gn(x)
+        if self.gn is None:
+            return self.bn(x, view_groups, relu=self.relu)
+        x = self.gn(x)
         return F.relu(x) if self.relu else x
 
 
@@ -265,11 +285,16 @@ class ConvBnReLU3D(nn.Module):
         self.stride = tuple(stride)
         self.depth = depth
 
+    def on_band_conv(self, dtype) -> bool:
+        """Whether the block runs as K6 on activations of ``dtype``."""
+        return (self.kernel[0] == 1 and self.stride == (1, 1, 1)
+                and _band_conv_route(self, self.conv.weight[:, :, 0], dtype))
+
     def forward(self, x):
         kd, kh, kw = self.kernel
         sd, sh, sw = self.stride
         w = self.conv.weight
-        if kd == 1 and self.stride == (1, 1, 1) and _band_conv_route(self, w[:, :, 0], x.dtype):
+        if self.on_band_conv(x.dtype):
             return band_conv(x.contiguous(), w[:, :, 0], *self.bn.folded())
         if kd == 1 and sd == 1:
             x = conv2d_nhwc(x, w[:, :, 0], stride=(sh, sw), padding=(kh // 2, kw // 2))
@@ -278,7 +303,7 @@ class ConvBnReLU3D(nn.Module):
             y = conv3d_ndhwc(x.reshape(N // self.depth, self.depth, H, W, C), w,
                              stride=self.stride, padding=(kd // 2, kh // 2, kw // 2))
             x = y.reshape(-1, *y.shape[2:])
-        return F.relu(self.bn(x))
+        return self.bn(x, relu=True)
 
 
 class DeconvBnReLU3D(nn.Module):
@@ -295,7 +320,7 @@ class DeconvBnReLU3D(nn.Module):
     def forward(self, x):
         w = self._modules["0"].weight[:, :, 0].to(x.dtype)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None, 2, 1, 1)
-        return F.relu(self._modules["1"](y.permute(0, 2, 3, 1)))
+        return self._modules["1"](y.permute(0, 2, 3, 1), relu=True)
 
 
 class _AttnConv3D(nn.Module):
@@ -316,7 +341,7 @@ class _AttnConv3D(nn.Module):
         x5 = x.reshape(N // self.depth, self.depth, H, W, C)
         y = conv3d_ndhwc(x5, self.conv.weight, padding=1)
         out = (y * self.attention(y) + x5).reshape(N, H, W, -1)
-        return F.relu(self.bn(out))
+        return self.bn(out, relu=True)
 
 
 class _MLP(nn.Module):
@@ -416,4 +441,4 @@ class DeconvBnReLU3DTrue(nn.Module):
         x5 = x.reshape(N // self.depth, self.depth, H, W, C).permute(0, 4, 1, 2, 3)
         y = F.conv_transpose3d(x5, self._modules["0"].weight.to(x.dtype), None, 2, 1, 1)
         y = y.permute(0, 2, 3, 4, 1)
-        return F.relu(self._modules["1"](y.reshape(-1, *y.shape[2:])))
+        return self._modules["1"](y.reshape(-1, *y.shape[2:]), relu=True)

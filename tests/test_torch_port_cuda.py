@@ -41,6 +41,9 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import
     band_conv as k6,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    norm_act as na,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     topdown as k2,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -230,6 +233,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k6.band_conv(torch.zeros((1, 8, 8, 8), device=dev, dtype=torch.float16), w6, s6, s6)
     with pytest.raises(ValueError, match="shapes"):
         k6.band_conv(torch.zeros((1, 8, 8, 4), device=dev), w6, s6, s6)
+    s8 = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        na.norm_act(torch.zeros((1, 8, 8, 8), device=dev).transpose(1, 2), s8, s8, s8, s8,
+                    1e-5, True)
+    with pytest.raises(ValueError, match="not supported"):
+        na.norm_act(torch.zeros((1, 8, 8, 8), device=dev, dtype=torch.float16), s8, s8, s8, s8,
+                    1e-5, True)
+    with pytest.raises(ValueError, match="weight"):
+        na.norm_act(torch.zeros((1, 8, 8, 4), device=dev), s8, s8, s8, s8, 1e-5, True)
+    with pytest.raises(ValueError, match="float32"):
+        na.norm_act(torch.zeros((1, 8, 8, 8), device=dev), s8.bfloat16(), s8, s8, s8, 1e-5, True)
     g3 = torch.zeros((1, 2, 8, 8, 12), device=dev)
     with pytest.raises(ValueError, match="shapes"):
         k3.warp_bwd(g3, rel, hypo, (1, 8, 8, 10))                 # C of g and source differ
@@ -538,6 +552,8 @@ def test_kernel_wrappers_raise_under_autograd(dev):
     s6 = torch.ones(8, device=dev)
     with pytest.raises(RuntimeError, match="autograd"):
         k6.band_conv(src, w6, s6, s6)
+    with pytest.raises(RuntimeError, match="autograd"):
+        na.norm_act(src, w6[:, 0, 0, 0], s6, s6, s6, 1e-5, True)
     with torch.no_grad():
         k1.warp_cor(src, src, rel, hypo, 4)
         k3.warp_bwd(g, rel, hypo, (1, 8, 8, 8))
@@ -545,6 +561,7 @@ def test_kernel_wrappers_raise_under_autograd(dev):
         k4.warp_fwd(src, rel, hypo)
         k5.attn_fuse(cors, 2.0, 8)
         k6.band_conv(src, w6, s6, s6)
+        na.norm_act(src, w6[:, 0, 0, 0].contiguous(), s6, s6, s6, 1e-5, True)
     torch.cuda.synchronize()
 
 
@@ -1263,3 +1280,160 @@ def test_capture_of_a_mesh_path_raises(dev, tmp_path):
         assert step._captured.graphs == {}
     finally:
         dist.destroy_process_group()
+
+
+def _norm_act_bn(C, gen):
+    """An eval BatchNorm's four float32 ``[C]`` tensors (weight, bias,
+    mean, var) away from identity, on the CPU."""
+    return (torch.rand(C, generator=gen) * 1.5 + 0.5, torch.randn(C, generator=gen) * 0.2,
+            torch.randn(C, generator=gen) * 0.2, torch.rand(C, generator=gen) * 1.5 + 0.5)
+
+
+def _norm_act_folded_cpu(x, weight, bias, mean, var, eps, relu):
+    """The kernel's arithmetic on the CPU, each operation rounded once as
+    IEEE float32 rounds it: ``scale = weight * (1 / sqrt(var + eps))`` (the
+    square root and the reciprocal taken in float64 and rounded once, which
+    is the correctly rounded float32 result), ``shift = bias - mean *
+    scale``, ``relu(x * scale + shift)`` rounded once to the dtype of x."""
+    x, weight, bias, mean, var = (t.cpu() for t in (x, weight, bias, mean, var))
+    root = torch.sqrt((var + eps).double()).float()
+    scale = weight * (1.0 / root.double()).float()
+    shift = bias - mean * scale
+    y = x.float() * scale + shift
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+def _forward_norm_act_calls(dev, dtype):
+    """``(shape, relu)`` of each ``norm_act`` call of the flagship's eager
+    eval forward at B4 V4 512x640 in ``dtype``, in order, and the model."""
+    from unittest import mock
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+
+    model = checks.seeded_model(graft_entry.dtu_model_config(dtype), 1, dev)
+    batch = graft_entry.example_batch(B=4, V=4, H=512, W=640, device=dev)
+    calls, real = [], na.norm_act
+
+    def record(x, *rest):
+        calls.append((tuple(x.shape), rest[-1]))
+        return real(x, *rest)
+
+    with mock.patch.object(na, "norm_act", record), torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    return calls, model
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_act_kernel_matches_plain_at_the_forward_shapes(dev, dtype):
+    """``norm_act`` at every shape of its calls in the B4 V4 512x640 eval
+    forward (39 calls in bf16, 41 in float32; C 8 to 64), then at C 3 and 72
+    and a ragged numel (C not a multiple of the 8 bf16 or 4 float32 values
+    a thread moves; n % 8 != 0), at a misaligned x and with and without
+    ReLU: bit-equal to its arithmetic rounded on the CPU
+    (``_norm_act_folded_cpu``), and within ``norm_act.limit`` of the plain
+    version, the eval BatchNorm as the port computed it before."""
+    dt = getattr(torch, dtype)
+    calls, _ = _forward_norm_act_calls(dev, dtype)
+    assert len(calls) == {"bfloat16": 39, "float32": 41}[dtype]
+    shapes = sorted(set(calls)) + [((2, 9, 11, 3), True), ((2, 9, 11, 72), False),
+                                   ((3, 5, 7, 12), True), ((1, 1, 1, 5), False)]
+    gen = torch.Generator().manual_seed(17)
+    for shape, relu in shapes:
+        C = shape[-1]
+        bn = [t.to(dev) for t in _norm_act_bn(C, gen)]
+        x = (torch.randn(shape, generator=gen) * 2).to(dev, dt)
+        before = na.launches
+        got = na.norm_act(x, *bn, 1e-5, relu)
+        torch.cuda.synchronize()
+        assert na.launches == before + 1 and got.dtype == dt and got.shape == x.shape
+        assert torch.equal(got.cpu(), _norm_act_folded_cpu(x, *bn, 1e-5, relu)), (shape, relu)
+        want = na.norm_act_ref(x, *bn, 1e-5, relu)
+        gap = (got.float() - want.float()).abs()
+        assert (gap <= na.limit(got, want, x, *bn, 1e-5)).all(), (shape, relu)
+    # x one element past a 16-byte line: the one-by-one instance
+    x = (torch.randn(2 * 5 * 7 * 16 + 1, generator=gen) * 2).to(dev, dt)[1:].view(2, 5, 7, 16)
+    bn = [t.to(dev) for t in _norm_act_bn(16, gen)]
+    got = na.norm_act(x, *bn, 1e-5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), _norm_act_folded_cpu(x, *bn, 1e-5, True))
+
+
+def test_norm_act_reads_live_statistics_under_graph_replay(dev):
+    """A captured graph of ``norm_act`` replayed after ``running_var``,
+    ``weight``, ``bias`` and ``running_mean`` change in place gives the
+    new transform: the kernel folds at every launch, so no fold goes
+    stale."""
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randn((8, 32, 40, 16), generator=gen) * 2).to(dev, torch.bfloat16)
+    weight, bias, mean, var = (t.to(dev) for t in _norm_act_bn(16, gen))
+    na.norm_act(x, weight, bias, mean, var, 1e-5, True)            # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = na.norm_act(x, weight, bias, mean, var, 1e-5, True)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = _norm_act_folded_cpu(x, weight, bias, mean, var, 1e-5, True)
+    assert torch.equal(out.cpu(), first)
+    with torch.no_grad():
+        var.mul_(3.0).add_(0.25)
+        weight.neg_()
+        bias.add_(0.5)
+        mean.sub_(0.1)
+    graph.replay()
+    torch.cuda.synchronize()
+    second = _norm_act_folded_cpu(x, weight, bias, mean, var, 1e-5, True)
+    assert not torch.equal(first, second)
+    assert torch.equal(out.cpu(), second)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_act_launches_once_per_library_route_batchnorm(dev, dtype):
+    """One eager eval forward at B4 V4 512x640 launches ``norm_act`` once
+    at each eval BatchNorm of ``checks.norm_act_modules`` (every
+    library-route block's output is contiguous on the card), counted in
+    ``launches`` and in the recorder's ``norm_act.launches``; a train-mode
+    forward (B1 V3 128x192, autograd recording) launches it at none."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
+
+    dt = getattr(torch, dtype)
+    before = (na.launches, trace.snapshot()["counters"].get("norm_act.launches", 0))
+    calls, model = _forward_norm_act_calls(dev, dtype)
+    after = (na.launches, trace.snapshot()["counters"].get("norm_act.launches", 0))
+    want = checks.norm_act_modules(model, dt)
+    assert len(calls) == want and after[0] - before[0] == want and after[1] - before[1] == want
+    model.train()
+    assert checks.norm_act_modules(model, dt) == 0
+    batch = graft_entry.example_batch(B=1, V=3, H=128, W=192, device=dev)
+    before = na.launches
+    model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    assert na.launches == before
+
+
+def test_eval_batchnorm_takes_the_kernel_at_any_layout_and_refuses_the_rest(dev):
+    """An eval ``TorchBatchNorm`` on the card launches ``norm_act`` for a
+    transposed input too (made contiguous, the same result as the
+    contiguous input's), and raises for a float16 input or one wider than
+    ``norm_act.MAX_CHANNELS``: there is no second route on the card."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import layers as tl
+
+    gen = torch.Generator().manual_seed(23)
+    bn = tl.TorchBatchNorm(16).eval().to(dev)
+    with torch.no_grad():
+        for t, v in zip((bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                        _norm_act_bn(16, gen)):
+            t.copy_(v)
+        x = (torch.randn((2, 9, 11, 16), generator=gen) * 2).to(dev, torch.bfloat16)
+        before = na.launches
+        got = bn(x.transpose(1, 2), relu=True)
+        torch.cuda.synchronize()
+        assert na.launches == before + 1
+        assert torch.equal(got, bn(x, relu=True).transpose(1, 2).contiguous())
+        with pytest.raises(ValueError, match="not supported"):
+            bn(x.half(), relu=True)
+        wide = tl.TorchBatchNorm(na.MAX_CHANNELS + 1).eval().to(dev)
+        with pytest.raises(ValueError, match="not supported"):
+            wide(torch.zeros((1, 2, 2, na.MAX_CHANNELS + 1), device=dev), relu=True)
