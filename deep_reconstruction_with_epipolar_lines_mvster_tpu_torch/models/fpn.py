@@ -34,6 +34,7 @@ from torch import nn
 
 from ..core.geometry import grid_sample_2d, upsample_nearest_2x
 from ..ops.topdown_chain import topdown_chain
+from ..utils import trace
 from .layers import (
     ConvBnReLU,
     ConvWeight,
@@ -77,7 +78,15 @@ class DeformConv2d(ConvWeight):
 
 class NADCN(nn.Module):
     """BatchNorm (or GroupNorm) + ReLU + ``DeformConv2d``; children ``0``
-    and ``2`` carry the reference's ``Sequential`` key names."""
+    and ``2`` carry the reference's ``Sequential`` key names.
+
+    Each call is a ``dcn`` span (``utils/trace``: the norm + ReLU, the
+    offset conv, the nine taps and the contraction) and adds ``9 N H W``,
+    the bilinear samples of a C-vector it takes, to the counter
+    ``dcn.samples``. Both are host-side: inside a captured forward
+    (``utils/graphs``) they record only while the graph is warmed up and
+    recorded, not on replay; eager calls (training, ``graphs.eager()``)
+    record every call."""
 
     def __init__(self, channels: int, gn: bool = False):
         super().__init__()
@@ -85,10 +94,13 @@ class NADCN(nn.Module):
         self.add_module("2", DeformConv2d(channels, channels))
 
     def forward(self, x, view_groups: int = 1):
-        norm = self._modules["0"]
-        if isinstance(norm, GroupNorm):
-            return self._modules["2"](F.relu(norm(x)))
-        return self._modules["2"](norm(x, view_groups, relu=True))
+        N, H, W, _ = x.shape
+        trace.count("dcn.samples", 9 * N * H * W)
+        with trace.span("dcn"):
+            norm = self._modules["0"]
+            if isinstance(norm, GroupNorm):
+                return self._modules["2"](F.relu(norm(x)))
+            return self._modules["2"](norm(x, view_groups, relu=True))
 
 
 class _TopDownFPN(nn.Module):

@@ -14,7 +14,8 @@ named integer. The port opens its spans where the work happens:
   signature);
 - ``feed``, counter ``feed.bytes`` (``data/synthetic.batch_to_torch``);
 - ``kernels.load``, counter ``kernels.built`` (``ops/_build``);
-- ``fit.step``, ``fit.val_step`` and ``data.wait`` (``train/loop.fit``).
+- ``fit.step``, ``fit.val_step`` and ``data.wait`` (``train/loop.fit``);
+- ``dcn``, counter ``dcn.samples`` (``models/fpn.NADCN``: each DCN head).
 
 For each span name the recorder keeps the number of spans closed, their
 total and self time (a span's duration less the part its child spans

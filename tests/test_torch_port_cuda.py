@@ -1437,3 +1437,58 @@ def test_eval_batchnorm_takes_the_kernel_at_any_layout_and_refuses_the_rest(dev)
         wide = tl.TorchBatchNorm(na.MAX_CHANNELS + 1).eval().to(dev)
         with pytest.raises(ValueError, match="not supported"):
             wide(torch.zeros((1, 2, 2, na.MAX_CHANNELS + 1), device=dev), relu=True)
+
+
+def test_captured_dcn_forward_matches_the_reference(dev):
+    """The benchmark's ``mvster_dcn_bf16`` at its cell's size (B4 V4
+    512x640 bf16, ``eval_dcn_bf16``): the captured eval forward of a seeded
+    batch against the plain reference with DCN heads
+    (``benchmark/reference/mvster_dcn.py``, float32, TF32 off) within the
+    cell's limits. The first call launches K1 12, K2 3, K5 4 times, K6 as
+    its bf16 route rule gives and ``norm_act`` once a library-route
+    BatchNorm (the four heads' included), each twice (warm-up and
+    capture), and opens the ``dcn`` span twice a head; the replay launches
+    and opens nothing, and gives the same maps."""
+    from types import SimpleNamespace
+
+    from benchmark import compare, harness, program
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.eval.depthgen import (
+        make_eval_forward,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
+
+    cell = {w["name"]: w for w in harness.load_json(harness.ROOT / "BENCHMARK.json")
+            ["workloads"]}["eval_dcn_bf16"]
+    config = harness.load_json(harness.find("configs", cell["config"]))
+    mix = harness.load_json(harness.find("traffic", cell["traffic"]))
+    spec = harness.load_json(harness.find("workloads", cell["name"]))
+    driver = harness.load_module(harness.find("drivers", spec["driver"], ".py"))
+    ctx = SimpleNamespace(seed=2 ** 31 + 41, device=dev, traffic=mix)
+    model, weights = program.build_model(config, ctx.seed, dev)
+    batch = program.scenes(ctx, mix["batch"], mix["views"])
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    forward = make_eval_forward(model)
+    kernels = (k1, k2, k5, k6, na)
+
+    def counts():
+        return [k.launches for k in kernels] + [
+            trace.snapshot()["spans"].get("dcn", {}).get("count", 0)]
+
+    before = counts()
+    first = forward(*args)
+    torch.cuda.synchronize()
+    mid = counts()
+    again = forward(*args)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, mid)] == [
+        24, 6, 8, 2 * _k6_per_forward(torch.bfloat16),
+        2 * checks.norm_act_modules(model, torch.bfloat16), 8]
+    assert counts() == mid
+    assert all(torch.equal(a, b) for a, b in zip(first["stage_depths"], again["stage_depths"]))
+    with driver._dcn_reference():
+        ref = compare.reference_depths(weights, config, batch)
+    gap = compare.DepthGap(**spec["sure"])
+    gap.add(again["stage_depths"], again["confidence"], ref)
+    numbers = gap.numbers()
+    assert gap.bad_maps == 0
+    assert all(numbers[k] <= limit for k, limit in spec["limits"].items()), numbers
