@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's seven CUDA kernels from ``csrc/`` (one ``nvcc`` per
+1. Builds the port's eight CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints the build seconds and ptxas's
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
@@ -24,7 +24,10 @@
    library convolution, at every shape of its calls in the eval forward in
    both dtypes and at one B1 pipeline view, beside its plain version, the
    chain of PyTorch kernels it replaced, and PyTorch's eval
-   ``F.batch_norm`` + ``relu_``) at the eval forward's shapes; K2 (FPN top-down level) at the eval
+   ``F.batch_norm`` + ``relu_``) at the eval forward's shapes;
+   ``deform_conv`` (a DCN head's taps and contraction) at each head of the
+   flagship with DCN heads (B4 V4 512x640 bf16, C 64 to 8) at offsets of
+   0.1 and 4 px std, beside its plain version; K2 (FPN top-down level) at the eval
    forward's, the train step's (its 3 forward launches and the backward's 3
    ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
    (warp backward) at the train step's on two sets of hypotheses (the full
@@ -74,7 +77,8 @@
    every reference view, each view filtered against its 3 sources, the
    fused PLY written under ``chiprun_out/``; the counters are set to 0 just
    before the run and read just after (per view K1 12, K2 3, K5 4, K6 10:
-   its float32 route stops at 32 channels; ``norm_act`` 41),
+   its float32 route stops at 32 channels; ``norm_act`` 41;
+   ``deform_conv`` 0),
    and a profile of one more run. Then the same pipeline at 64x128 on the
    card against the CPU (``checks.check_pipeline``). K6's launches per
    forward follow its route rule (``_k6_launches``).
@@ -95,9 +99,10 @@
    BatchNorm and with GroupNorm; ``drive_variants``): per variant, the
    counters set to 0 just before one B4 V4 512x640 bf16 eval forward and
    read just after, held to its launches (K1 12, K2 3, K5 4, K6 from the
-   route rule over its layers, ``_k6_launches``), three rounds of five
+   route rule over its layers, ``_k6_launches``; ``deform_conv`` 4 with
+   DCN heads, else 0), three rounds of five
    timed forwards and one profiled; the same around one DTU train step
-   (K4 16, K3 16, K2 6, K6 0) and three timed steps; then the small
+   (K4 16, K3 16, K2 6, K6 0, ``deform_conv`` 0) and three timed steps; then the small
    float32 forward and train step against the CPU. K6's rows also hold
    ASFF's ``expand`` convs (sets ``asff_eval``, ``asff_eval_float32``).
 11. The row-sharded ``--space`` eval (``drive_space``), on this one card
@@ -824,6 +829,86 @@ def check_norm_act(dev, batch):
     return rows
 
 
+# deform_conv's row sets: (set, std of the offsets in px): the offsets of
+# make_weights' heads (0.07-0.15 px std) and of a trained head (pixels)
+DEFORM_CONV_SETS = (("eval", 0.1), ("eval_offsets_4px", 4.0))
+
+
+def _deform_conv_calls(dev, batch):
+    """The shape of ``x`` at each ``deform_conv`` call in one eager eval
+    forward of the flagship with DCN heads (``dcn``, bf16, seeded) on
+    ``batch``, in order (the shapes to time; the launches a forward are
+    counted in ``drive_variants``)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        deform_conv as dc,
+    )
+
+    cfg = dataclasses.replace(dtu_model_config(), dcn=True)
+    model = checks.seeded_model(cfg, SEED, dev)
+    calls, real = [], dc.deform_conv
+
+    def record(x, off, weight):
+        calls.append(tuple(x.shape))
+        return real(x, off, weight)
+
+    with mock.patch.object(dc, "deform_conv", record), torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_deform_conv(dev, batch):
+    """``deform_conv`` at each head of the DCN model's eval forward (the
+    shapes read from a forward: B4 V4 512x640 bf16, C 64, 32, 16, 8), on
+    random inputs and offsets of each of ``DEFORM_CONV_SETS``' spreads,
+    against its plain version in float32 with the same bf16 weight (a
+    row's ``max_abs_diff`` is ``deform_conv.limit_share``, at most 1), timed
+    beside the plain
+    version in bf16 (the route it replaced: per tap four gathers, the taps'
+    concatenation and one matmul). The bound is ``benchmark/counts/dcn.py``'s
+    for a head less its offset conv: x read and the output written once
+    and the 9C x C weight, in bf16; the taps' 9 P (10 + 7 C) operations on
+    the float32 CUDA cores and the contraction's 2 P 9 C C on the bf16
+    tensor cores (``ops`` counts the latter at the CUDA cores' rate, so that
+    ops / peak is the sum of the two times). ``offset_bytes`` is the
+    offsets the kernel reads besides, which the count leaves inside the
+    head."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        deform_conv as dc,
+    )
+
+    calls = _deform_conv_calls(dev, batch)
+    if [c[-1] for c in calls] != [64, 32, 16, 8]:
+        raise AssertionError(f"deform_conv: calls {calls}, want one a head at C 64, 32, 16, 8")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rows = []
+    for row_set, spread in DEFORM_CONV_SETS:
+        for shape in calls:
+            N, h, w, C = shape
+            x = torch.randn(shape, generator=gen, device=dev).relu_().to(torch.bfloat16)
+            off = (torch.randn((N, h, w, 18), generator=gen, device=dev) * spread).to(x.dtype)
+            wt = torch.randn((C, C, 3, 3), generator=gen, device=dev) * (9 * C) ** -0.5
+            share = dc.limit_share(dc.deform_conv(x, off, wt), x, off, wt)
+            P = N * h * w
+            nbytes = 2 * (2 * P * C + 9 * C * C)
+            ops = 9 * P * (10 + 7 * C) + 2 * P * 9 * C * C * FP32_FLOPS / BF16_TENSOR_FLOPS
+            _record(rows, "deform_conv", "eval", list(shape), x.dtype, share, 1.0, 1,
+                    lambda a=(x, off, wt): dc.deform_conv(*a),
+                    lambda a=(x, off, wt): dc.deform_conv_ref(*a), nbytes, ops, FP32_FLOPS,
+                    row_set=row_set, timed=True, offset_std_px=spread,
+                    offset_bytes=2 * P * 18)
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _path_hypotheses(batch, cfg):
     """The four stages' hypotheses as the train and eval paths make them
     from a depth map (the batch's B): stage 1 the full inverse range
@@ -1144,6 +1229,9 @@ def drive_pipeline(dev, counters):
         SyntheticEvalDataset,
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        deform_conv as dc,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
         norm_act as na,
     )
 
@@ -1152,7 +1240,7 @@ def drive_pipeline(dev, counters):
     checks.run_pipeline(model, ds, dev)              # warm-up
     os.makedirs(os.path.dirname(PIPELINE_PLY), exist_ok=True)
     torch.cuda.synchronize()
-    for mod in (*counters.values(), na):
+    for mod in (*counters.values(), na, dc):
         mod.launches = 0
     run = checks.run_pipeline(model, ds, dev, ply_path=PIPELINE_PLY)   # counted
     counts = {name: mod.launches for name, mod in counters.items()}
@@ -1164,6 +1252,10 @@ def drive_pipeline(dev, counters):
     if norm_act_view != checks.norm_act_modules(model, torch.float32):
         raise AssertionError(f"pipeline: norm_act launched {norm_act_view} times a view, want "
                              f"{checks.norm_act_modules(model, torch.float32)}")
+    deform_conv_view = dc.launches / len(ds)
+    if deform_conv_view != 0:
+        raise AssertionError(f"pipeline: deform_conv launched {deform_conv_view} times a view "
+                             "(no DCN heads)")
     n_points = len(run["points"])
     if n_points == 0 or not np.isfinite(run["points"]).all():
         raise AssertionError(f"fused cloud of {n_points} points, or not finite")
@@ -1181,6 +1273,7 @@ def drive_pipeline(dev, counters):
         "ms_per_view_filter": float(np.median(run["filter_s"])) * 1e3,
         "ms_per_view_filter_all": [x * 1e3 for x in run["filter_s"]],
         "launches_per_view": per_view, "norm_act_launches_per_view": norm_act_view,
+        "deform_conv_launches_per_view": deform_conv_view,
         "fused_points": n_points,
         "points_per_view": run["point_counts"],
         "final_mask_share": float(np.mean([m.mean() for m in run["final_masks"].values()])),
@@ -1206,36 +1299,45 @@ def drive_variants(dev, batch, train_batch, counters):
     3. the small float32 checks against the CPU: ``checks.check_forward``
        and ``checks.check_train_step`` with the variant.
 
-    Returns the launches of each kernel summed over the counted forwards
-    and steps."""
+    ``deform_conv`` is counted beside ``counters`` (4 a forward with DCN
+    heads, else 0; 0 a train step). Returns the launches of each kernel
+    summed over the counted forwards and steps, and each variant's counts
+    (``{name: {"eval": ..., "train": ...}}``)."""
     import dataclasses
 
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        deform_conv as dc,
+    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
         make_optimizer,
         make_train_step,
     )
 
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-    totals = {name: 0 for name in counters}
+    mods = {**counters, "deform_conv": dc}
+    totals = {name: 0 for name in mods}
+    per_variant = {}
 
     def counted(fn):
         torch.cuda.synchronize()
-        for mod in counters.values():
+        for mod in mods.values():
             mod.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in counters.items()}
+        counts = {name: mod.launches for name, mod in mods.items()}
         for name, n in counts.items():
             totals[name] += n
         return out, counts
 
     for name, variant in checks.VARIANTS:
         cfg = dataclasses.replace(dtu_model_config(), **variant)
-        want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant)}
+        want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant),
+                "deform_conv": 4 if variant.get("dcn") else 0}
+        want_train = {**TRAIN_LAUNCHES, "deform_conv": 0}
         model = checks.seeded_model(cfg, SEED, dev)
         with torch.inference_mode():
             model(*args)                                       # warm-up
@@ -1259,9 +1361,10 @@ def drive_variants(dev, batch, train_batch, counters):
                                lambda i: 1e-3)
         torch.cuda.reset_peak_memory_stats()
         scalars, train_counts = counted(lambda: step(train_batch))   # the variant's path
-        if train_counts != TRAIN_LAUNCHES:
+        if train_counts != want_train:
             raise AssertionError(f"{name}: launches per train step {train_counts}, "
-                                 f"want {TRAIN_LAUNCHES}")
+                                 f"want {want_train}")
+        per_variant[name] = {"eval": counts, "train": train_counts}
         for pname, p in model.named_parameters():
             if p.grad is None or not torch.isfinite(p.grad).all():
                 raise AssertionError(f"{name} {pname}: gradient missing or not finite")
@@ -1294,7 +1397,7 @@ def drive_variants(dev, batch, train_batch, counters):
                                                                  variant=variant),
             "small_train_step_vs_cpu_float32": checks.check_train_step(dev, variant=variant),
         }}), flush=True)
-    return totals
+    return totals, per_variant
 
 
 def _read_records(path):
@@ -2264,6 +2367,7 @@ def main() -> int:
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch) + check_warp_cor_pipeline(dev) + check_topdown(dev) \
         + check_band_conv(dev) + check_norm_act(dev, batch) + check_attn_fuse_workspace(dev)
+    rows += check_deform_conv(dev, batch)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows
@@ -2361,7 +2465,7 @@ def main() -> int:
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     t0 = time.perf_counter()
     with graphs.eager():
-        variant_counts = drive_variants(dev, batch, train_batch, counters)
+        variant_counts, variant_launches = drive_variants(dev, batch, train_batch, counters)
     print(json.dumps({"variants": {"count": len(checks.VARIANTS),
                                    "wall_s": time.perf_counter() - t0,
                                    "launches": variant_counts}}))
@@ -2493,6 +2597,27 @@ def main() -> int:
                                           if r["kernel"] == "norm_act"),
         "float32_forward": sums["eval_float32"],
         "pipeline_float32_view": sums["pipeline_float32"],
+    })
+    # deform_conv replaces no TPU kernel either: the JAX package's DCN heads
+    # are plain jnp; its plain version (plain_ms) is the route it replaced.
+    # Its eval and train launches are the dcn variant's counted forward and
+    # step (the flagship has no heads; training takes the plain version),
+    # its pipeline view's the counted float32 pipeline's (no heads either)
+    mine = [r for r in rows if r["kernel"] == "deform_conv"]
+    sums = _per_run(mine)
+    kernel_line.append({
+        "name": "deform_conv", "route": "cuda", "source": f"{PKG}/csrc/deform_conv.cu",
+        "replaces": None, "also_serves": [],
+        "launches_eval": variant_launches["dcn"]["eval"]["deform_conv"],
+        "launches_train": variant_launches["dcn"]["train"]["deform_conv"],
+        "launches_pipeline_view": pipeline["deform_conv_launches_per_view"],
+        "launches_variants": variant_counts["deform_conv"],
+        "timed_per": "eval forward of the DCN model",
+        "max_share_of_limit": max(r["max_abs_diff"] for r in mine),
+        **{k: sums["eval"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "bytes", "library_ms", "library_device_ms")},
+        "offset_bytes": sum(r["offset_bytes"] for r in mine if r["set"] == "eval"),
+        "offsets_4px": sums["eval_offsets_4px"],
     })
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {

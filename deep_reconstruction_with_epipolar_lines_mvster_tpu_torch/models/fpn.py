@@ -11,7 +11,8 @@ Counterpart of the JAX package's ``models/fpn.py``:
   then the same top-down pathway;
 - with ``dcn``, each output passes a norm + ReLU + deformable conv head
   (``NADCN``, reference ``NA_DCN``, ``:410-424``; ``DeformConv2d`` is DCN
-  v1 in plain PyTorch, the JAX package's formulation);
+  v1, the JAX package's formulation, in eval on the card one kernel a head,
+  ``ops/kernels/deform_conv.py``);
 - ``ASFF`` (reference ``:730-812``): per stage, a learned softmax blend of
   all four pyramid levels.
 
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.geometry import grid_sample_2d, upsample_nearest_2x
+from ..core.geometry import upsample_nearest_2x
+from ..ops.kernels import deform_conv
 from ..ops.topdown_chain import topdown_chain
 from ..utils import trace
 from .layers import (
@@ -52,28 +54,24 @@ class DeformConv2d(ConvWeight):
     ``DeformConvPack``): ``conv_offset``, a 3x3 conv that starts at zero,
     gives each tap a ``(dy, dx)`` displacement (taps row-major); each tap
     is sampled bilinearly at its displaced pixel coordinate, zeros outside
-    the image (``core.geometry.grid_sample_2d``, differentiable in the
-    coordinates), and the nine samples contract against ``weight [O, I, 3,
-    3]``."""
+    the image, and the nine samples contract against ``weight [O, I, 3,
+    3]``. Where ``deform_conv.route`` takes it (eval with no autograd
+    recording, on the card, bf16, C 8, 16, 32 or 64) the sampling and the
+    contraction are one kernel (``ops/kernels/deform_conv.py``); elsewhere
+    the plain version ``deform_conv_ref`` (``core.geometry.grid_sample_2d``,
+    differentiable in the coordinates)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__((cout, cin, 3, 3))
         self.conv_offset = ConvWeight((18, cin, 3, 3), bias=True, zero=True)
 
     def forward(self, x):
-        N, H, W, C = x.shape
         off = conv2d_nhwc(x, self.conv_offset.weight, self.conv_offset.bias, padding=1)
-        gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=x.device),
-                                torch.arange(W, dtype=torch.float32, device=x.device),
-                                indexing="ij")
-        taps = []
-        for t in range(9):
-            dy, dx = t // 3 - 1, t % 3 - 1
-            px = gx + dx + off[..., 2 * t + 1].float()
-            py = gy + dy + off[..., 2 * t].float()
-            taps.append(grid_sample_2d(x, torch.stack([px, py], dim=-1)))
-        w = self.weight.permute(2, 3, 1, 0).reshape(9 * C, -1)   # rows (ky, kx, i)
-        return torch.cat(taps, dim=-1) @ w.to(x.dtype)
+        train = self.training or (torch.is_grad_enabled()
+                                  and any(t.requires_grad for t in (x, off, self.weight)))
+        if deform_conv.route(x.device.type, x.dtype, x.shape[-1], train):
+            return deform_conv.deform_conv(x.contiguous(), off.contiguous(), self.weight)
+        return deform_conv.deform_conv_ref(x, off, self.weight)
 
 
 class NADCN(nn.Module):

@@ -34,8 +34,10 @@ NVCC_FLAGS = (
 # the port's kernels, one ``csrc/<name>.cu`` each: K1 warp + group
 # correlation, K2 top-down level, K3 warp backward, K4 warp forward, K5
 # attention accumulation, K6 conv + folded BatchNorm + ReLU; norm_act the
-# eval BatchNorm + ReLU after a library convolution
-KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv", "norm_act")
+# eval BatchNorm + ReLU after a library convolution; deform_conv a DCN head's
+# taps and their contraction
+KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv", "norm_act",
+           "deform_conv")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

@@ -41,6 +41,9 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import
     band_conv as k6,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    deform_conv as dc,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     norm_act as na,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -1445,10 +1448,11 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     batch against the plain reference with DCN heads
     (``benchmark/reference/mvster_dcn.py``, float32, TF32 off) within the
     cell's limits. The first call launches K1 12, K2 3, K5 4 times, K6 as
-    its bf16 route rule gives and ``norm_act`` once a library-route
-    BatchNorm (the four heads' included), each twice (warm-up and
-    capture), and opens the ``dcn`` span twice a head; the replay launches
-    and opens nothing, and gives the same maps."""
+    its bf16 route rule gives, ``norm_act`` once a library-route
+    BatchNorm (the four heads' included) and ``deform_conv`` once a head
+    (in ``launches`` and the recorder's ``deform_conv.launches``), each
+    twice (warm-up and capture), and opens the ``dcn`` span twice a head;
+    the replay launches and opens nothing, and gives the same maps."""
     from types import SimpleNamespace
 
     from benchmark import compare, harness, program
@@ -1468,11 +1472,13 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     batch = program.scenes(ctx, mix["batch"], mix["views"])
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     forward = make_eval_forward(model)
-    kernels = (k1, k2, k5, k6, na)
+    kernels = (k1, k2, k5, k6, na, dc)
 
     def counts():
+        snap = trace.snapshot()
         return [k.launches for k in kernels] + [
-            trace.snapshot()["spans"].get("dcn", {}).get("count", 0)]
+            snap["counters"].get("deform_conv.launches", 0),
+            snap["spans"].get("dcn", {}).get("count", 0)]
 
     before = counts()
     first = forward(*args)
@@ -1482,7 +1488,7 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(before, mid)] == [
         24, 6, 8, 2 * _k6_per_forward(torch.bfloat16),
-        2 * checks.norm_act_modules(model, torch.bfloat16), 8]
+        2 * checks.norm_act_modules(model, torch.bfloat16), 8, 8, 8]
     assert counts() == mid
     assert all(torch.equal(a, b) for a, b in zip(first["stage_depths"], again["stage_depths"]))
     with driver._dcn_reference():
@@ -1492,3 +1498,185 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     numbers = gap.numbers()
     assert gap.bad_maps == 0
     assert all(numbers[k] <= limit for k, limit in spec["limits"].items()), numbers
+
+
+def _dcn_inputs(N, H, W, C, kind, gen):
+    """A DCN head's inputs on the CPU: x (a ReLU's output, bf16), offsets
+    of ``kind`` (bf16) and a weight at fan-in scale (float32). Offsets:
+    ``zero``; ``subpixel`` (std 0.3 px); ``4px`` (uniform in +-4 px);
+    ``outside`` (whole pixels, half of them moving the tap 1 to 3 image
+    sizes away, the rest within +-2 px: integer coordinates on and beyond
+    every border); ``nonfinite`` (sub-pixel, a third of them NaN, +inf,
+    -inf or +-1e30)."""
+    x = torch.randn((N, H, W, C), generator=gen).relu_().to(torch.bfloat16)
+    shape = (N, H, W, 18)
+    if kind == "zero":
+        off = torch.zeros(shape)
+    elif kind == "subpixel":
+        off = torch.randn(shape, generator=gen) * 0.3
+    elif kind == "4px":
+        off = torch.rand(shape, generator=gen) * 8 - 4
+    elif kind == "outside":
+        far = torch.randint(1, 4, shape, generator=gen) * max(H, W)
+        sign = torch.randint(0, 2, shape, generator=gen) * 2 - 1
+        near = torch.randint(-2, 3, shape, generator=gen)
+        off = torch.where(torch.rand(shape, generator=gen) < 0.5, far * sign, near).float()
+    else:
+        off = torch.randn(shape, generator=gen) * 0.3
+        bad = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30])
+        pick = torch.randint(0, len(bad), shape, generator=gen)
+        off = torch.where(torch.rand(shape, generator=gen) < 0.33, bad[pick], off)
+    weight = torch.randn((C, C, 3, 3), generator=gen) * (9 * C) ** -0.5
+    return x, off.to(torch.bfloat16), weight
+
+
+def _dcn_gap_share(got, x, off, weight):
+    """``deform_conv.limit_share`` of a finite bf16 output of x's shape."""
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.isfinite(got).all()
+    return dc.limit_share(got, x, off, weight)
+
+
+@pytest.mark.parametrize("kind", ["zero", "subpixel", "4px", "outside", "nonfinite"])
+@pytest.mark.parametrize("N,H,W,C", [(2, 37, 53, 8), (2, 37, 53, 16), (2, 37, 53, 32),
+                                     (2, 37, 53, 64), (3, 1, 5, 8), (1, 16, 16, 64)])
+def test_deform_conv_kernel_matches_plain(dev, kind, N, H, W, C):
+    """``deform_conv`` against its plain version computed in float32 (the
+    same bf16 weight) within ``deform_conv.limit`` at every output: C 8,
+    16, 32 and 64 at a ragged 37x53 (a last tile cut, tiles across
+    images), a 1x5 image and one tile's worth of pixels, at offsets that
+    are zero, sub-pixel, +-4 px, whole pixels on and beyond the borders,
+    and non-finite; each call one launch, counted."""
+    gen = torch.Generator().manual_seed(N * 1000 + C + len(kind))
+    x, off, weight = (t.to(dev) for t in _dcn_inputs(N, H, W, C, kind, gen))
+    before = dc.launches
+    got = dc.deform_conv(x, off, weight)
+    torch.cuda.synchronize()
+    assert dc.launches == before + 1
+    assert _dcn_gap_share(got, x, off, weight) <= 1.0
+
+
+def test_deform_conv_kernel_matches_plain_at_each_head_of_the_cell(dev):
+    """Each head of ``mvster_dcn_bf16``'s eval forward at its cell's size
+    (B4 V4 512x640: C 64, 32, 16, 8 at 1/8 to full resolution), on the
+    inputs and offsets the model's forward gives it (seeded weights and
+    batch, ``benchmark/program.py``), within ``deform_conv.limit`` of the
+    plain version in float32; then at the same shapes with offsets of 4 px
+    std (a trained head's pixels, not the fraction of a pixel the seeded
+    heads give)."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from benchmark import harness, program
+    config = harness.load_json(harness.find("configs", "mvster_dcn_bf16"))
+    mix = harness.load_json(harness.find("traffic", "dtu_eval_b4v4"))
+    ctx = SimpleNamespace(seed=2 ** 31 + 7, device=dev, traffic=mix)
+    model, _ = program.build_model(config, ctx.seed, dev)
+    batch = program.scenes(ctx, mix["batch"], mix["views"])
+    calls, real = [], dc.deform_conv
+
+    def record(x, off, weight):
+        out = real(x, off, weight)
+        calls.append((x.clone(), off.clone(), weight.detach().clone(), out.clone()))
+        return out
+
+    with mock.patch.object(dc, "deform_conv", record), torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    assert [tuple(c[0].shape) for c in calls] == [
+        (16, 512 >> (3 - i), 640 >> (3 - i), 64 >> i) for i in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for x, off, weight, got in calls:
+        assert _dcn_gap_share(got, x, off, weight) <= 1.0, tuple(x.shape)
+        wide = (torch.randn(off.shape, generator=gen, device=dev) * 4).to(torch.bfloat16)
+        got = dc.deform_conv(x, wide, weight)
+        assert _dcn_gap_share(got, x, wide, weight) <= 1.0, tuple(x.shape)
+
+
+def test_deform_conv_launches_at_each_eval_head_and_none_in_training(dev):
+    """One eager eval forward of the DCN model in bf16 launches the kernel
+    once a head (``launches`` and the recorder's ``deform_conv.launches``);
+    a train-mode forward (autograd recording), an eval forward in float32
+    and one at FPN base 4 (a C-4 head takes the plain version, the other
+    three the kernel) launch it at no other head."""
+    import dataclasses
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
+
+    def launched(cfg, train=False, **size):
+        model = checks.seeded_model(cfg, 3, dev)
+        model.train(train)
+        batch = graft_entry.example_batch(device=dev, **size)
+        before = (dc.launches, trace.snapshot()["counters"].get("deform_conv.launches", 0))
+        with torch.inference_mode(not train):
+            model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        torch.cuda.synchronize()
+        return (dc.launches - before[0],
+                trace.snapshot()["counters"].get("deform_conv.launches", 0) - before[1])
+
+    size = {"B": 1, "V": 3, "H": 128, "W": 192}
+    bf16 = dataclasses.replace(graft_entry.dtu_model_config("bfloat16"), dcn=True)
+    assert launched(bf16, **size) == (4, 4)
+    assert launched(bf16, train=True, **size) == (0, 0)
+    assert launched(dataclasses.replace(bf16, dtype="float32"), **size) == (0, 0)
+    assert launched(dataclasses.replace(bf16, fpn_base_channel=4, group_cor_dim=(8, 8, 4, 2)),
+                    **size) == (3, 3)
+
+
+def test_deform_conv_reads_the_live_weight_under_graph_replay(dev):
+    """A captured graph of ``deform_conv`` replayed after the weight changes
+    in place gives the new contraction: the kernel packs the weight at
+    every launch, so nothing goes stale."""
+    gen = torch.Generator().manual_seed(31)
+    x, off, weight = (t.to(dev) for t in _dcn_inputs(2, 24, 40, 16, "4px", gen))
+    dc.deform_conv(x, off, weight)                                 # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dc.deform_conv(x, off, weight)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    assert torch.equal(first, dc.deform_conv(x, off, weight))
+    with torch.no_grad():
+        weight.mul_(-0.5).add_(0.01)
+    graph.replay()
+    torch.cuda.synchronize()
+    second = dc.deform_conv(x, off, weight)
+    assert not torch.equal(first, second)
+    assert torch.equal(out, second)
+
+
+def test_deform_conv_refuses_what_it_does_not_take(dev):
+    """No fallback on the card: ``deform_conv`` raises on a float32 or
+    float16 input, a C outside ``CHANNELS`` (4, 24, 128), a non-contiguous
+    or misaligned x, offsets of another shape or dtype, a weight that is
+    not float32 or not C x C x 3 x 3, and under autograd."""
+    def args(C=8, dtype=torch.bfloat16, H=6, W=7):
+        return (torch.zeros((1, H, W, C), device=dev, dtype=dtype),
+                torch.zeros((1, H, W, 18), device=dev, dtype=dtype),
+                torch.zeros((C, C, 3, 3), device=dev))
+
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(ValueError, match="not supported"):
+            dc.deform_conv(*args(dtype=dtype))
+    for C in (4, 24, 128):
+        with pytest.raises(ValueError, match="not supported"):
+            dc.deform_conv(*args(C))
+    x, off, w = args(H=7)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.deform_conv(x.transpose(1, 2), off, w)
+    flat = torch.zeros(7 * 7 * 8 + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        dc.deform_conv(flat[1:].view(1, 7, 7, 8), off, w)
+    with pytest.raises(ValueError, match="shapes"):
+        dc.deform_conv(x, off[..., :16], w)
+    with pytest.raises(ValueError, match="not supported"):
+        dc.deform_conv(x, off.float(), w)
+    with pytest.raises(ValueError, match="float32"):
+        dc.deform_conv(x, off, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shapes"):
+        dc.deform_conv(x, off, torch.zeros((8, 8, 1, 1), device=dev))
+    with pytest.raises(RuntimeError, match="autograd"):
+        dc.deform_conv(x, off, w.requires_grad_())
