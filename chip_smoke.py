@@ -46,8 +46,8 @@
 3. Drives the flagship eval forward (the JAX package's ``_dtu_model()``
    config: FPN, reg2d, group correlation (8,8,4,4), inverse depth,
    attn_temp 2, bf16, mono) at B=4, V=4, 512x640 with seeded random weights
-   and BatchNorm statistics on plane-scene inputs: the launch counters are
-   set to 0 just before one forward and read just after (K1 12 launches,
+   and BatchNorm statistics on plane-scene inputs: the launches of one
+   forward are counted (K1 12 launches,
    K2 3, K5 4, K6 12: every 3x3 stride-1 layer on its bf16 route;
    ``norm_act`` 39: every other eval BatchNorm, ``checks.
    norm_act_modules``), then three rounds of five forwards are timed.
@@ -66,17 +66,16 @@
    card are held to fixed limits; then the same at FPN base 4
    (``small_train_step_other_width``).
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
-   Adam lr 1e-3 wd 1e-4) on plane scenes: the counters are set to 0 just
-   before one step and read just after (K4 16, K3 16, K2 6, K6 0,
-   ``norm_act`` 0), then a
+   Adam lr 1e-3 wd 1e-4) on plane scenes: the launches of one step are
+   counted (K4 16, K3 16, K2 6, K6 0, ``norm_act`` 0), then a
    warm-up step and three rounds of three timed steps, and a profile of one
    step.
 8. Drives the eval pipeline of the eval CLI at full width
    (``checks.run_pipeline``: the scripts/eval_dtu.sh model in float32, B=1,
    a 4-view 512x640 plane scene with 192 hypotheses): the depth maps of
    every reference view, each view filtered against its 3 sources, the
-   fused PLY written under ``chiprun_out/``; the counters are set to 0 just
-   before the run and read just after (per view K1 12, K2 3, K5 4, K6 10:
+   fused PLY written to ``PIPELINE_PLY``; the launches of the run are
+   counted (per view K1 12, K2 3, K5 4, K6 10:
    its float32 route stops at 32 channels; ``norm_act`` 41;
    ``deform_conv`` 0),
    and a profile of one more run. Then the same pipeline at 64x128 on the
@@ -87,22 +86,23 @@
    synthetic 512x640 scenes of 5 views, B=6, logdir ``chiprun_out/
    train_cli``: one epoch (2 steps, 2 validation batches, ``model_00.ckpt``),
    ``--resume --epochs 2`` (continues at epoch 2, step 2), ``--mode test``
-   and ``--mode profile`` (a Chrome trace); the counters are set to 0 before
-   each part and read after it. The CLI's steps are captured graphs: each
+   and ``--mode profile`` (a Chrome trace); the launches of each part are
+   counted. The CLI's steps are captured graphs: each
    part's first train step and first validation batch launch every kernel
    twice (the warm-up's and the capture's launches), the later ones replay
    (per captured train step K4 16, K3 16, K2 6, K6 0; per validation batch
-   K1 16, K2 3, K5 4, K6 12).
+   K1 16, K2 3, K5 4, K6 12, ``norm_act`` 39).
 10. Drives every model variant (``checks.VARIANTS``: the flagship with one
    change, pos-enc sine and learned, reg3d, the CAM/DCAM/PAM/PDAM mid
    blocks, GroupNorm, ASFF, the two ConvNeXt pyramids, DCN heads with
    BatchNorm and with GroupNorm; ``drive_variants``): per variant, the
-   counters set to 0 just before one B4 V4 512x640 bf16 eval forward and
-   read just after, held to its launches (K1 12, K2 3, K5 4, K6 from the
-   route rule over its layers, ``_k6_launches``; ``deform_conv`` 4 with
-   DCN heads, else 0), three rounds of five
+   launches of one B4 V4 512x640 bf16 eval forward counted and held to its
+   own (K1 12, K2 3, K5 4, K6 from the route rule over its layers,
+   ``_k6_launches``; ``norm_act`` its ``checks.norm_act_modules``;
+   ``deform_conv`` 4 with DCN heads, else 0), three rounds of five
    timed forwards and one profiled; the same around one DTU train step
-   (K4 16, K3 16, K2 6, K6 0, ``deform_conv`` 0) and three timed steps; then the small
+   (K4 16, K3 16, K2 6, K6, ``norm_act`` and ``deform_conv`` 0) and
+   three timed steps; then the small
    float32 forward and train step against the CPU. K6's rows also hold
    ASFF's ``expand`` convs (sets ``asff_eval``, ``asff_eval_float32``).
 11. The row-sharded ``--space`` eval (``drive_space``), on this one card
@@ -110,11 +110,11 @@
    decomposition, not multi-card speed): the B4 V4 512x640 flagship in
    float32 and bf16 at S 2 and 4, and a Tanks&Temples-sized B1 V5
    1024x1920 bf16 view at S 4, halo 48; each eager and captured (one CUDA
-   graph per rank per round, replayed) beside each other: the counters
-   set to 0 just before one sharded forward and read just after (eager S
-   times the unsharded forward's; the captured form's first call 2S
-   times, a replay none), every stage held to the unsharded forward
-   (``checks.compare_space``), timed, profiled, peak memory; the replay
+   graph per rank per round, replayed) beside each other: the launches of
+   one sharded forward counted (eager S times the unsharded forward's;
+   the captured form's first call 2S times, a replay none), every stage
+   held to the unsharded forward (``checks.compare_space``), timed,
+   profiled, peak memory; the replay
    held to the eager form (``checks.check_graph_space``); K1, K5 and K6 at
    every window shape against their plain versions (sets
    ``space_<run>_S<S>_<dtype>``).
@@ -125,13 +125,14 @@
    against eager runs of its form, ``gspmd`` with a one-rank group, and
    against the bare step); each form eager and captured beside each other
    (ms a step, busy share, peak memory, the NCCL kernels of one profiled
-   step); the counters around each part; then ``torchrun --standalone
+   step); the launches of each part counted; then ``torchrun --standalone
    --nproc_per_node 1`` running the train CLI for one epoch, its steps
    captured.
 13. The debug dumps (``drive_debug``): the eval CLI with ``--debug_model
    255`` on a 4-view 512x640 scene, on the card (counted: the captured
-   forward's warm-up and capture, the dump's eager forward, and K4 for bits
-   5 and 6) and with ``--device cpu``, the dumps compared
+   forward's warm-up and capture, the dump's eager forward, ``norm_act``
+   at each BatchNorm that bit 0 recomputes, and K4 for bits 5 and 6) and
+   with ``--device cpu``, the dumps compared
    (``checks.compare_debug_dumps``).
 14. The port's drivers (``drive_drivers``), each as a user runs it: the
    eval bench (``python -m <port>.bench`` at its pinned B4 V4 512x640,
@@ -156,11 +157,14 @@
 
 Phases 7, 8 and 10 read the eager forms (``utils/graphs.eager``): the
 readings that phase 15 holds the captured forms against; phases 11 and
-12 read their mesh paths both ways. Launch counters
-count the launches the wrappers make: a captured function's first call
-with a new input signature launches every kernel twice (its eager warm-up
-and its capture), and a replay launches none; the ``kernels`` line's
-``launches_graphs`` are phase 15's counted first calls.
+12 read their mesh paths both ways. Every phase counts the launches of
+all eight kernels (``ops/_build.KERNELS``) the same way (``_counted``:
+``_build.launch_counts()`` before and after) and holds them to the same
+tables (``EVAL_LAUNCHES``, ``TRAIN_LAUNCHES``, ``PIPELINE_LAUNCHES_PER_VIEW``,
+``VAL_LAUNCHES``): a captured function's first call with a new input
+signature launches every kernel twice (its eager warm-up and its capture),
+and a replay launches none; the ``kernels`` line's ``launches_graphs`` are
+phase 15's counted first calls.
 
 Lines before the last: the card's name and power limit (``nvidia-smi``),
 the build, a ``kernel_shapes`` line, a ``profile`` line (device time of
@@ -197,19 +201,21 @@ FP32_FLOPS = 67e12
 B, V, H, W = 4, 4, 512, 640
 TRAIN_B, TRAIN_V = 6, 5             # the DTU recipe (scripts/train_dtu.sh)
 SEED = 0
-# launches of each kernel on each path: an eval forward (B4 V4), a train
-# step (B6 V5), one reference view of the eval pipeline (V4) and one
-# validation batch of the train CLI (B6 V5)
-# (K6's launches follow its route rule, models/layers.band_conv_route:
-# main() fills them in from _k6_launches)
+# launches of each kernel of ops/_build.KERNELS on each path: an eval
+# forward (B4 V4), a train step (B6 V5), one reference view of the eval
+# pipeline (V4) and one validation batch of the train CLI (B6 V5). K6's
+# follow its route rule (models/layers.band_conv_route, _k6_launches) and
+# norm_act's the eval BatchNorms off that route (checks.norm_act_modules,
+# _norm_act_launches): main() fills them in. No flagship path has DCN heads.
 EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                 "band_conv": None}
+                 "band_conv": None, "norm_act": None, "deform_conv": 0}
 TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0,
-                  "band_conv": 0}
+                  "band_conv": 0, "norm_act": 0, "deform_conv": 0}
 PIPELINE_LAUNCHES_PER_VIEW = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0,
-                              "attn_fuse": 4, "band_conv": None}
+                              "attn_fuse": 4, "band_conv": None, "norm_act": None,
+                              "deform_conv": 0}
 VAL_LAUNCHES = {"warp_cor": 16, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                "band_conv": None}
+                "band_conv": None, "norm_act": None, "deform_conv": 0}
 PIPELINE_V = 4
 # the weight seed of the pipeline phase: with random weights the fused cloud's
 # size depends on the draw, and some seeds give an empty cloud; seed 4 gives
@@ -298,6 +304,37 @@ def _k6_launches(dtype, variant=None) -> int:
 
     return sum(n for _, _, _, _, ci, co, n in _variant_k6_layers(B, variant or {})
                if band_conv_route(ci, co, dtype))
+
+
+def _norm_act_launches(cfg) -> int:
+    """``norm_act``'s launches per eval forward of a model of ``cfg`` in its
+    dtype: its eval BatchNorms off K6's route (``checks.norm_act_modules``)."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+
+    return checks.norm_act_modules(MVS4Net(cfg, device="cpu"), cfg.torch_dtype)
+
+
+def _counted(fn):
+    """``fn()`` and ``{kernel: launches}`` of the launches it made, for every
+    kernel of ``ops/_build.KERNELS``: the difference of ``_build.
+    launch_counts()`` after and before, the device synchronised around."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    return out, {name: after[name] - before[name] for name in after}
+
+
+def _add(totals, counts):
+    """Add ``counts`` to ``totals`` (both ``{kernel: launches}``)."""
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
 
 
 def _time_ms(fn, reps):
@@ -1083,22 +1120,25 @@ def check_warp_fwd(dev, batch, base=8, sets=(("train", "train"), ("full_range", 
 
 def profile_run(fn):
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``:
-    the total, the device's busy share of the call's wall time, the share
-    of each of the port's kernels and of the convolution library (cuDNN's
-    and CUTLASS's convolutions and GEMMs: ``share_conv_library``), sorted
-    by ``tools/trace_table.py:category``, the count of NCCL kernels, and
-    the ten largest kernels."""
+    the total, the device's busy share of the call (the union of its device
+    intervals over the call's range on the profiler's clock, as
+    ``benchmark/harness.py`` reads a stretch: at most 1 where streams
+    overlap), the share of each of the port's kernels and of the
+    convolution library (cuDNN's and CUTLASS's convolutions and GEMMs:
+    ``share_conv_library``), sorted by ``tools/trace_table.py:category``,
+    the count of NCCL kernels, and the ten largest kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.tools import trace_table
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with record_function("chip_smoke.profile_run"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
@@ -1107,13 +1147,26 @@ def profile_run(fn):
     ]
     cats = trace_table.by_category((k, ms) for k, ms, _ in kernels)
     total = sum(cats.values())
+    events = prof.events()
+    run = next(e.time_range for e in events if e.name == "chip_smoke.profile_run"
+               and e.device_type == torch.autograd.DeviceType.CPU)
+    merged = []
+    for a, b in sorted((max(e.time_range.start, run.start), min(e.time_range.end, run.end))
+                       for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not e.name.startswith(("chip_smoke.", "mvster."))):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        elif b > a:
+            merged.append([a, b])
+    busy_ms = sum(b - a for a, b in merged) / 1e3
 
     def share(*labels):
         return sum(cats[c] for c in labels) / total if total else 0.0
 
     return {
-        "device_ms": total, "wall_ms": wall_ms,
-        "device_busy_share": total / wall_ms if wall_ms else 0.0,
+        "device_ms": total, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms * 1e3 / (run.end - run.start) if run.end > run.start else 0.0,
         "nccl_kernels": sum(n for k, _, n in kernels if "nccl" in k.lower()),
         **{f"share_{name}": share(label) for name, label in trace_table.PORT_KERNELS.items()},
         "share_conv_library": share("conv_library", "gemm"),
@@ -1130,9 +1183,6 @@ def check_chain_backward(dev):
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        topdown as k2,
-    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     out = {}
@@ -1140,26 +1190,22 @@ def check_chain_backward(dev):
         leaves, grads = checks.chain_inputs(TRAIN_B * TRAIN_V, H >> 3, W >> 3, dtype, dev, gen)
         entry = checks.check_chain_backward(leaves, grads)
         if dtype == torch.bfloat16:
-            before = k2.launches
-            entry["function_fwd_bwd_ms"] = _time_ms(
-                lambda: checks.chain_function_grads(leaves, grads), 3)
-            entry["k2_launches_per_fwd_bwd"] = (k2.launches - before) // 4
+            entry["function_fwd_bwd_ms"], counts = _counted(
+                lambda: _time_ms(lambda: checks.chain_function_grads(leaves, grads), 3))
+            entry["k2_launches_per_fwd_bwd"] = counts["topdown"] // 4
             entry["plain_fwd_bwd_ms"] = _time_ms(
                 lambda: checks.chain_plain_grads(leaves, grads), 3)
         out[str(dtype).replace("torch.", "")] = entry
     return out
 
 
-def drive_train(dev, batch, counters):
+def drive_train(dev, batch):
     """The DTU train recipe at full width: counted step, warm-up, three
     rounds of three timed steps, a profile of one step."""
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        norm_act as na,
-    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
         make_optimizer,
         make_train_step,
@@ -1171,15 +1217,10 @@ def drive_train(dev, batch, counters):
                            lambda i: 1e-3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (*counters.values(), na):
-        mod.launches = 0
-    losses = [step(batch)["loss"].item()]            # the main path, counted
-    counts = {name: mod.launches for name, mod in counters.items()}
+    loss, counts = _counted(lambda: step(batch)["loss"].item())     # the main path, counted
     if counts != TRAIN_LAUNCHES:
         raise AssertionError(f"launches per train step {counts}, want {TRAIN_LAUNCHES}")
-    norm_act_step = na.launches
-    if norm_act_step != 0:
-        raise AssertionError(f"norm_act launched {norm_act_step} times in a train step")
+    losses = [loss]
     for name, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise AssertionError(f"{name}: gradient missing or not finite")
@@ -1206,14 +1247,14 @@ def drive_train(dev, batch, counters):
         "B": TRAIN_B, "V": TRAIN_V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_step": ms, "ms_per_step_rounds": round_ms, "samples_per_s": TRAIN_B * 1e3 / ms,
         "loss_per_step": losses, "launches_per_step": counts,
-        "norm_act_launches_per_step": norm_act_step,
+        "norm_act_launches_per_step": counts["norm_act"],
         "timed_steps": reps * rounds,
         "peak_memory_gb": peak_gb,
     }
     return train, prof, counts
 
 
-def drive_pipeline(dev, counters):
+def drive_pipeline(dev):
     """The eval CLI's path at full width (``checks.run_pipeline``): the
     scripts/eval_dtu.sh model in float32 (weights and BatchNorm statistics
     from ``PIPELINE_SEED``), B=1, a SyntheticEvalDataset of 4 views at
@@ -1222,40 +1263,21 @@ def drive_pipeline(dev, counters):
     0.01), the fused PLY written to ``PIPELINE_PLY``. One warm-up run, then the counted run.
     Then the same pipeline at 64x128 on the card against the CPU."""
     import numpy as np
-    import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic import (
         SyntheticEvalDataset,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        deform_conv as dc,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        norm_act as na,
     )
 
     model = checks.seeded_model(checks.eval_dtu_config(), PIPELINE_SEED, dev)
     ds = SyntheticEvalDataset(V=PIPELINE_V, H=H, W=W)
     checks.run_pipeline(model, ds, dev)              # warm-up
     os.makedirs(os.path.dirname(PIPELINE_PLY), exist_ok=True)
-    torch.cuda.synchronize()
-    for mod in (*counters.values(), na, dc):
-        mod.launches = 0
-    run = checks.run_pipeline(model, ds, dev, ply_path=PIPELINE_PLY)   # counted
-    counts = {name: mod.launches for name, mod in counters.items()}
+    run, counts = _counted(lambda: checks.run_pipeline(model, ds, dev, ply_path=PIPELINE_PLY))
     per_view = {name: n / len(ds) for name, n in counts.items()}
     if per_view != PIPELINE_LAUNCHES_PER_VIEW:
         raise AssertionError(f"pipeline launches per view {per_view}, "
                              f"want {PIPELINE_LAUNCHES_PER_VIEW}")
-    norm_act_view = na.launches / len(ds)
-    if norm_act_view != checks.norm_act_modules(model, torch.float32):
-        raise AssertionError(f"pipeline: norm_act launched {norm_act_view} times a view, want "
-                             f"{checks.norm_act_modules(model, torch.float32)}")
-    deform_conv_view = dc.launches / len(ds)
-    if deform_conv_view != 0:
-        raise AssertionError(f"pipeline: deform_conv launched {deform_conv_view} times a view "
-                             "(no DCN heads)")
     n_points = len(run["points"])
     if n_points == 0 or not np.isfinite(run["points"]).all():
         raise AssertionError(f"fused cloud of {n_points} points, or not finite")
@@ -1272,8 +1294,8 @@ def drive_pipeline(dev, counters):
         "ms_per_view_forward_all": [x * 1e3 for x in run["forward_s"]],
         "ms_per_view_filter": float(np.median(run["filter_s"])) * 1e3,
         "ms_per_view_filter_all": [x * 1e3 for x in run["filter_s"]],
-        "launches_per_view": per_view, "norm_act_launches_per_view": norm_act_view,
-        "deform_conv_launches_per_view": deform_conv_view,
+        "launches_per_view": per_view, "norm_act_launches_per_view": per_view["norm_act"],
+        "deform_conv_launches_per_view": per_view["deform_conv"],
         "fused_points": n_points,
         "points_per_view": run["point_counts"],
         "final_mask_share": float(np.mean([m.mean() for m in run["final_masks"].values()])),
@@ -1282,63 +1304,52 @@ def drive_pipeline(dev, counters):
     }, counts
 
 
-def drive_variants(dev, batch, train_batch, counters):
+def drive_variants(dev, batch, train_batch):
     """Every model variant of ``checks.VARIANTS`` (the flagship with one
     change) on the card, one JSON line each:
 
     1. the eval forward at B4 V4 512x640 bf16 (weights and BatchNorm
-       statistics from ``checks.seeded_model``): the counters set to 0 just
-       before one forward and read just after, held to the variant's
-       launches (K1 12, K2 3, K5 4, K6 by ``_k6_launches``); finite depth of
+       statistics from ``checks.seeded_model``): the launches of one
+       forward counted, held to the variant's (K1 12, K2 3, K5 4, K6 by
+       ``_k6_launches``, ``norm_act`` by ``checks.norm_act_modules``,
+       ``deform_conv`` 4 with DCN heads, else 0); finite depth of
        the expected shape; three rounds of five timed forwards, the peak
        memory, and the device time of one forward by ``profile_run``;
     2. the DTU train step (B6 V5 512x640 bf16, recipe loss, Adam): the
-       counters around one step, held to ``TRAIN_LAUNCHES``; a finite,
+       launches of one step, held to ``TRAIN_LAUNCHES``; a finite,
        present gradient on every parameter; a warm-up step and three timed
        steps, the peak memory;
     3. the small float32 checks against the CPU: ``checks.check_forward``
        and ``checks.check_train_step`` with the variant.
 
-    ``deform_conv`` is counted beside ``counters`` (4 a forward with DCN
-    heads, else 0; 0 a train step). Returns the launches of each kernel
-    summed over the counted forwards and steps, and each variant's counts
-    (``{name: {"eval": ..., "train": ...}}``)."""
+    Returns the launches of each kernel summed over the counted forwards
+    and steps, and each variant's counts (``{name: {"eval": ...,
+    "train": ...}}``)."""
     import dataclasses
 
     import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        deform_conv as dc,
-    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
         make_optimizer,
         make_train_step,
     )
 
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-    mods = {**counters, "deform_conv": dc}
-    totals = {name: 0 for name in mods}
-    per_variant = {}
+    totals, per_variant = {}, {}
 
     def counted(fn):
-        torch.cuda.synchronize()
-        for mod in mods.values():
-            mod.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in mods.items()}
-        for name, n in counts.items():
-            totals[name] += n
+        out, counts = _counted(fn)
+        _add(totals, counts)
         return out, counts
 
     for name, variant in checks.VARIANTS:
         cfg = dataclasses.replace(dtu_model_config(), **variant)
-        want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant),
-                "deform_conv": 4 if variant.get("dcn") else 0}
-        want_train = {**TRAIN_LAUNCHES, "deform_conv": 0}
         model = checks.seeded_model(cfg, SEED, dev)
+        want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant),
+                "norm_act": checks.norm_act_modules(model, torch.bfloat16),
+                "deform_conv": 4 if variant.get("dcn") else 0}
         with torch.inference_mode():
             model(*args)                                       # warm-up
             out, counts = counted(lambda: model(*args))        # the variant's path
@@ -1361,9 +1372,9 @@ def drive_variants(dev, batch, train_batch, counters):
                                lambda i: 1e-3)
         torch.cuda.reset_peak_memory_stats()
         scalars, train_counts = counted(lambda: step(train_batch))   # the variant's path
-        if train_counts != want_train:
+        if train_counts != TRAIN_LAUNCHES:
             raise AssertionError(f"{name}: launches per train step {train_counts}, "
-                                 f"want {want_train}")
+                                 f"want {TRAIN_LAUNCHES}")
         per_variant[name] = {"eval": counts, "train": train_counts}
         for pname, p in model.named_parameters():
             if p.grad is None or not torch.isfinite(p.grad).all():
@@ -1405,13 +1416,13 @@ def _read_records(path):
         return [json.loads(line) for line in f]
 
 
-def drive_train_cli(counters):
+def drive_train_cli():
     """The train CLI in this process at full width (``TRAIN_CLI_FLAGS``): one
     epoch (2 steps, 2 validation batches); ``--resume --epochs 2``, which
     must continue at epoch 2 and step 2; ``--mode test``; ``--mode
-    profile``. The counters are set to 0 before each part and read after
-    it. Raises on a non-finite loss, a missing checkpoint or record, a
-    learning rate off the schedule or a wrong count."""
+    profile``. The launches of each part are counted. Raises on a
+    non-finite loss, a missing checkpoint or record, a learning rate off
+    the schedule or a wrong count."""
     import shutil
 
     import numpy as np
@@ -1431,14 +1442,11 @@ def drive_train_cli(counters):
         # the CLI's steps are captured: each graph's first call launches
         # every kernel twice (its eager warm-up and its capture), and its
         # replays launch none
-        for mod in counters.values():
-            mod.launches = 0
         t0 = time.perf_counter()
-        out = cli.main(TRAIN_CLI_FLAGS + extra)
+        out, counts = _counted(lambda: cli.main(TRAIN_CLI_FLAGS + extra))
         seconds = time.perf_counter() - t0
-        counts = {name: mod.launches for name, mod in counters.items()}
-        want = {name: 2 * (train_graphs * TRAIN_LAUNCHES[name] + val_graphs * VAL_LAUNCHES[name])
-                for name in counters}
+        want = {name: 2 * (train_graphs * n + val_graphs * VAL_LAUNCHES[name])
+                for name, n in TRAIN_LAUNCHES.items()}
         if counts != want:
             raise AssertionError(f"train CLI {extra}: launches {counts}, want {want}")
         return out, counts, seconds
@@ -1601,14 +1609,14 @@ def _window_rows(rows, dev, gen, batch, cfg, S, dtype, row_set, stages):
         rows[-1]["layer"] = f"Reg2D.conv0 stage{s + 1} window"
 
 
-def drive_space(dev, counters, rows):
+def drive_space(dev, rows):
     """The row-sharded eval (``--space``) on one card: per run of
     ``SPACE_RUNS``, the unsharded forward counted and timed, then for each
     shard count S ``parallel.mesh.sharded_eval_forward`` over
     ``[card] * S`` (the windows' arithmetic, not multi-card speed), eager
     (``graphs.eager``) and captured (one CUDA graph per rank per round,
-    replayed) beside each other: the counters set to 0 just before one
-    forward and read just after (eager S times the unsharded forward's
+    replayed) beside each other: the launches of one forward counted
+    (eager S times the unsharded forward's
     launches; the captured form's first call 2S times, its eager warm-up's
     and its capture's, and a replay none), every stage held to the
     unsharded forward (``checks.compare_space``), ms per forward from the
@@ -1632,21 +1640,17 @@ def drive_space(dev, counters, rows):
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.parallel.mesh import (
         sharded_eval_forward,
     )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.tools.trace_table import (
+        PORT_KERNELS,
+    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    totals = {name: 0 for name in counters}
-    runs = []
+    totals, runs = {}, []
 
     def counted(fn):
-        torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in counters.items()}
-        for name, n in counts.items():
-            totals[name] += n
+        out, counts = _counted(fn)
+        _add(totals, counts)
         return out, counts
 
     for name, nb, nv, img_h, img_w, dtype_name, shard_counts in SPACE_RUNS:
@@ -1700,7 +1704,7 @@ def drive_space(dev, counters, rows):
                         "ms_per_forward_host_all": host, "ms_per_forward_events": events_ms,
                         "device_ms": prof["device_ms"],
                         "device_busy_share": prof["device_busy_share"],
-                        "kernel_shares": {k: prof[f"share_{k}"] for k in counters},
+                        "kernel_shares": {k: prof[f"share_{k}"] for k in PORT_KERNELS},
                         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
                         "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                         "launches_first_call": counts,
@@ -1739,7 +1743,7 @@ DP_STEPS = 3
 TORCHRUN_LOGDIR = TRAIN_CLI_LOGDIR + "_torchrun"
 
 
-def _ddp_readings(dev, make_model, batch, dp_impl, counters, captured):
+def _ddp_readings(dev, make_model, batch, dp_impl, captured):
     """The recipe step through ``data_parallel(step, dp_impl)`` as a world
     of one runs it, eager (``graphs.eager``) or captured: its first call
     (counted: eager ``TRAIN_LAUNCHES``, captured ``DDP_WARMUP_STEPS`` + 1
@@ -1767,14 +1771,14 @@ def _ddp_readings(dev, make_model, batch, dp_impl, counters, captured):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with contextlib.nullcontext() if captured else graphs.eager():
-        torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.launches = 0
+    def first():
         t0 = time.perf_counter()
-        losses = [step(batch)["loss"].item()]
-        first_s = time.perf_counter() - t0
-        counts = {name: mod.launches for name, mod in counters.items()}
+        loss = step(batch)["loss"].item()
+        return loss, time.perf_counter() - t0
+
+    with contextlib.nullcontext() if captured else graphs.eager():
+        (loss, first_s), counts = _counted(first)
+        losses = [loss]
         times = step_mod.DDP_WARMUP_STEPS + 1 if captured else 1
         want = {k: times * n for k, n in TRAIN_LAUNCHES.items()}
         if counts != want:
@@ -1804,11 +1808,10 @@ def _ddp_readings(dev, make_model, batch, dp_impl, counters, captured):
             "graphs": len(step._captured.graphs), "losses": losses}
 
 
-def drive_ddp(dev, batch, counters):
+def drive_ddp(dev, batch):
     """Data-parallel training on one card: a world of one rank over NCCL
     (a ``file://`` store in a temporary directory), the DTU recipe (B6 V5
-    512x640 bf16), the counters set to 0 before each part and read after
-    it:
+    512x640 bf16), the launches of each part counted:
 
     1. ``checks.check_ddp_step``: ``DP_STEPS`` eager steps of each
        ``dp_impl`` against ``checks.DDP_BARE_RUNS`` runs of the bare
@@ -1849,12 +1852,7 @@ def drive_ddp(dev, batch, counters):
     )
 
     def part(fn, steps_eager, captured_runs, what):
-        torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in counters.items()}
+        out, counts = _counted(fn)
         n = steps_eager + captured_runs * (DDP_WARMUP_STEPS + 1)
         want = {k: n * v for k, v in TRAIN_LAUNCHES.items()}
         if counts != want:
@@ -1881,7 +1879,7 @@ def drive_ddp(dev, batch, counters):
         counts = {k: v + graph_counts[k] for k, v in counts.items()}
         forms = {}
         for dp_impl in DP_IMPLS:
-            forms[dp_impl] = {mode: _ddp_readings(dev, make_model, batch, dp_impl, counters,
+            forms[dp_impl] = {mode: _ddp_readings(dev, make_model, batch, dp_impl,
                                                   mode == "captured")
                               for mode in ("eager", "captured")}
             eager, captured = forms[dp_impl]["eager"], forms[dp_impl]["captured"]
@@ -1950,22 +1948,21 @@ def _eval_fixture(root, V, H, W, seed=5):
         f.write("scan1\n")
 
 
-def drive_debug(dev, counters):
+def drive_debug(dev):
     """The eval CLI with ``--debug_model 255`` at the pipeline's shape
     (``cli.test.main`` in this process: the scripts/eval_dtu.sh model in
     float32 with the CLI's seed-0 weights, ``--run_gendepth`` over an
     eval-layout scene of 4 views at 512x640, ``_eval_fixture``), on the card
-    with the counters set to 0 before and read after (the 4 views' forwards
-    and the dump's: its forward's launches, and K4 for each warped view of
-    bit 5 and each correlation of bit 6), and with ``--device cpu``; the
+    with its launches counted (the 4 views' forwards and the dump's: its
+    forward's launches, ``norm_act`` at each BatchNorm that bit 0
+    recomputes, and K4 for each warped view of bit 5 and each correlation
+    of bit 6), and with ``--device cpu``; the
     card's dumps held to the CPU's (``checks.compare_debug_dumps``). The
     scene and the outputs live in a temporary directory (the dumps are
     hundreds of MB at this size) and are removed."""
     import glob
     import shutil
     import tempfile
-
-    import torch
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.cli import test as eval_cli
@@ -1980,25 +1977,23 @@ def drive_debug(dev, counters):
                  "--group_cor", "--group_cor_dim", "8,8,4,4", "--ndepths", "8,8,4,4",
                  "--depth_inter_r", "0.5,0.5,0.5,1", "--inverse_depth", "--attn_temp", "2",
                  "--run_gendepth", "--NviewGen", str(PIPELINE_V), "--debug_model", "255"]
-        written, seconds, counts = {}, {}, None
-        for key, extra in (("cpu", ["--device", "cpu"]), ("card", [])):
+        written, seconds = {}, {}
+        for key, extra in (("cpu", ["--device", "cpu"]), ("card", [])):     # counts: the card's
             out = os.path.join(root, key)
-            if key == "card":
-                torch.cuda.synchronize()
-                for mod in counters.values():
-                    mod.launches = 0
             t0 = time.perf_counter()
-            eval_cli.main(flags + ["--outdir", out] + extra)
+            _, counts = _counted(lambda: eval_cli.main(flags + ["--outdir", out] + extra))
             seconds[key] = time.perf_counter() - t0
-            if key == "card":
-                torch.cuda.synchronize()
-                counts = {name: mod.launches for name, mod in counters.items()}
             written[key] = {os.path.basename(p)[len("eval_scan1_"):-len(".npy")]: p
                             for p in glob.glob(os.path.join(out, "debug", "eval_scan1_*.npy"))}
         # the views' captured forward: its first call's warm-up and capture
-        # (the other views replay); then the dump's eager forward
-        want = {k: 3 * n for k, n in PIPELINE_LAUNCHES_PER_VIEW.items()}
+        # (the other views replay); then the dump's eager forward, whose
+        # bit-0 hooks recompute every block's BatchNorm with the library
+        # (utils/debug._block_parts): norm_act once more at each BatchNorm
+        # of a forward, those K6 folds included
+        per_view = PIPELINE_LAUNCHES_PER_VIEW
+        want = {k: 3 * n for k, n in per_view.items()}
         want["warp_fwd"] += 2 * 4 * (PIPELINE_V - 1)
+        want["norm_act"] += per_view["norm_act"] + per_view["band_conv"]
         if counts != want:
             raise AssertionError(f"debug dump: launches {counts}, want {want}")
         agreement = checks.compare_debug_dumps(written["card"], written["cpu"], str(dev))
@@ -2026,13 +2021,13 @@ def _run_driver(module, *args):
     return res.stdout.strip().splitlines(), time.perf_counter() - t0
 
 
-def drive_drivers(dev, counters):
+def drive_drivers(dev):
     """The port's drivers as a user runs them: ``bench`` at its pinned values
     (its last line held to the metric's keys: a positive rate, three groups,
     the card's name); one forward of ``graft_entry.entry()``'s ``fn`` at the
-    bench shape, the counters set to 0 just before and read just after
-    (twice ``EVAL_LAUNCHES``: the call captures, its warm-up and its capture
-    each launching every kernel; a second call replays and counts none),
+    bench shape, its launches counted (twice ``EVAL_LAUNCHES``: the call
+    captures, its warm-up and its capture each launching every kernel; a
+    second call replays and counts none),
     its depth finite; ``scripts/bench_scaling.py`` (one
     card: the one-rank row and its set-up split); ``graft_entry 1`` (the
     dry run on one rank); ``tools/train_demo.py`` for its 300 steps (six
@@ -2055,19 +2050,12 @@ def drive_drivers(dev, counters):
     fn, _ = graft_entry.entry(dev)
     batch = graft_entry.example_batch(B, V, H, W, device=dev)
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-    torch.cuda.synchronize()
-    for mod in counters.values():
-        mod.launches = 0
-    depth, conf = fn(*args)          # the entry path, counted: its first call captures
-    torch.cuda.synchronize()
-    counts = {name: mod.launches for name, mod in counters.items()}
+    # the entry path, counted: its first call captures
+    (depth, conf), counts = _counted(lambda: fn(*args))
     want = {k: 2 * n for k, n in EVAL_LAUNCHES.items()}   # the warm-up's and the capture's
     if counts != want:
         raise AssertionError(f"entry(): launches of its first call {counts}, want {want}")
-    before = {name: mod.launches for name, mod in counters.items()}
-    fn(*args)                        # a replay: no wrapper runs
-    torch.cuda.synchronize()
-    if any(mod.launches != before[name] for name, mod in counters.items()):
+    if any(_counted(lambda: fn(*args))[1].values()):      # a replay: no wrapper runs
         raise AssertionError("entry(): a replay ran a kernel wrapper")
     if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
         raise AssertionError(f"entry(): stage-4 depth {tuple(depth.shape)} not finite/shaped")
@@ -2100,7 +2088,7 @@ def drive_drivers(dev, counters):
 
 
 
-def drive_graphs(dev, counters, eager_pipeline, drivers):
+def drive_graphs(dev, eager_pipeline, drivers):
     """The captured entry points (``utils/graphs.py``, the port's ``jax.jit``)
     beside their eager forms (``graphs.eager``) in this call:
 
@@ -2147,7 +2135,7 @@ def drive_graphs(dev, counters, eager_pipeline, drivers):
     )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
 
-    totals = {name: 0 for name in counters}
+    totals = {}
 
     def fresh():
         gc.collect()
@@ -2156,18 +2144,16 @@ def drive_graphs(dev, counters, eager_pipeline, drivers):
         torch.cuda.reset_peak_memory_stats()
 
     def counted(fn, want, what):
-        torch.cuda.synchronize()
-        for mod in counters.values():
-            mod.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = {name: mod.launches for name, mod in counters.items()}
+        def timed():
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (out, seconds), counts = _counted(timed)
         if counts != want:
             raise AssertionError(f"graphs {what}: launches {counts}, want {want}")
-        for name, n in counts.items():
-            totals[name] += n
+        _add(totals, counts)
         return out, counts, seconds
 
     def twice(launches):
@@ -2281,12 +2267,48 @@ def drive_graphs(dev, counters, eager_pipeline, drivers):
                      "peak_reserved_gb": drivers["bench_detail"]["peak_reserved_gb"]}
     return line, totals
 
+# the kernels line, a row a kernel of ops/_build.KERNELS: (name, the JAX
+# package's Pallas kernel it replaces (None where none stood: XLA fused the
+# eval BatchNorm into its neighbours, the JAX DCN is plain jnp), the JAX
+# kernels it also serves, the row set of its main sums (timed per eval
+# forward or train step), the variant of checks.VARIANTS whose counted
+# forward and step give its launches_eval and launches_train (None: the
+# flagship's), the key of its rows' largest error (``max_abs_err`` over the
+# bf16 rows; ``max_share_of_limit`` where a row's error is its share of an
+# element-wise limit), {key: row set} of its other sums)
+KERNEL_TABLE = (
+    ("warp_cor", "warp_fwd_v3.py:438", ["warp_fwd_v3.py:522 (with ref, via warp_mxu.warp_cor_v3)"],
+     "eval", None, "max_abs_err",
+     {"full_range": "eval_full_range", "pipeline_float32_view": "pipeline_float32"}),
+    ("topdown", "topdown_fused.py:317", ["topdown_fused.py:727 (topdown_fused_level mode v2)"],
+     "eval", None, "max_abs_err",
+     {"train_step": "train", "pipeline_float32_view": "pipeline_float32"}),
+    ("warp_bwd", "warp_xband_bwd.py:410", ["warp_xband_bwd.py:467 (modes v1-v4)"],
+     "train", None, "max_abs_err", {"full_range": "full_range"}),
+    ("warp_fwd", "warp_fwd_v3.py:522 (no ref, via warp_mxu._warp_v3)",
+     ["warp_xband_kernel.py:111", "warp_kernel.py:83"],
+     "train", None, "max_abs_err", {"full_range": "full_range"}),
+    ("attn_fuse", "attn_fuse.py:98", [], "eval", None, "max_abs_err",
+     {"pipeline_float32_view": "pipeline_float32", "workspace": "workspace"}),
+    ("band_conv", "reg_band_proto.py:89", [], "eval", None, "max_abs_err",
+     {"float32_forward": "eval_float32", "pipeline_float32_view": "pipeline_float32",
+      "asff_expand": "asff_eval", "asff_expand_float32": "asff_eval_float32"}),
+    ("norm_act", None, [], "eval", None, "max_share_of_limit",
+     {"float32_forward": "eval_float32", "pipeline_float32_view": "pipeline_float32"}),
+    ("deform_conv", None, [], "eval", "dcn", "max_share_of_limit",
+     {"offsets_4px": "eval_offsets_4px"}),
+)
+
+
 def _per_run(rows):
     """Sums over the timed rows of each set, per run of the set's path
     (times the rows' launches per run): the kernel's time back to back from
     the host (``ms``) and its device time (``device_ms``), the plain
-    version's, the bound and its parts, the library yardstick's from the
-    host and on the device (None if a row has none)."""
+    version's, the bound and its parts, its operations at the float32 CUDA
+    cores' rate (``cuda_core_bound_ms``), the library yardstick's from the
+    host and on the device (None if a row has none), and where every row
+    has them the unfused route's time (``unfused_ms``) and the offsets read
+    besides (``offset_bytes``)."""
     sums = {}
     for row_set in {r["set"] for r in rows}:
         timed = [r for r in rows if r["set"] == row_set and "kernel_ms" in r]
@@ -2302,7 +2324,10 @@ def _per_run(rows):
                  "bound_ms": total("bound_ms"), "bytes": total("bytes"), "ops": total("ops"),
                  "bound_by": "operations" if total("ops_ms") > total("bytes_ms") else "bytes",
                  "library_ms": total("library_ms") if lib else None,
-                 "library_device_ms": total("library_device_ms") if lib else None}
+                 "library_device_ms": total("library_device_ms") if lib else None,
+                 "cuda_core_bound_ms": total("ops") / FP32_FLOPS * 1e3,
+                 **{k: total(k) for k in ("unfused_ms", "offset_bytes")
+                    if all(k in r for r in timed)}}
         sums[row_set] = entry
     return sums
 
@@ -2317,33 +2342,12 @@ def main() -> int:
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.bench import card_name
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.config import setup_device
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        attn_fuse as k5,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        band_conv as k6,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        norm_act as na,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        topdown as k2,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        warp_bwd as k3,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        warp_cor as k1,
-    )
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
-        warp_fwd as k4,
-    )
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
 
-    counters = {"warp_cor": k1, "topdown": k2, "warp_bwd": k3, "warp_fwd": k4, "attn_fuse": k5,
-                "band_conv": k6}
     EVAL_LAUNCHES["band_conv"] = VAL_LAUNCHES["band_conv"] = _k6_launches(torch.bfloat16)
     PIPELINE_LAUNCHES_PER_VIEW["band_conv"] = _k6_launches(torch.float32)
+    EVAL_LAUNCHES["norm_act"] = VAL_LAUNCHES["norm_act"] = _norm_act_launches(dtu_model_config())
+    PIPELINE_LAUNCHES_PER_VIEW["norm_act"] = _norm_act_launches(checks.eval_dtu_config())
     kernels = _build.KERNELS
     # the eval CLI's device setup (TF32 off), so that every phase runs at
     # the precision a user of the port gets
@@ -2386,18 +2390,9 @@ def main() -> int:
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     with torch.inference_mode():
         model(*args)                      # warm-up
-        torch.cuda.synchronize()
-        for mod in (*counters.values(), na):
-            mod.launches = 0
-        out = model(*args)                # the main path, counted
-        torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in counters.items()}
+        out, counts = _counted(lambda: model(*args))      # the main path, counted
         if counts != EVAL_LAUNCHES:
             raise AssertionError(f"launches per forward {counts}, want {EVAL_LAUNCHES}")
-        norm_act_eval = na.launches
-        if norm_act_eval != checks.norm_act_modules(model, torch.bfloat16):
-            raise AssertionError(f"norm_act launched {norm_act_eval} times a forward, want "
-                                 f"{checks.norm_act_modules(model, torch.bfloat16)}")
         depth = out["stage4"]["depth"]
         conf = out["stage4"]["photometric_confidence"]
         if tuple(depth.shape) != (B, H, W) or not torch.isfinite(depth).all():
@@ -2410,12 +2405,10 @@ def main() -> int:
         # three rounds of five timed forwards: the median round is the
         # reading, the three show the spread within this call
         reps, rounds = 5, 3
-        for mod in counters.values():
-            mod.launches = 0
-        round_ms = [_time_ms(lambda: model(*args), reps) for _ in range(rounds)]
+        round_ms, timed_counts = _counted(
+            lambda: [_time_ms(lambda: model(*args), reps) for _ in range(rounds)])
         fwd_ms = sorted(round_ms)[rounds // 2]
         calls = rounds * (reps + 1)
-        timed_counts = {name: mod.launches for name, mod in counters.items()}
         if timed_counts != {name: n * calls for name, n in EVAL_LAUNCHES.items()}:
             raise AssertionError(f"timed forwards launched {timed_counts}")
         torch.cuda.reset_peak_memory_stats()
@@ -2427,7 +2420,7 @@ def main() -> int:
         "B": B, "V": V, "H": H, "W": W, "dtype": "bfloat16",
         "ms_per_forward": fwd_ms, "depth_maps_per_s": B * 1e3 / fwd_ms,
         "ms_per_forward_rounds": round_ms,
-        "launches_per_forward": counts, "norm_act_launches_per_forward": norm_act_eval,
+        "launches_per_forward": counts, "norm_act_launches_per_forward": counts["norm_act"],
         "timed_forwards": reps * rounds,
         "stage4_confidence_finite_share": conf_finite,
         "peak_memory_gb": peak_gb,
@@ -2449,23 +2442,23 @@ def main() -> int:
     # the entry points as the port ran them before capture (graphs.eager);
     # drive_graphs holds the captured forms against them
     with graphs.eager():
-        train, train_profile, train_counts = drive_train(dev, train_batch, counters)
+        train, train_profile, train_counts = drive_train(dev, train_batch)
     print(json.dumps({"train": train}))
     print(json.dumps({"train_profile": train_profile}))
     del train_batch
     torch.cuda.empty_cache()
     with graphs.eager():
-        pipeline, pipeline_counts = drive_pipeline(dev, counters)
+        pipeline, pipeline_counts = drive_pipeline(dev)
     print(json.dumps({"pipeline": pipeline}))
     torch.cuda.empty_cache()
-    train_cli = drive_train_cli(counters)
+    train_cli = drive_train_cli()
     print(json.dumps({"train_cli": train_cli}))
     torch.cuda.empty_cache()
     batch = _scene(B, V, H, W, dev)
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     t0 = time.perf_counter()
     with graphs.eager():
-        variant_counts, variant_launches = drive_variants(dev, batch, train_batch, counters)
+        variant_counts, variant_launches = drive_variants(dev, batch, train_batch)
     print(json.dumps({"variants": {"count": len(checks.VARIANTS),
                                    "wall_s": time.perf_counter() - t0,
                                    "launches": variant_counts}}))
@@ -2473,7 +2466,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    space, space_counts = drive_space(dev, counters, space_rows := [])
+    space, space_counts = drive_space(dev, space_rows := [])
     space["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"space_kernel_shapes": space_rows}))
     print(json.dumps({"space": space}))
@@ -2481,144 +2474,67 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
-    ddp, ddp_counts = drive_ddp(dev, train_batch, counters)
+    ddp, ddp_counts = drive_ddp(dev, train_batch)
     ddp["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"ddp": ddp}))
     del train_batch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    debug, debug_counts = drive_debug(dev, counters)
+    debug, debug_counts = drive_debug(dev)
     debug["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"debug": debug}))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    drivers, drivers_counts = drive_drivers(dev, counters)
+    drivers, drivers_counts = drive_drivers(dev)
     drivers["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"drivers": drivers}))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    graphs_line, graphs_counts = drive_graphs(dev, counters, pipeline, drivers)
+    graphs_line, graphs_counts = drive_graphs(dev, pipeline, drivers)
     graphs_line["wall_s"] = time.perf_counter() - t0
     print(json.dumps({"graphs": graphs_line}))
 
+    phases = {"eval": counts, "train": train_counts, "pipeline": pipeline_counts,
+              "variants": variant_counts, "space": space_counts, "ddp": ddp_counts,
+              "debug": debug_counts, "drivers": drivers_counts,
+              # the graphs phase's counted first calls: each captures, and
+              # its eager warm-up and its capture launch every kernel once
+              "graphs": graphs_counts}
     kernel_line = []
-    for name, src, replaces, also_serves, row_set in (
-        ("warp_cor", "csrc/warp_cor.cu", "warp_fwd_v3.py:438",
-         ["warp_fwd_v3.py:522 (with ref, via warp_mxu.warp_cor_v3)"], "eval"),
-        ("topdown", "csrc/topdown.cu", "topdown_fused.py:317",
-         ["topdown_fused.py:727 (topdown_fused_level mode v2)"], "eval"),
-        ("warp_bwd", "csrc/warp_bwd.cu", "warp_xband_bwd.py:410",
-         ["warp_xband_bwd.py:467 (modes v1-v4)"], "train"),
-        ("warp_fwd", "csrc/warp_fwd.cu", "warp_fwd_v3.py:522 (no ref, via warp_mxu._warp_v3)",
-         ["warp_xband_kernel.py:111", "warp_kernel.py:83"], "train"),
-        ("attn_fuse", "csrc/attn_fuse.cu", "attn_fuse.py:98", [], "eval"),
-        ("band_conv", "csrc/band_conv.cu", "reg_band_proto.py:89", [], "eval"),
-    ):
+    for name, replaces, also_serves, row_set, variant, error, extra_sets in KERNEL_TABLE:
         mine = [r for r in rows if r["kernel"] == name]
         sums = _per_run(mine)
-        main = sums[row_set]
-        entry = {
-            "name": name, "route": "cuda", "source": f"{PKG}/{src}",
-            "replaces": f"{JAX_PKG_OPS}/{replaces}",
+        own = variant_launches[variant] if variant else {"eval": counts, "train": train_counts}
+        errors = [r["max_abs_diff"] for r in mine
+                  if error == "max_share_of_limit" or r["dtype"] == "bfloat16"]
+        library_shares = [r["library_share_of_limit"] for r in mine
+                          if "library_share_of_limit" in r]
+        kernel_line.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
+            "replaces": None if replaces is None else f"{JAX_PKG_OPS}/{replaces}",
             "also_serves": [f"{JAX_PKG_OPS}/{a}" for a in also_serves],
-            "launches": (counts[name] + train_counts[name] + pipeline_counts[name]
-                         + variant_counts[name] + space_counts[name] + ddp_counts[name]
-                         + debug_counts[name] + drivers_counts[name] + graphs_counts[name]),
-            "launches_eval": counts[name], "launches_train": train_counts[name],
-            "launches_pipeline": pipeline_counts[name],
-            "launches_variants": variant_counts[name],
-            "launches_space": space_counts[name], "launches_ddp": ddp_counts[name],
-            "launches_debug": debug_counts[name], "launches_drivers": drivers_counts[name],
-            # the graphs phase's counted first calls: each captures, and its
-            # eager warm-up and its capture launch every kernel once
-            "launches_graphs": graphs_counts[name],
+            "launches": sum(c[name] for c in phases.values()),
+            **{f"launches_{phase}": c[name] for phase, c in phases.items()},
+            # a kernel timed on a variant's forward counts these there
+            "launches_eval": own["eval"][name], "launches_train": own["train"][name],
+            "launches_pipeline_view": pipeline["launches_per_view"][name],
             "launches_train_cli": sum(c[name] for c in train_cli["launches"].values()),
-            "timed_per": "eval forward" if row_set == "eval" else "train step",
-            "max_abs_err": max(r["max_abs_diff"] for r in mine if r["dtype"] == "bfloat16"),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            # the device time of the same launches and library calls (20 of
-            # each captured in one CUDA graph): ``ms`` includes the host's
-            # time per call where that is longer than the launch
-            "device_ms": main["device_ms"], "library_device_ms": main["library_device_ms"],
-        }
-        if name == "band_conv":
-            # the route it replaces, and the least time of its sums on the
-            # float32 CUDA cores, where this kernel computes them
-            entry["unfused_ms"] = sum(r["unfused_ms"] * r["launches_per_run"]
-                                      for r in mine if r["set"] == row_set)
-            entry["cuda_core_bound_ms"] = main["ops"] / FP32_FLOPS * 1e3
-        if name == "topdown":
-            # the train step (forward and the backward's u_only, bf16) and
-            # one view of the float32 pipeline
-            entry["train_step"] = sums["train"]
-            entry["pipeline_float32_view"] = sums["pipeline_float32"]
-        if name in ("warp_bwd", "warp_fwd"):
-            # the full inverse range at every stage
-            entry["full_range"] = sums["full_range"]
-        if name == "warp_cor":
-            # the full inverse range at every stage, and one
-            # view of the float32 pipeline (B1) on its own hypotheses
-            entry["full_range"] = sums["eval_full_range"]
-            entry["pipeline_float32_view"] = sums["pipeline_float32"]
-        if name == "band_conv":
-            # the float32 rows: the pipeline's route at B4, and one view of
-            # the pipeline (B1)
-            entry["float32_forward"] = sums["eval_float32"]
-            entry["pipeline_float32_view"] = sums["pipeline_float32"]
-            # ASFF's expand convs (the asff variant's forward; float32: the
-            # layers its route takes)
-            entry["asff_expand"] = sums["asff_eval"]
-            entry["asff_expand_float32"] = sums["asff_eval_float32"]
-        if name == "attn_fuse":
-            # one view of the float32 pipeline (B1), and the workspace
-            # kernel's rows (per call of each K5_WORKSPACE shape)
-            entry["pipeline_float32_view"] = sums["pipeline_float32"]
-            entry["workspace"] = sums["workspace"]
-        # the same path at FPN base 4 and 16, through the generic instances
-        entry["other_widths"] = {k: v for k, v in sums.items() if "_base" in k}
-        if name in ("warp_cor", "attn_fuse", "band_conv"):
-            # the row windows of the space phase, per sharded forward
-            entry["space_windows"] = {k: v for k, v in sums.items() if k.startswith("space_")}
-        kernel_line.append(entry)
-    # norm_act replaces no TPU kernel: XLA fused the eval BatchNorm and ReLU
-    # into the convolutions there; the unfused route here ran them as a
-    # chain of PyTorch kernels (its plain version, plain_ms)
-    sums = _per_run([r for r in rows if r["kernel"] == "norm_act"])
-    kernel_line.append({
-        "name": "norm_act", "route": "cuda", "source": f"{PKG}/csrc/norm_act.cu",
-        "replaces": None, "also_serves": [],
-        "launches_eval": norm_act_eval, "launches_train": train["norm_act_launches_per_step"],
-        "launches_pipeline_view": pipeline["norm_act_launches_per_view"],
-        "timed_per": "eval forward",
-        "max_share_of_limit": max(r["max_abs_diff"] for r in rows if r["kernel"] == "norm_act"),
-        **{k: sums["eval"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "bytes", "library_ms", "library_device_ms")},
-        "library_max_share_of_limit": max(r["library_share_of_limit"] for r in rows
-                                          if r["kernel"] == "norm_act"),
-        "float32_forward": sums["eval_float32"],
-        "pipeline_float32_view": sums["pipeline_float32"],
-    })
-    # deform_conv replaces no TPU kernel either: the JAX package's DCN heads
-    # are plain jnp; its plain version (plain_ms) is the route it replaced.
-    # Its eval and train launches are the dcn variant's counted forward and
-    # step (the flagship has no heads; training takes the plain version),
-    # its pipeline view's the counted float32 pipeline's (no heads either)
-    mine = [r for r in rows if r["kernel"] == "deform_conv"]
-    sums = _per_run(mine)
-    kernel_line.append({
-        "name": "deform_conv", "route": "cuda", "source": f"{PKG}/csrc/deform_conv.cu",
-        "replaces": None, "also_serves": [],
-        "launches_eval": variant_launches["dcn"]["eval"]["deform_conv"],
-        "launches_train": variant_launches["dcn"]["train"]["deform_conv"],
-        "launches_pipeline_view": pipeline["deform_conv_launches_per_view"],
-        "launches_variants": variant_counts["deform_conv"],
-        "timed_per": "eval forward of the DCN model",
-        "max_share_of_limit": max(r["max_abs_diff"] for r in mine),
-        **{k: sums["eval"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "bytes", "library_ms", "library_device_ms")},
-        "offset_bytes": sum(r["offset_bytes"] for r in mine if r["set"] == "eval"),
-        "offsets_4px": sums["eval_offsets_4px"],
-    })
+            "timed_per": ("eval forward" if row_set == "eval" else "train step")
+                         + (f" of the {variant.upper()} model" if variant else ""),
+            error: max(errors),
+            # ms, plain_ms, bound_ms and the library's from the host; device_ms
+            # and library_device_ms the same launches and library calls on
+            # the device (20 of each captured in one CUDA graph): ``ms``
+            # includes the host's time per call where that is longer
+            **sums[row_set],
+            **{key: sums[s] for key, s in extra_sets.items()},
+            **({"library_max_share_of_limit": max(library_shares)} if library_shares else {}),
+            # the same path at FPN base 4 and 16, through the generic
+            # instances, and the row windows of the space phase, per
+            # sharded forward
+            "other_widths": {k: v for k, v in sums.items() if "_base" in k},
+            "space_windows": {k: v for k, v in sums.items() if k.startswith("space_")},
+        })
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,9 @@ the package (ignored by git), named by a digest of the source, the shared
 ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt and
 an unchanged one is reused.
 Everything is built from the repository's own sources.
+
+A wrapper under ``ops/kernels/`` declares its C entries once (``Kernel``,
+``Entry``); ``Kernel.launch`` launches and counts ``<name>.launches``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ NVCC_FLAGS = (
 # taps and their contraction
 KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv", "norm_act",
            "deform_conv")
+
+DTYPES = (torch.float32, torch.bfloat16)       # every kernel's but deform_conv's (bf16)
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -111,10 +116,47 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(status: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``)."""
-    if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+class Entry:
+    """C function ``symbol`` of ``csrc/<name>.cu`` (a ``*_plan``) taking ``argtypes``,
+    returning a status (0 or a CUDA error); loaded and typed at the first call."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name, self.symbol, self.argtypes, self._fn = name, symbol, argtypes, None
+
+    def status(self, *args) -> int:
+        """Call the entry; its status, for the caller to read."""
+        if self._fn is None:
+            fn = getattr(load(self.name), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._fn = fn
+        return self._fn(*args)
+
+    def run(self, *args) -> None:
+        """Call the entry; raise on a CUDA error."""
+        status = self.status(*args)
+        if status != 0:
+            raise RuntimeError(f"{self.name} ({self.symbol}): CUDA error {status}")
+
+
+class Kernel(Entry):
+    """A kernel's launch entry: ``argtypes``, then the stream."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        super().__init__(name, symbol, [*argtypes, ctypes.c_void_p])
+
+    def launch(self, device, *args) -> None:
+        """Launch on ``device``'s current stream (the last argument), tensors
+        as their pointers; raise on a CUDA error; count ``<name>.launches``."""
+        self.run(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 torch.cuda.current_stream(device).cuda_stream)
+        trace.count(f"{self.name}.launches")
+
+
+def launch_counts() -> dict:
+    """``{name: launches so far}`` for every kernel of ``KERNELS``, from
+    ``utils/trace``; a reader counts a stretch by the difference."""
+    counters = trace.snapshot()["counters"]
+    return {name: counters.get(f"{name}.launches", 0) for name in KERNELS}
 
 
 def refuse_autograd(what: str, *tensors) -> None:

@@ -2,10 +2,9 @@
 (``csrc/attn_fuse.cu``).
 
 ``attn_fuse`` launches the CUDA kernel on a CUDA tensor and uses the plain
-PyTorch version ``attn_fuse_ref`` only for a tensor on the CPU. ``launches``
-counts the kernel's launches. It has no backward, as the JAX kernel has no
-VJP: the train path keeps the autograd-tracked PyTorch attention
-(``ops/warp_cor.py``).
+PyTorch version ``attn_fuse_ref`` only for a tensor on the CPU. It has no
+backward, as the JAX kernel has no VJP: the train path keeps the
+autograd-tracked PyTorch attention (``ops/warp_cor.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +17,9 @@ import torch
 
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("attn_fuse", "attn_fuse_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                        + [ctypes.c_float] * 2 + [ctypes.c_int])
+_PLAN = _build.Entry("attn_fuse", "attn_fuse_plan", [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 # Kernel against plain version, relative to max(1, max|plain|): the same
 # float32 operations in the same order, except the group sum (the plain
@@ -28,18 +29,13 @@ launches = 0
 # result, which may then land one bf16 ulp (2^-7 relative at most) apart.
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
-_DTYPES = (torch.float32, torch.bfloat16)
-
 
 @functools.lru_cache(maxsize=None)
 def _plan(B: int, D: int, HW: int, G: int, is_bf16: int) -> tuple:
     """``csrc/attn_fuse.cu:attn_fuse_plan`` for a shape: (on the register
     kernel, G instance, pixels a lane, lanes a pixel group, CTAs)."""
-    fn = _build.load("attn_fuse").attn_fuse_plan
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     p = (ctypes.c_longlong * 5)()
-    fn(B, D, HW, G, is_bf16, ctypes.addressof(p))
+    _PLAN.status(B, D, HW, G, is_bf16, ctypes.addressof(p))
     return tuple(p)
 
 
@@ -74,15 +70,6 @@ def attn_fuse_ref(cors, attn_temp: float, channels: int) -> torch.Tensor:
     return (acc / norm).to(cors.dtype)
 
 
-def _lib():
-    lib = _build.load("attn_fuse")
-    fn = lib.attn_fuse_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
     """``cors [S,B,D,H,W,G]`` f32/bf16 -> ``[B,D,H,W,G]`` in the same dtype,
     float32 inside, for any D and G. Same function as JAX
@@ -101,7 +88,7 @@ def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
     S, B, D, H, W, G = cors.shape
     if not cors.is_contiguous():
         raise ValueError("attn_fuse: cors is not contiguous")
-    if cors.dtype not in _DTYPES:
+    if cors.dtype not in _build.DTYPES:
         raise ValueError(f"attn_fuse: dtype {cors.dtype} not supported")
     if min(S, B, D, G) < 1 or B >= 2 ** 16:
         raise ValueError(f"attn_fuse: S={S}, B={B}, D={D}, G={G} not supported")
@@ -112,13 +99,6 @@ def attn_fuse(cors, attn_temp: float, channels: int) -> torch.Tensor:
     if not _plan(B, D, H * W, G, int(cors.dtype == torch.bfloat16))[0]:
         acc = torch.empty((B, D, H, W, G), dtype=torch.float32, device=cors.device)
         norm = torch.empty((B, D, H, W), dtype=torch.float32, device=cors.device)
-    status = _lib()(
-        cors.data_ptr(), out.data_ptr(), None if acc is None else acc.data_ptr(),
-        None if norm is None else norm.data_ptr(), S, B, D, H * W, G,
-        float(attn_temp), math.sqrt(channels), int(cors.dtype == torch.bfloat16),
-        torch.cuda.current_stream(cors.device).cuda_stream,
-    )
-    _build.check(status, "attn_fuse")
-    global launches
-    launches += 1
+    _LAUNCH.launch(cors.device, cors, out, acc, norm, S, B, D, H * W, G, float(attn_temp),
+                   math.sqrt(channels), int(cors.dtype == torch.bfloat16))
     return out

@@ -11,10 +11,9 @@ the next unit of (tile, input channels) by TMA while they compute this one. :fun
 takes.
 
 ``band_conv`` launches the CUDA kernel on a CUDA tensor and uses the plain
-PyTorch version ``band_conv_ref`` only for a tensor on the CPU.
-``launches`` counts the kernel's launches. It has no backward, as the JAX
-kernel has no VJP: training keeps the convolution library and the
-train-mode BatchNorm.
+PyTorch version ``band_conv_ref`` only for a tensor on the CPU. It has no
+backward, as the JAX kernel has no VJP: training keeps the convolution
+library and the train-mode BatchNorm.
 """
 
 from __future__ import annotations
@@ -26,7 +25,8 @@ import torch.nn.functional as F
 
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("band_conv", "band_conv_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8)
+_PLAN = _build.Entry("band_conv", "band_conv_plan", [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 # Kernel against plain version, relative to max(1, max|plain|): in float32
 # the kernel sums the 9·Ci products in another order than the convolution
@@ -35,7 +35,6 @@ launches = 0
 # apart.
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
-_DTYPES = (torch.float32, torch.bfloat16)
 # the bf16 tensor-core route's widths: Ci padded to one of these, Co to a
 # multiple of 8 in 8 x (1, 2, 4, 8); wider bf16 layers take the direct form
 MMA_CIP = (8, 16, 32, 64)
@@ -75,22 +74,11 @@ def plan(N: int, H: int, W: int, Ci: int, Co: int, dtype) -> str:
     if dtype == torch.bfloat16:
         widths = mma_widths(Ci, Co)
         return "bf16 direct" if widths is None else "tensor cores cip {} nt {}".format(*widths)
-    fn = _build.load("band_conv").band_conv_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     p = (ctypes.c_int * 5)()
-    _build.check(fn(N, H, W, Ci, Co, 1, ctypes.addressof(p)), "band_conv plan")
+    _PLAN.run(N, H, W, Ci, Co, 1, ctypes.addressof(p))
     cog, rows, cic, items, mode = p
     return (f"float32 cog {cog} tile {rows}x64 ci/unit {cic} items {items} "
             f"units {items * -(-Ci // cic)} copy {F32_COPY[mode]}")
-
-
-def _lib():
-    lib = _build.load("band_conv")
-    fn = lib.band_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def band_conv(x, weight, scale, bias) -> torch.Tensor:
@@ -118,7 +106,7 @@ def band_conv(x, weight, scale, bias) -> torch.Tensor:
             raise ValueError(f"band_conv: {name} on {t.device}, x on {x.device}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"band_conv: {name} must be contiguous float32, not {t.dtype}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _build.DTYPES:
         raise ValueError(f"band_conv: dtype {x.dtype} not supported")
     if not x.is_contiguous():
         raise ValueError("band_conv: x is not contiguous")
@@ -129,12 +117,6 @@ def band_conv(x, weight, scale, bias) -> torch.Tensor:
     if widths is not None and x.data_ptr() % 16:
         raise ValueError("band_conv: x must be 16-byte aligned")
     cip, nt = widths or (0, 0)
-    status = _lib()(
-        x.data_ptr(), weight.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        N, H, W, Ci, Co, int(x.dtype == torch.bfloat16), cip, nt,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, "band_conv")
-    global launches
-    launches += 1
+    _LAUNCH.launch(x.device, x, weight, scale, bias, out, N, H, W, Ci, Co,
+                   int(x.dtype == torch.bfloat16), cip, nt)
     return out

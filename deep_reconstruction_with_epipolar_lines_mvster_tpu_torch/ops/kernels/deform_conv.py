@@ -16,8 +16,6 @@ bf16 with C in ``CHANNELS``, in eval with no autograd recording (no
 backward is written). Everywhere else (training, the CPU, float32, C 4 or 128) it takes
 the plain version. ``deform_conv`` launches the kernel on a CUDA tensor and
 raises on any it does not take, a CPU tensor included.
-``launches`` counts the kernel's launches, as does the counter
-``deform_conv.launches`` of ``utils/trace``.
 """
 
 from __future__ import annotations
@@ -27,10 +25,9 @@ import ctypes
 import torch
 
 from ...core.geometry import grid_sample_2d
-from ...utils import trace
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("deform_conv", "dcn_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
 
 DTYPES = (torch.bfloat16,)
 # the channel counts the kernel takes (csrc/deform_conv.cu: a tile of
@@ -107,13 +104,6 @@ def limit_share(got, x, off, weight) -> float:
     return share.nan_to_num(nan=float("inf")).max().item()
 
 
-def _lib():
-    fn = _build.load("deform_conv").dcn_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def deform_conv(x, off, weight) -> torch.Tensor:
     """``x [N, H, W, C]`` bf16, ``off [N, H, W, 18]`` bf16 and ``weight [C,
     C, 3, 3]`` float32, all contiguous, C in ``CHANNELS`` -> the deformable
@@ -146,12 +136,6 @@ def deform_conv(x, off, weight) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv: unsupported device {x.device}")
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if x.numel() == 0:
-        return out
-    status = _lib()(x.data_ptr(), off.data_ptr(), weight.data_ptr(), out.data_ptr(), N, H, W, C,
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "deform_conv")
-    global launches
-    launches += 1
-    trace.count("deform_conv.launches")
+    if x.numel():
+        _LAUNCH.launch(x.device, x, off, weight, out, N, H, W, C)
     return out

@@ -12,10 +12,8 @@ element of ``x`` once in and once out, 16 bytes a thread; no TPU kernel
 stood here (XLA fused the affine map into its neighbours).
 
 ``norm_act`` launches the CUDA kernel on a CUDA tensor and uses the plain
-PyTorch version ``norm_act_ref`` only for a tensor on the CPU. ``launches``
-counts the kernel's launches, as does the counter ``norm_act.launches`` of
-``utils/trace``. It has no backward: training keeps the train-mode
-BatchNorm.
+PyTorch version ``norm_act_ref`` only for a tensor on the CPU. It has no
+backward: training keeps the train-mode BatchNorm.
 """
 
 from __future__ import annotations
@@ -24,10 +22,10 @@ import ctypes
 
 import torch
 
-from ...utils import trace
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("norm_act", "norm_act_launch", [ctypes.c_void_p] * 6 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the widest C the kernel takes (csrc/norm_act.cu MAX_CHANNELS: its table
@@ -64,14 +62,6 @@ def norm_act_ref(x, weight, bias, mean, var, eps: float, relu: bool) -> torch.Te
     return (torch.relu(y) if relu else y).to(x.dtype)
 
 
-def _lib():
-    fn = _build.load("norm_act").norm_act_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def norm_act(x, weight, bias, mean, var, eps: float, relu: bool) -> torch.Tensor:
     """``x [..., C]`` float32 or bf16, contiguous; ``weight``, ``bias``,
     ``mean`` and ``var`` float32 ``[C]``, contiguous -> the eval BatchNorm
@@ -100,15 +90,7 @@ def norm_act(x, weight, bias, mean, var, eps: float, relu: bool) -> torch.Tensor
     if x.device.type != "cuda":
         raise ValueError(f"norm_act: unsupported device {x.device}")
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if x.numel() == 0:
-        return out
-    status = _lib()(
-        x.data_ptr(), out.data_ptr(), weight.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-        var.data_ptr(), x.numel(), C, float(eps), int(bool(relu)),
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, "norm_act")
-    global launches
-    launches += 1
-    trace.count("norm_act.launches")
+    if x.numel():
+        _LAUNCH.launch(x.device, x, out, weight, bias, mean, var, x.numel(), C, float(eps),
+                       int(bool(relu)), int(x.dtype == torch.bfloat16))
     return out

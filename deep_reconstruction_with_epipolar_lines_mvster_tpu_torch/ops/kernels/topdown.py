@@ -2,8 +2,8 @@
 
 ``topdown_level`` launches the CUDA kernel on a CUDA tensor and uses the
 plain PyTorch version ``topdown_level_ref`` only for a tensor on the CPU.
-``launches`` counts the kernel's launches. On a CUDA tensor it raises
-under autograd: the differentiable chain is ``ops/topdown_chain.py``.
+On a CUDA tensor it raises under autograd: the differentiable chain is
+``ops/topdown_chain.py``.
 ``u_only=True`` returns ``u`` alone (the chain's backward re-derives it):
 the kernel skips the 3x3 and the write of ``o``.
 
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ...core.geometry import align_corners_taps, resize_align_corners
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("topdown", "topdown_launch", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11)
 
 # Kernel against plain version, relative to max(1, max|plain|): in float32
 # the 3x3 sums 576 products in another order than the convolution library
@@ -36,7 +36,6 @@ launches = 0
 # difference may flip either rounding by one ulp (2^-7), so two ulps.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
-_DTYPES = (torch.float32, torch.bfloat16)
 # the shapes of the bf16 tensor-core route; every other takes the generic kernel
 MMA_CI = 64
 MMA_CHANNELS = (8, 16, 32)
@@ -109,14 +108,6 @@ def _fragment_index(kind: str, C: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(idx), dtype=torch.int64, device=device)
 
 
-def _lib():
-    lib = _build.load("topdown")
-    fn = lib.topdown_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def topdown_level(intra, skip, wi, bi, wo, with_u: bool = False, u_only: bool = False):
     """One top-down level: ``o`` (and ``u`` with ``with_u``; ``u`` alone
     with ``u_only``); see :func:`topdown_level_ref` for the function."""
@@ -133,7 +124,7 @@ def topdown_level(intra, skip, wi, bi, wo, with_u: bool = False, u_only: bool = 
             raise ValueError(f"topdown_level: {name} on {t.device}, intra on {intra.device}")
     if not (intra.is_contiguous() and skip.is_contiguous()):
         raise ValueError("topdown_level: intra and skip must be contiguous")
-    if intra.dtype not in _DTYPES or skip.dtype != intra.dtype:
+    if intra.dtype not in _build.DTYPES or skip.dtype != intra.dtype:
         raise ValueError(f"topdown_level: dtypes {intra.dtype}/{skip.dtype} not supported")
     if (
         skip.shape[0] != N or (H, W) != (2 * Hh, 2 * Wh)
@@ -173,17 +164,8 @@ def topdown_level(intra, skip, wi, bi, wo, with_u: bool = False, u_only: bool = 
     widx, ww0, ww1 = _taps(W, Wh, intra.device)
     out = None if u_only else torch.empty((N, H, W, Co), dtype=dt, device=intra.device)
     u = torch.empty((N, H, W, Ci), dtype=dt, device=intra.device) if with_u or u_only else None
-    status = _lib()(
-        intra.data_ptr(), skip.data_ptr(), wi_k.data_ptr(), bi_k.data_ptr(),
-        None if wo_k is None else wo_k.data_ptr(), hidx.data_ptr(), hw0.data_ptr(),
-        hw1.data_ptr(), widx.data_ptr(), ww0.data_ptr(), ww1.data_ptr(),
-        None if out is None else out.data_ptr(), None if u is None else u.data_ptr(),
-        N, H, W, Hh, Wh, Ci, Cs, Co, int(dt == torch.bfloat16), int(mma), ncb,
-        torch.cuda.current_stream(intra.device).cuda_stream,
-    )
-    _build.check(status, "topdown_level")
-    global launches
-    launches += 1
+    _LAUNCH.launch(intra.device, intra, skip, wi_k, bi_k, wo_k, hidx, hw0, hw1, widx, ww0, ww1,
+                   out, u, N, H, W, Hh, Wh, Ci, Cs, Co, int(dt == torch.bfloat16), int(mma), ncb)
     if u_only:
         return u
     return (out, u) if with_u else out

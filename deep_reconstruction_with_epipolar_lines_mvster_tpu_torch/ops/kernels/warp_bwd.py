@@ -1,9 +1,8 @@
 """K3: backward of the plane-sweep bilinear warp, dL/dsrc (``csrc/warp_bwd.cu``).
 
 ``warp_bwd`` launches the CUDA kernel on a CUDA tensor and uses the plain
-PyTorch version ``warp_bwd_ref`` only for a tensor on the CPU. ``launches``
-counts the kernel's launches. Autograd reaches it only through
-``ops/warp.py:WarpIK``.
+PyTorch version ``warp_bwd_ref`` only for a tensor on the CPU. Autograd
+reaches it only through ``ops/warp.py:WarpIK``.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import torch
 from ...core.geometry import warp_coords_xy
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("warp_bwd", "warp_bwd_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8)
 
 # Kernel against plain version, relative to max(1, max|plain|): both take
 # the same coordinates, corners and float32 products, bit for bit; only the
@@ -26,7 +25,6 @@ launches = 0
 # plane-sweep geometry. The same for a bf16 g: it is widened exactly.
 TOLERANCE = {torch.float32: 3e-5, torch.bfloat16: 3e-5}
 
-_DTYPES = (torch.float32, torch.bfloat16)
 # C % 4 == 0 takes the float4-atomic instance; any other C the same kernel
 # with scalar atomics (csrc/warp_bwd.cu)
 FAST_CHANNEL_MULTIPLE = 4
@@ -66,14 +64,6 @@ def warp_bwd_ref(g, rel_proj, hypo, src_shape) -> torch.Tensor:
     return dsrc.reshape(B, Hs, Ws, C)
 
 
-def _lib():
-    lib = _build.load("warp_bwd")
-    fn = lib.warp_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
     """``(g [B,D,H,W,C] f32/bf16, rel_proj [B,4,4] f32, hypo [B,D,H,W] f32,
     src_shape (B,Hs,Ws,C)) -> dsrc [B,Hs,Ws,C]`` float32, any C; the caller casts
@@ -95,7 +85,7 @@ def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
         raise ValueError("warp_bwd: g is not contiguous")
     if g.data_ptr() % 16:
         raise ValueError("warp_bwd: g must be 16-byte aligned")
-    if g.dtype not in _DTYPES:
+    if g.dtype not in _build.DTYPES:
         raise ValueError(f"warp_bwd: dtype {g.dtype} not supported")
     if rel_proj.dtype != torch.float32 or hypo.dtype != torch.float32:
         raise ValueError("warp_bwd: rel_proj and hypo must be float32")
@@ -109,12 +99,6 @@ def warp_bwd(g, rel_proj, hypo, src_shape) -> torch.Tensor:
     if max(H * W * C, Hs * Ws * C) >= 2 ** 31 or B >= 2 ** 16:
         raise ValueError("warp_bwd: plane or grid too large for the kernel's indices")
     dsrc = torch.zeros((B, Hs, Ws, C), dtype=torch.float32, device=g.device)
-    status = _lib()(
-        g.data_ptr(), rel_proj.data_ptr(), hypo.data_ptr(), dsrc.data_ptr(),
-        B, D, H, W, Hs, Ws, C, int(g.dtype == torch.bfloat16),
-        torch.cuda.current_stream(g.device).cuda_stream,
-    )
-    _build.check(status, "warp_bwd")
-    global launches
-    launches += 1
+    _LAUNCH.launch(g.device, g, rel_proj, hypo, dsrc, B, D, H, W, Hs, Ws, C,
+                   int(g.dtype == torch.bfloat16))
     return dsrc

@@ -1,10 +1,9 @@
 """K1: fused plane-sweep warp + group correlation (``csrc/warp_cor.cu``).
 
 ``warp_cor`` launches the CUDA kernel on a CUDA tensor and uses the plain
-PyTorch version ``warp_cor_ref`` only for a tensor on the CPU. ``launches``
-counts the kernel's launches, so a run can show that its main path went
-through the kernel. It has no backward: on a CUDA tensor it raises under
-autograd, and the train path warps through ``ops/warp.py:WarpIK``.
+PyTorch version ``warp_cor_ref`` only for a tensor on the CPU. It has no
+backward: on a CUDA tensor it raises under autograd, and the train path
+warps through ``ops/warp.py:WarpIK``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,8 @@ import torch
 from ...core.geometry import grid_sample_2d, warp_coords
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("warp_cor", "warp_cor_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9)
+_PLAN = _build.Entry("warp_cor", "warp_cor_plan", [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 # Kernel against plain version, relative to max(1, max|plain|): in float32
 # the coordinates and taps are the same operations in the same order and
@@ -24,7 +24,6 @@ launches = 0
 # result, which may land one bf16 ulp (2^-7 relative at most) apart.
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
-_DTYPES = (torch.float32, torch.bfloat16)
 # the (C, G) with a compile-time instance (the stages of FPN base 8); any
 # other C and G dividing it takes the generic instance (csrc/warp_cor.cu)
 FAST_CHANNELS = (8, 16, 32, 64)
@@ -47,14 +46,6 @@ def warp_cor_ref(src, ref, rel_proj, hypo, groups: int) -> torch.Tensor:
     return group_correlate(warped, ref.float()[:, None], groups).to(src.dtype)
 
 
-def _lib():
-    lib = _build.load("warp_cor")
-    fn = lib.warp_cor_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def plan(B: int, D: int, H: int, W: int, C: int, G: int, Hs: int | None = None,
          Ws: int | None = None) -> str:
     """The launch shape the kernel takes for ``[B, D, H, W]`` at ``(C, G)``
@@ -63,11 +54,8 @@ def plan(B: int, D: int, H: int, W: int, C: int, G: int, Hs: int | None = None,
     lanes a pixel and channels a lane, the CTA's threads along x by rows,
     and the planes a CTA walks (``csrc/warp_cor.cu:warp_cor_plan``). Loads
     the kernel's library."""
-    fn = _build.load("warp_cor").warp_cor_plan
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     p = (ctypes.c_int * 6)()
-    if fn(B, D, H, W, Hs or H, Ws or W, C, G, ctypes.addressof(p)):
+    if _PLAN.status(B, D, H, W, Hs or H, Ws or W, C, G, ctypes.addressof(p)):
         raise ValueError(f"warp_cor: shape {(B, D, H, W, C, G)} exceeds the grid's limits")
     return (f"{'fast' if p[0] else 'generic'} lanes {p[1]}x{p[2]} cta {p[3]}x{p[4]} "
             f"planes {p[5]}/{D}")
@@ -96,7 +84,7 @@ def warp_cor(src, ref, rel_proj, hypo, groups: int, out=None) -> torch.Tensor:
             raise ValueError(f"warp_cor: {name} is not contiguous")
     if not src.is_contiguous():
         raise ValueError("warp_cor: src is not contiguous")
-    if src.dtype not in _DTYPES or ref.dtype != src.dtype:
+    if src.dtype not in _build.DTYPES or ref.dtype != src.dtype:
         raise ValueError(f"warp_cor: dtypes {src.dtype}/{ref.dtype} not supported")
     if rel_proj.dtype != torch.float32 or hypo.dtype != torch.float32:
         raise ValueError("warp_cor: rel_proj and hypo must be float32")
@@ -115,13 +103,6 @@ def warp_cor(src, ref, rel_proj, hypo, groups: int, out=None) -> torch.Tensor:
           or out.device != src.device or not out.is_contiguous()):
         raise ValueError(f"warp_cor: out {tuple(out.shape)} {out.dtype} is not a "
                          f"contiguous [B,D,H,W,G] {src.dtype} tensor on {src.device}")
-    status = _lib()(
-        src.data_ptr(), ref.data_ptr(), rel_proj.data_ptr(), hypo.data_ptr(),
-        out.data_ptr(), B, D, H, W, Hs, Ws, C, groups,
-        int(src.dtype == torch.bfloat16),
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _build.check(status, "warp_cor")
-    global launches
-    launches += 1
+    _LAUNCH.launch(src.device, src, ref, rel_proj, hypo, out, B, D, H, W, Hs, Ws, C, groups,
+                   int(src.dtype == torch.bfloat16))
     return out

@@ -1,9 +1,9 @@
 """K4: the plain plane-sweep bilinear warp forward (``csrc/warp_fwd.cu``).
 
 ``warp_fwd`` launches the CUDA kernel on a CUDA tensor and uses the plain
-PyTorch version ``warp_fwd_ref`` only for a tensor on the CPU. ``launches``
-counts the kernel's launches. It has no backward of its own: autograd
-reaches it only through ``ops/warp.py:WarpIK``, whose backward is K3.
+PyTorch version ``warp_fwd_ref`` only for a tensor on the CPU. It has no
+backward of its own: autograd reaches it only through
+``ops/warp.py:WarpIK``, whose backward is K3.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import torch
 from ...core.geometry import grid_sample_2d, warp_coords
 from .. import _build
 
-launches = 0
+_LAUNCH = _build.Kernel("warp_fwd", "warp_fwd_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8)
+_PLAN = _build.Entry("warp_fwd", "warp_fwd_plan", [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 # Kernel against plain version, relative to max(1, max|plain|): in float32
 # the coordinates, taps, weights and the order of the four products are the
@@ -25,7 +26,6 @@ launches = 0
 # then land one bf16 ulp (2^-7 relative at most) apart.
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
-_DTYPES = (torch.float32, torch.bfloat16)
 # the channel counts with a compile-time instance (the stages of FPN base
 # 8); any other C takes the generic instance (csrc/warp_fwd.cu)
 FAST_CHANNELS = (8, 16, 32, 64)
@@ -38,14 +38,6 @@ def warp_fwd_ref(src, rel_proj, hypo) -> torch.Tensor:
     return grid_sample_2d(src.float(), warp_coords(rel_proj, hypo)).to(src.dtype)
 
 
-def _lib():
-    lib = _build.load("warp_fwd")
-    fn = lib.warp_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def plan(B: int, D: int, H: int, W: int, C: int, Hs: int | None = None,
          Ws: int | None = None) -> str:
     """The launch shape the kernel takes for ``[B, D, H, W, C]`` (a source
@@ -54,11 +46,8 @@ def plan(B: int, D: int, H: int, W: int, C: int, Hs: int | None = None,
     a pixel and channels a lane, the CTA's threads along x by rows, and the
     planes a CTA walks (``csrc/warp_fwd.cu:warp_fwd_plan``). Loads the
     kernel's library."""
-    fn = _build.load("warp_fwd").warp_fwd_plan
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     p = (ctypes.c_int * 6)()
-    if fn(B, D, H, W, Hs or H, Ws or W, C, ctypes.addressof(p)):
+    if _PLAN.status(B, D, H, W, Hs or H, Ws or W, C, ctypes.addressof(p)):
         raise ValueError(f"warp_fwd: shape {(B, D, H, W, C)} exceeds the grid's limits")
     return (f"{'fast' if p[0] else 'generic'} lanes {p[1]}x{p[2]} cta {p[3]}x{p[4]} "
             f"planes {p[5]}/{D}")
@@ -83,7 +72,7 @@ def warp_fwd(src, rel_proj, hypo) -> torch.Tensor:
             raise ValueError(f"warp_fwd: {name} on {t.device}, src on {src.device}")
         if not t.is_contiguous():
             raise ValueError(f"warp_fwd: {name} is not contiguous")
-    if src.dtype not in _DTYPES:
+    if src.dtype not in _build.DTYPES:
         raise ValueError(f"warp_fwd: dtype {src.dtype} not supported")
     if rel_proj.dtype != torch.float32 or hypo.dtype != torch.float32:
         raise ValueError("warp_fwd: rel_proj and hypo must be float32")
@@ -97,12 +86,6 @@ def warp_fwd(src, rel_proj, hypo) -> torch.Tensor:
     if src.data_ptr() % 16:
         raise ValueError("warp_fwd: src must be 16-byte aligned")
     out = torch.empty((B, D, H, W, C), dtype=src.dtype, device=src.device)
-    status = _lib()(
-        src.data_ptr(), rel_proj.data_ptr(), hypo.data_ptr(), out.data_ptr(),
-        B, D, H, W, Hs, Ws, C, int(src.dtype == torch.bfloat16),
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _build.check(status, "warp_fwd")
-    global launches
-    launches += 1
+    _LAUNCH.launch(src.device, src, rel_proj, hypo, out, B, D, H, W, Hs, Ws, C,
+                   int(src.dtype == torch.bfloat16))
     return out

@@ -46,11 +46,11 @@ static-input copies, the replay's enqueue and the output clones; a new
 signature's warm-up and record before it is a ``graph.capture`` span,
 counted in ``graph.captures``.
 
-Kernel launch counters (``ops/kernels/*.launches``) count the launches
-that the wrappers make: on a new signature the warm-up and the capture
-each launch every kernel once (a warm-up of several eager calls, as the
-data-parallel train step's, launches them once a call); a replay launches
-the graph and counts nothing.
+The kernel launch counters (``<kernel>.launches`` of ``utils/trace``, read
+by ``ops/_build.launch_counts``) count the launches that the wrappers make:
+on a new signature the warm-up and the capture each launch every kernel
+once (a warm-up of several eager calls, as the data-parallel train step's,
+launches them once a call); a replay launches the graph and counts nothing.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ named integer. The port opens its spans where the work happens:
   (``utils/graphs``: a captured function's call, the first of a new input
   signature);
 - ``feed``, counter ``feed.bytes`` (``data/synthetic.batch_to_torch``);
-- ``kernels.load``, counter ``kernels.built`` (``ops/_build``);
+- ``kernels.load``, counters ``kernels.built`` and, one a kernel of
+  ``KERNELS``, ``<kernel>.launches`` (``ops/_build``);
 - ``fit.step``, ``fit.val_step`` and ``data.wait`` (``train/loop.fit``);
 - ``dcn``, counter ``dcn.samples`` (``models/fpn.NADCN``: each DCN head).
 

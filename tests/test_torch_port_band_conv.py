@@ -27,6 +27,7 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu.ops.pallas.reg_band_prot
     band_conv3x3,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import layers as tl
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     band_conv as k6,
 )
@@ -68,9 +69,9 @@ def test_band_conv_wrapper_takes_plain_version_on_cpu():
     x = _t(rng.standard_normal((2, 9, 13, 5)).astype(np.float32)).to(torch.bfloat16)
     w = _t(rng.standard_normal((7, 5, 3, 3)).astype(np.float32) * 0.2)
     s, b = _t(rng.uniform(0.5, 2.0, 7).astype(np.float32)), _t(rng.normal(0, 0.2, 7).astype(np.float32))
-    before = k6.launches
+    before = _build.launch_counts()
     got = k6.band_conv(x, w, s, b)
-    assert k6.launches == before and got.dtype == torch.bfloat16
+    assert _build.launch_counts() == before and got.dtype == torch.bfloat16
     assert torch.equal(got, k6.band_conv_ref(x, w, s, b))
     acc = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2),
                                      w.to(torch.bfloat16).float(), padding=1)
@@ -159,28 +160,3 @@ def test_plan_names_the_route_and_launch_shape(shape, dtype, want):
     library: ``tests/test_torch_port_cuda.py::
     test_band_conv_plan_names_the_float32_launch_shape``.)"""
     assert k6.plan(*shape, dtype) == want
-
-
-def test_f32_variant_tool_still_matches_the_kernel_source():
-    """``tools/k6_f32_variants.py`` makes its variants by rewriting the
-    float32 plan, its dispatch and its copy mode in ``csrc/band_conv.cu``:
-    every text it rewrites is still in the source, ``cur`` is the source,
-    ``a``, ``b`` and ``c`` force their plan through one dispatch over every
-    instance they take, and ``cpasync`` never picks the 3-D TMA map."""
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.tools import (
-        k6_f32_variants as tool,
-    )
-
-    src = (_build.CSRC_DIR / "band_conv.cu").read_text()
-    variants = tool.variant_sources(src)
-    assert sorted(variants) == ["a", "b", "c", "cpasync", "cur"]
-    assert variants["cur"] == src
-    for name, rule in tool.FORCED.items():
-        text = variants[name]
-        assert rule in text and tool.RULE not in text and tool.DISPATCH not in text
-        for c, q, t in tool.INSTANCES:
-            assert f"return launch_f32<{c}, {q}, {t}>(" in text
-    assert tool.TMA3 not in variants["cpasync"]
-    assert variants["cpasync"].replace(": false ? F32_TMA3", tool.TMA3) == src
-

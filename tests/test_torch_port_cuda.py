@@ -34,6 +34,7 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.data.synthetic imp
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.layers import (
     band_conv_route,
 )
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     attn_fuse as k5,
 )
@@ -63,6 +64,19 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.warp_cor impor
 )
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(*names):
+    """The launches so far of the kernels ``names`` (``_build.launch_counts``):
+    a number for one name, a tuple for several."""
+    counts = _build.launch_counts()
+    return counts[names[0]] if len(names) == 1 else tuple(counts[n] for n in names)
+
+
+def _launched(before, *names):
+    """The launches of ``names`` since ``before = _launches(*names)``."""
+    now = _launches(*names)
+    return now - before if len(names) == 1 else tuple(n - b for n, b in zip(now, before))
 
 
 def _k6_per_forward(dtype) -> int:
@@ -116,10 +130,10 @@ def test_warp_cor_kernel_matches_plain(dev, dtype, C, G, src_hw, B, H, W, D):
     src = torch.from_numpy(rng.standard_normal((B, hs, ws, C)).astype(np.float32))
     ref = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
     args = (src.to(dev, dtype), ref.to(dev, dtype), rel, hypo, G)
-    before = k1.launches
+    before = _launches("warp_cor")
     got = k1.warp_cor(*args)
     torch.cuda.synchronize()
-    assert k1.launches == before + 1
+    assert _launches("warp_cor") == before + 1
     _close(got, k1.warp_cor_ref(*args), k1.TOLERANCE[dtype])
     # the same launch into a slot of a larger buffer that starts one element
     # past a 16-byte line: the lane's group means stored one by one
@@ -145,11 +159,11 @@ def test_topdown_kernel_matches_plain(dev, dtype):
         wo = (rng.standard_normal((co, 64, 3, 3)) * 0.05).astype(np.float32)
         args = (cur, torch.from_numpy(skip).to(dev, dtype), torch.from_numpy(wi).to(dev),
                 torch.from_numpy(bi).to(dev), torch.from_numpy(wo).to(dev))
-        before = k2.launches
+        before = _launches("topdown")
         o, u = k2.topdown_level(*args, with_u=True)
         o_only = k2.topdown_level(*args)
         torch.cuda.synchronize()
-        assert k2.launches == before + 2
+        assert _launches("topdown") == before + 2
         o_ref, u_ref = k2.topdown_level_ref(*args, with_u=True)
         _close(o, o_ref, k2.TOLERANCE[dtype])
         _close(u, u_ref, k2.TOLERANCE[dtype])
@@ -179,11 +193,11 @@ def test_topdown_kernel_ragged_shapes_match_plain(dev, dtype, N, Hh, Wh, cs, co)
     bi = torch.from_numpy((rng.standard_normal((64,)) * 0.1).astype(np.float32))
     wo = torch.from_numpy((rng.standard_normal((co, 64, 3, 3)) / 24).astype(np.float32))
     args = (intra.to(dev, dtype), skip.to(dev, dtype), wi.to(dev), bi.to(dev), wo.to(dev))
-    before = k2.launches
+    before = _launches("topdown")
     o, u = k2.topdown_level(*args, with_u=True)
     u_only = k2.topdown_level(*args, u_only=True)
     torch.cuda.synchronize()
-    assert k2.launches == before + 2
+    assert _launches("topdown") == before + 2
     o_ref, u_ref = k2.topdown_level_ref(*args, with_u=True)
     assert o.shape == (N, H, W, co) and u_only.shape == (N, H, W, 64)
     _close(o, o_ref, k2.TOLERANCE[dtype])
@@ -289,10 +303,10 @@ def test_warp_bwd_kernel_matches_plain(dev, dtype, C, src_hw):
     inv = inv * (1 + 0.02 * rng.standard_normal((B, D, H, W)))
     hypo = torch.from_numpy((1.0 / inv).astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal((B, D, H, W, C)).astype(np.float32)).to(dev, dtype)
-    before = k3.launches
+    before = _launches("warp_bwd")
     got = k3.warp_bwd(g, rel, hypo, (B, hs, ws, C))
     torch.cuda.synchronize()
-    assert k3.launches == before + 1
+    assert _launches("warp_bwd") == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, hs, ws, C)
     _close(got, k3.warp_bwd_ref(g, rel, hypo, (B, hs, ws, C)), k3.TOLERANCE[dtype])
 
@@ -347,10 +361,10 @@ def test_warp_bwd_kernel_footprints_match_plain(dev, dtype, case, C):
     and huge hypotheses, which give no taps and no fault."""
     g, rel, hypo, shape = _k3_case(case, C, dev)
     g = torch.from_numpy(g).to(dev, dtype)
-    before = k3.launches
+    before = _launches("warp_bwd")
     got = k3.warp_bwd(g, rel, hypo, shape)
     torch.cuda.synchronize()
-    assert k3.launches == before + 1
+    assert _launches("warp_bwd") == before + 1
     want = k3.warp_bwd_ref(g, rel, hypo, shape)
     assert torch.isfinite(got).all()
     _close(got, want, k3.TOLERANCE[dtype])
@@ -374,10 +388,10 @@ def test_warp_fwd_kernel_matches_plain(dev, dtype, C, src_hw, B, H, W, D):
     inv = inv * (1 + 0.02 * rng.standard_normal((B, D, H, W)))
     hypo = torch.from_numpy((1.0 / inv).astype(np.float32)).to(dev)
     src = torch.from_numpy(rng.standard_normal((B, hs, ws, C)).astype(np.float32)).to(dev, dtype)
-    before = k4.launches
+    before = _launches("warp_fwd")
     got = k4.warp_fwd(src, rel, hypo)
     torch.cuda.synchronize()
-    assert k4.launches == before + 1
+    assert _launches("warp_fwd") == before + 1
     assert got.dtype == dtype and got.shape == (B, D, H, W, C)
     want = k4.warp_fwd_ref(src, rel, hypo)
     _close(got, want, k4.TOLERANCE[dtype])
@@ -406,10 +420,10 @@ def test_attn_fuse_kernel_matches_plain(dev, dtype, S, D, G, H, W):
     rng = np.random.default_rng(S * 100 + D * 10 + G + H)
     cors = torch.from_numpy((rng.standard_normal((S, 2, D, H, W, G)) * 0.7)
                             .astype(np.float32)).to(dev, dtype)
-    before = k5.launches
+    before = _launches("attn_fuse")
     got = k5.attn_fuse(cors, 2.0, 16)
     torch.cuda.synchronize()
-    assert k5.launches == before + 1
+    assert _launches("attn_fuse") == before + 1
     assert got.dtype == dtype and got.shape == (2, D, H, W, G)
     _close(got, k5.attn_fuse_ref(cors, 2.0, 16), k5.TOLERANCE[dtype])
 
@@ -457,11 +471,11 @@ def test_eval_aggregate_at_any_depth_matches_cpu(dev, D, G):
     feats = [torch.from_numpy((rng.standard_normal((B, H, W, C)) * 0.5).astype(np.float32))
              for _ in range(V)]
     kw = dict(group_cor=True, group_dim=G, attn_temp=2.0)
-    before = (k1.launches, k5.launches)
+    before = _launches("warp_cor", "attn_fuse")
     with torch.inference_mode():
         got = epipolar_aggregate([f.to(dev) for f in feats], projs.to(dev), hypo.to(dev), **kw)
         torch.cuda.synchronize()
-    assert (k1.launches - before[0], k5.launches - before[1]) == (V - 1, 1)
+    assert _launched(before, "warp_cor", "attn_fuse") == (V - 1, 1)
     assert got.shape == (B * D, H, W, G)
     _close(got.cpu(), epipolar_aggregate(feats, projs, hypo, **kw), 1e-4)
 
@@ -488,10 +502,10 @@ def test_eval_pipeline_matches_cpu(dev):
     captured: the first view's call launches K1 12, K2 3, K5 4 times and K6
     as its float32 route rule gives, once in the warm-up and once in the
     capture, and the other three views replay the graph."""
-    before = (k1.launches, k2.launches, k5.launches, k6.launches)
+    names = ("warp_cor", "topdown", "attn_fuse", "band_conv")
+    before = _launches(*names)
     checks.check_pipeline(dev)
-    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2],
-            k6.launches - before[3]) == (24, 6, 8, 2 * _k6_per_forward(torch.float32))
+    assert _launched(before, *names) == (24, 6, 8, 2 * _k6_per_forward(torch.float32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -504,10 +518,10 @@ def test_topdown_chain_function_matches_plain_autograd(dev, dtype):
     launches K2 six times."""
     leaves, grads = checks.chain_inputs(3, 8, 12, dtype, dev,
                                         torch.Generator(device=dev).manual_seed(10))
-    before = k2.launches
+    before = _launches("topdown")
     checks.check_chain_backward(leaves, grads)
     torch.cuda.synchronize()
-    assert k2.launches == before + 6
+    assert _launches("topdown") == before + 6
 
 
 def test_small_train_step_matches_cpu(dev):
@@ -519,10 +533,10 @@ def test_small_train_step_matches_cpu(dev):
     the FPN outputs' and the kernel-fed parameters' gradients each within
     1e-3 of their max, the stem and Reg2D weights within 0.5. K6 (eval
     only) is not launched."""
-    before = (k2.launches, k3.launches, k4.launches, k6.launches)
+    names = ("topdown", "warp_bwd", "warp_fwd", "band_conv")
+    before = _launches(*names)
     checks.check_train_step(dev)
-    assert k2.launches - before[0] == 6 and k3.launches - before[1] == 8
-    assert k4.launches - before[2] == 8 and k6.launches == before[3]
+    assert _launched(before, *names) == (6, 8, 8, 0)
 
 
 def test_kernel_wrappers_raise_under_autograd(dev):
@@ -599,10 +613,10 @@ def test_band_conv_kernel_matches_plain(dev, dtype, N, H, W, Ci, Co):
                          .astype(np.float32)).to(dev)
     s = torch.from_numpy(rng.uniform(0.5, 2.0, Co).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.normal(0.0, 0.2, Co).astype(np.float32)).to(dev)
-    before = k6.launches
+    before = _launches("band_conv")
     got = k6.band_conv(x, w, s, b)
     torch.cuda.synchronize()
-    assert k6.launches == before + 1
+    assert _launches("band_conv") == before + 1
     assert got.dtype == dtype and got.shape == (N, H, W, Co)
     _close(got, k6.band_conv_ref(x, w, s, b), k6.TOLERANCE[dtype])
 
@@ -663,7 +677,8 @@ def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
     batch launches K6 twice as its bf16 route rule gives (the FPN stem's 3x3
     stride-1 layers on the route, Reg2D.conv0 at four stages), and the
     second replays; the losses in ``metrics.jsonl`` are finite."""
-    before = (k3.launches, k4.launches, k6.launches)
+    names = ("warp_bwd", "warp_fwd", "band_conv")
+    before = _launches(*names)
     logdir = str(tmp_path / "run")
     state = train_cli.main([
         "--dataset", "synthetic", "--trainpath", "synthetic://64x128/2", "--batch_size", "1",
@@ -672,8 +687,7 @@ def test_train_cli_launches_band_conv_in_validation_only(dev, tmp_path):
         "--attn_temp", "2", "--mono", "--rt", "--bf16", "--l1ce_lw", "0.003,1", "--wd", "1e-4"])
     torch.cuda.synchronize()
     assert state.step == 2
-    assert (k3.launches - before[0], k4.launches - before[1], k6.launches - before[2]) == (
-        16, 16, 2 * _k6_per_forward(torch.bfloat16))
+    assert _launched(before, *names) == (16, 16, 2 * _k6_per_forward(torch.bfloat16))
     with open(f"{logdir}/metrics.jsonl") as f:
         assert all(np.isfinite(json.loads(line)["loss"]) for line in f)
 
@@ -715,10 +729,10 @@ def test_warp_cor_generic_instance_matches_plain(dev, dtype, C, G, B, H, W, D):
     rng, rel, hypo, src = _sweep(dev, B, H, W, D, C, C * 10 + G, (20, 28))
     ref = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32))
     args = (src.to(dev, dtype), ref.to(dev, dtype), rel, hypo, G)
-    before = k1.launches
+    before = _launches("warp_cor")
     got = k1.warp_cor(*args)
     torch.cuda.synchronize()
-    assert k1.launches == before + 1 and got.shape == (B, D, H, W, G)
+    assert _launches("warp_cor") == before + 1 and got.shape == (B, D, H, W, G)
     _close(got, k1.warp_cor_ref(*args), k1.TOLERANCE[dtype])
 
 
@@ -732,10 +746,10 @@ def test_warp_fwd_generic_instance_matches_plain(dev, dtype, C, B, H, W, D):
     assert C not in k4.FAST_CHANNELS
     _, rel, hypo, src = _sweep(dev, B, H, W, D, C, C + 5)
     src = src.to(dev, dtype)
-    before = k4.launches
+    before = _launches("warp_fwd")
     got = k4.warp_fwd(src, rel, hypo)
     torch.cuda.synchronize()
-    assert k4.launches == before + 1 and got.shape == (B, D, H, W, C)
+    assert _launches("warp_fwd") == before + 1 and got.shape == (B, D, H, W, C)
     want = k4.warp_fwd_ref(src, rel, hypo)
     _close(got, want, k4.TOLERANCE[dtype])
     assert torch.equal(got, want)
@@ -750,10 +764,10 @@ def test_warp_bwd_generic_instance_matches_plain(dev, dtype, C):
     B, H, W, D = 2, 24, 40, 4
     rng, rel, hypo, _ = _sweep(dev, B, H, W, D, C, C + 7)
     g = torch.from_numpy(rng.standard_normal((B, D, H, W, C)).astype(np.float32)).to(dev, dtype)
-    before = k3.launches
+    before = _launches("warp_bwd")
     got = k3.warp_bwd(g, rel, hypo, (B, H, W, C))
     torch.cuda.synchronize()
-    assert k3.launches == before + 1
+    assert _launches("warp_bwd") == before + 1
     _close(got, k3.warp_bwd_ref(g, rel, hypo, (B, H, W, C)), k3.TOLERANCE[dtype])
 
 
@@ -779,12 +793,12 @@ def test_topdown_generic_instance_matches_plain(dev, dtype, ci, cs, co):
     wo = torch.from_numpy((rng.standard_normal((co, ci, 3, 3)) * (9 * ci) ** -0.5)
                           .astype(np.float32))
     args = (intra.to(dev, dtype), skip.to(dev, dtype), wi.to(dev), bi.to(dev), wo.to(dev))
-    before = k2.launches
+    before = _launches("topdown")
     o, u = k2.topdown_level(*args, with_u=True)
     o_only = k2.topdown_level(*args)
     u_only = k2.topdown_level(*args, u_only=True)
     torch.cuda.synchronize()
-    assert k2.launches == before + 3
+    assert _launches("topdown") == before + 3
     o_ref, u_ref = k2.topdown_level_ref(*args, with_u=True)
     assert o.shape == (N, 2 * Hh, 2 * Wh, co) and u.shape == (N, 2 * Hh, 2 * Wh, ci)
     _close(o, o_ref, k2.TOLERANCE[dtype])
@@ -799,10 +813,9 @@ def test_eval_forward_at_other_fpn_widths_matches_cpu(dev, base, groups):
     ``checks.check_forward``: every stage's attention within 1e-3 and depth
     equal at >= 99% of pixels, through K1 (8 launches: 2 source views at 4
     stages), K2 (3), K5 (4)."""
-    before = (k1.launches, k2.launches, k5.launches)
+    before = _launches("warp_cor", "topdown", "attn_fuse")
     checks.check_forward(dev, base, groups)
-    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2]) == (
-        8, 3, 4)
+    assert _launched(before, "warp_cor", "topdown", "attn_fuse") == (8, 3, 4)
 
 
 def test_small_train_step_at_fpn_base_4_matches_cpu(dev):
@@ -810,10 +823,9 @@ def test_small_train_step_at_fpn_base_4_matches_cpu(dev):
     on the card against the CPU by ``checks.check_train_step``: K4 and K3
     at C = 32/16/8/4 (the last on K4's generic instance), K2's generic
     kernel at Ci = 32 forward and backward."""
-    before = (k2.launches, k3.launches, k4.launches)
+    before = _launches("topdown", "warp_bwd", "warp_fwd")
     checks.check_train_step(dev, base=4, group_cor_dim=(8, 8, 4, 2))
-    assert (k2.launches - before[0], k3.launches - before[1], k4.launches - before[2]) == (
-        6, 8, 8)
+    assert _launched(before, "topdown", "warp_bwd", "warp_fwd") == (6, 8, 8)
 
 
 @pytest.mark.parametrize("variant", [v for _, v in checks.VARIANTS],
@@ -825,15 +837,13 @@ def test_model_variant_matches_cpu(dev, variant):
     one train step by ``checks.check_train_step`` (K2 6, K3 8, K4 8, K6
     none), each with its tolerances; in training every parameter, the
     variant's own included, needs a nonzero gradient."""
-    before = (k1.launches, k2.launches, k5.launches)
+    before = _launches("warp_cor", "topdown", "attn_fuse")
     checks.check_forward(dev, variant=variant)
-    assert (k1.launches - before[0], k2.launches - before[1], k5.launches - before[2]) == (
-        8, 3, 4)
-    before = (k2.launches, k3.launches, k4.launches, k6.launches)
+    assert _launched(before, "warp_cor", "topdown", "attn_fuse") == (8, 3, 4)
+    names = ("topdown", "warp_bwd", "warp_fwd", "band_conv")
+    before = _launches(*names)
     checks.check_train_step(dev, variant=variant)
-    assert (k2.launches - before[0], k3.launches - before[1], k4.launches - before[2]) == (
-        6, 8, 8)
-    assert k6.launches == before[3]
+    assert _launched(before, *names) == (6, 8, 8, 0)
 
 
 # ------------------------------------------ the row-sharded eval (--space) --
@@ -865,20 +875,20 @@ def test_space_windows_match_the_unsharded_forward(dev, dtype, S):
 
     model, b = _space_models_and_batch(dev, dtype)
     args = (b["imgs"], b["proj_matrices"], b["depth_values"])
+    names = ("warp_cor", "attn_fuse", "band_conv")
     with torch.inference_mode():
-        before = (k1.launches, k5.launches, k6.launches)
+        before = _launches(*names)
         want = model(*args)
-        whole = [n - m for n, m in zip((k1.launches, k5.launches, k6.launches), before)]
-    before = (k1.launches, k5.launches, k6.launches)
+        whole = _launched(before, *names)
+    before = _launches(*names)
     forward = sharded_eval_forward(model, [dev] * S, space=S)
     got = forward(*args)
     torch.cuda.synchronize()
-    assert [n - m for n, m in zip((k1.launches, k5.launches, k6.launches), before)] == \
-        [2 * S * n for n in whole]
-    before = (k1.launches, k5.launches, k6.launches)
+    assert _launched(before, *names) == tuple(2 * S * n for n in whole)
+    before = _launches(*names)
     forward(*args)
     torch.cuda.synchronize()
-    assert (k1.launches, k5.launches, k6.launches) == before
+    assert _launches(*names) == before
     dv = b["depth_values"]
     checks.compare_space(got, want, dtype, (dv[:, -1] - dv[:, 0]).max().item())
 
@@ -1077,12 +1087,11 @@ def test_entry_fn_matches_cpu(dev):
     assert close.float().mean().item() >= 0.99
 
     fn, args = graft_entry.entry(dev)
-    before = (k1.launches, k2.launches, k5.launches, k6.launches)
+    names = ("warp_cor", "topdown", "attn_fuse", "band_conv")
+    before = _launches(*names)
     depth, _ = fn(*args)
     torch.cuda.synchronize()
-    after = (k1.launches, k2.launches, k5.launches, k6.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (
-        24, 6, 8, 2 * _k6_per_forward(torch.bfloat16))
+    assert _launched(before, *names) == (24, 6, 8, 2 * _k6_per_forward(torch.bfloat16))
     assert depth.shape == (1, 256, 320) and torch.isfinite(depth).all()
 
 
@@ -1346,10 +1355,10 @@ def test_norm_act_kernel_matches_plain_at_the_forward_shapes(dev, dtype):
         C = shape[-1]
         bn = [t.to(dev) for t in _norm_act_bn(C, gen)]
         x = (torch.randn(shape, generator=gen) * 2).to(dev, dt)
-        before = na.launches
+        before = _launches("norm_act")
         got = na.norm_act(x, *bn, 1e-5, relu)
         torch.cuda.synchronize()
-        assert na.launches == before + 1 and got.dtype == dt and got.shape == x.shape
+        assert _launches("norm_act") == before + 1 and got.dtype == dt and got.shape == x.shape
         assert torch.equal(got.cpu(), _norm_act_folded_cpu(x, *bn, 1e-5, relu)), (shape, relu)
         want = na.norm_act_ref(x, *bn, 1e-5, relu)
         gap = (got.float() - want.float()).abs()
@@ -1396,24 +1405,23 @@ def test_norm_act_launches_once_per_library_route_batchnorm(dev, dtype):
     """One eager eval forward at B4 V4 512x640 launches ``norm_act`` once
     at each eval BatchNorm of ``checks.norm_act_modules`` (every
     library-route block's output is contiguous on the card), counted in
-    ``launches`` and in the recorder's ``norm_act.launches``; a train-mode
-    forward (B1 V3 128x192, autograd recording) launches it at none."""
+    the recorder's ``norm_act.launches``; a train-mode forward (B1 V3
+    128x192, autograd recording) launches it at none."""
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
 
     dt = getattr(torch, dtype)
-    before = (na.launches, trace.snapshot()["counters"].get("norm_act.launches", 0))
+    before = _launches("norm_act")
     calls, model = _forward_norm_act_calls(dev, dtype)
-    after = (na.launches, trace.snapshot()["counters"].get("norm_act.launches", 0))
+    launched = _launched(before, "norm_act")
     want = checks.norm_act_modules(model, dt)
-    assert len(calls) == want and after[0] - before[0] == want and after[1] - before[1] == want
+    assert len(calls) == want and launched == want
     model.train()
     assert checks.norm_act_modules(model, dt) == 0
     batch = graft_entry.example_batch(B=1, V=3, H=128, W=192, device=dev)
-    before = na.launches
+    before = _launches("norm_act")
     model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     torch.cuda.synchronize()
-    assert na.launches == before
+    assert _launches("norm_act") == before
 
 
 def test_eval_batchnorm_takes_the_kernel_at_any_layout_and_refuses_the_rest(dev):
@@ -1430,10 +1438,10 @@ def test_eval_batchnorm_takes_the_kernel_at_any_layout_and_refuses_the_rest(dev)
                         _norm_act_bn(16, gen)):
             t.copy_(v)
         x = (torch.randn((2, 9, 11, 16), generator=gen) * 2).to(dev, torch.bfloat16)
-        before = na.launches
+        before = _launches("norm_act")
         got = bn(x.transpose(1, 2), relu=True)
         torch.cuda.synchronize()
-        assert na.launches == before + 1
+        assert _launches("norm_act") == before + 1
         assert torch.equal(got, bn(x, relu=True).transpose(1, 2).contiguous())
         with pytest.raises(ValueError, match="not supported"):
             bn(x.half(), relu=True)
@@ -1450,7 +1458,7 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     cell's limits. The first call launches K1 12, K2 3, K5 4 times, K6 as
     its bf16 route rule gives, ``norm_act`` once a library-route
     BatchNorm (the four heads' included) and ``deform_conv`` once a head
-    (in ``launches`` and the recorder's ``deform_conv.launches``), each
+    (the recorder's ``<kernel>.launches``), each
     twice (warm-up and capture), and opens the ``dcn`` span twice a head;
     the replay launches and opens nothing, and gives the same maps."""
     from types import SimpleNamespace
@@ -1472,13 +1480,10 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     batch = program.scenes(ctx, mix["batch"], mix["views"])
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     forward = make_eval_forward(model)
-    kernels = (k1, k2, k5, k6, na, dc)
+    names = ("warp_cor", "topdown", "attn_fuse", "band_conv", "norm_act", "deform_conv")
 
     def counts():
-        snap = trace.snapshot()
-        return [k.launches for k in kernels] + [
-            snap["counters"].get("deform_conv.launches", 0),
-            snap["spans"].get("dcn", {}).get("count", 0)]
+        return [*_launches(*names), trace.snapshot()["spans"].get("dcn", {}).get("count", 0)]
 
     before = counts()
     first = forward(*args)
@@ -1488,7 +1493,7 @@ def test_captured_dcn_forward_matches_the_reference(dev):
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(before, mid)] == [
         24, 6, 8, 2 * _k6_per_forward(torch.bfloat16),
-        2 * checks.norm_act_modules(model, torch.bfloat16), 8, 8, 8]
+        2 * checks.norm_act_modules(model, torch.bfloat16), 8, 8]
     assert counts() == mid
     assert all(torch.equal(a, b) for a, b in zip(first["stage_depths"], again["stage_depths"]))
     with driver._dcn_reference():
@@ -1549,10 +1554,10 @@ def test_deform_conv_kernel_matches_plain(dev, kind, N, H, W, C):
     and non-finite; each call one launch, counted."""
     gen = torch.Generator().manual_seed(N * 1000 + C + len(kind))
     x, off, weight = (t.to(dev) for t in _dcn_inputs(N, H, W, C, kind, gen))
-    before = dc.launches
+    before = _launches("deform_conv")
     got = dc.deform_conv(x, off, weight)
     torch.cuda.synchronize()
-    assert dc.launches == before + 1
+    assert _launches("deform_conv") == before + 1
     assert _dcn_gap_share(got, x, off, weight) <= 1.0
 
 
@@ -1595,33 +1600,31 @@ def test_deform_conv_kernel_matches_plain_at_each_head_of_the_cell(dev):
 
 def test_deform_conv_launches_at_each_eval_head_and_none_in_training(dev):
     """One eager eval forward of the DCN model in bf16 launches the kernel
-    once a head (``launches`` and the recorder's ``deform_conv.launches``);
+    once a head (the recorder's ``deform_conv.launches``);
     a train-mode forward (autograd recording), an eval forward in float32
     and one at FPN base 4 (a C-4 head takes the plain version, the other
     three the kernel) launch it at no other head."""
     import dataclasses
 
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
-    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
 
     def launched(cfg, train=False, **size):
         model = checks.seeded_model(cfg, 3, dev)
         model.train(train)
         batch = graft_entry.example_batch(device=dev, **size)
-        before = (dc.launches, trace.snapshot()["counters"].get("deform_conv.launches", 0))
+        before = _launches("deform_conv")
         with torch.inference_mode(not train):
             model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
         torch.cuda.synchronize()
-        return (dc.launches - before[0],
-                trace.snapshot()["counters"].get("deform_conv.launches", 0) - before[1])
+        return _launched(before, "deform_conv")
 
     size = {"B": 1, "V": 3, "H": 128, "W": 192}
     bf16 = dataclasses.replace(graft_entry.dtu_model_config("bfloat16"), dcn=True)
-    assert launched(bf16, **size) == (4, 4)
-    assert launched(bf16, train=True, **size) == (0, 0)
-    assert launched(dataclasses.replace(bf16, dtype="float32"), **size) == (0, 0)
+    assert launched(bf16, **size) == 4
+    assert launched(bf16, train=True, **size) == 0
+    assert launched(dataclasses.replace(bf16, dtype="float32"), **size) == 0
     assert launched(dataclasses.replace(bf16, fpn_base_channel=4, group_cor_dim=(8, 8, 4, 2)),
-                    **size) == (3, 3)
+                    **size) == 3
 
 
 def test_deform_conv_reads_the_live_weight_under_graph_replay(dev):

@@ -29,10 +29,10 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.core.geometry impo
     grid_sample_2d,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.fpn import DeformConv2d
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     deform_conv as dc,
 )
-from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
 
 
 @pytest.mark.parametrize("device,dtype,C,train,want", [
@@ -98,7 +98,7 @@ def test_deform_conv2d_takes_the_plain_version_on_the_cpu(train):
         head.conv_offset.weight.normal_(0.0, 0.5, generator=gen)
     head.train(train)
     x, _, _ = _head(8, 0.0, 4)
-    before = (dc.launches, trace.snapshot()["counters"].get("deform_conv.launches", 0))
+    before = _build.launch_counts()
     with torch.set_grad_enabled(train):
         got = head(x)
         off = torch.nn.functional.conv2d(
@@ -107,7 +107,7 @@ def test_deform_conv2d_takes_the_plain_version_on_the_cpu(train):
         want = _former_deform_conv(x, off, head.weight)
     assert torch.equal(got, want)
     assert got.requires_grad is train
-    assert (dc.launches, trace.snapshot()["counters"].get("deform_conv.launches", 0)) == before
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.parametrize("x_grad,weight_grad,offset_grad,train", [

@@ -51,6 +51,7 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu.ops.pallas.topdown_fused
 from deep_reconstruction_with_epipolar_lines_mvster_tpu.ops.warp_cor import (
     epipolar_aggregate as jax_epipolar_aggregate,
 )
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops import _build
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     attn_fuse as k5,
 )
@@ -167,14 +168,14 @@ def test_warp_fwd_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper computes the plain version in float32 and
     launches nothing; a bf16 source gives the float32 result rounded."""
     src, rel, depth = _setup(B=1, H=16, W=32)
-    before = k4.launches
+    before = _build.launch_counts()
     got = k4.warp_fwd(_t(src), _t(rel), _t(depth))
     assert torch.equal(got, k4.warp_fwd_ref(_t(src), _t(rel), _t(depth)))
     src_bf = _t(src).to(torch.bfloat16)
     got_bf = k4.warp_fwd(src_bf, _t(rel), _t(depth))
     want_bf = k4.warp_fwd_ref(src_bf.float(), _t(rel), _t(depth)).to(torch.bfloat16)
     assert got_bf.dtype == torch.bfloat16 and torch.equal(got_bf, want_bf)
-    assert k4.launches == before
+    assert _build.launch_counts() == before
 
 
 # --------------------------------------------------------------------- K5 --
@@ -249,9 +250,9 @@ def test_eval_aggregate_matches_jax_fused_path(fuse_attn):
         [jnp.asarray(f) for f in feats], jnp.asarray(projs), jnp.asarray(depth),
         impl="mxu_v3", fuse_cor=True, fuse_attn=fuse_attn,
         band=16, tile_rows=8, xband=96, tile_cols=64, **kw)
-    before = (k1.launches, k5.launches)
+    before = _build.launch_counts()
     got = epipolar_aggregate([_t(f) for f in feats], _t(projs), _t(depth), **kw)
-    assert (k1.launches, k5.launches) == before     # plain versions on the CPU
+    assert _build.launch_counts() == before      # plain versions on the CPU
     assert got.shape == (2, 16, 256, 4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
 
@@ -261,12 +262,12 @@ def test_attn_fuse_wrapper_takes_plain_version_on_cpu():
     nothing; bf16 volumes come back in bf16 from float32 arithmetic."""
     cors = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 1, 4, 6, 8, 4))
                             .astype(np.float32))
-    before = k5.launches
+    before = _build.launch_counts()
     assert torch.equal(k5.attn_fuse(cors, 2.0, 8), k5.attn_fuse_ref(cors, 2.0, 8))
     got = k5.attn_fuse(cors.to(torch.bfloat16), 2.0, 8)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, k5.attn_fuse_ref(cors.to(torch.bfloat16), 2.0, 8))
-    assert k5.launches == before
+    assert _build.launch_counts() == before
 
 
 # ----------------------------------------------------------- rows 3, 4, 6 --
