@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's eight CUDA kernels from ``csrc/`` (one ``nvcc`` per
+1. Builds the port's nine CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints the build seconds and ptxas's
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
@@ -27,7 +27,10 @@
    ``F.batch_norm`` + ``relu_``) at the eval forward's shapes;
    ``deform_conv`` (a DCN head's taps and contraction) at each head of the
    flagship with DCN heads (B4 V4 512x640 bf16, C 64 to 8) at offsets of
-   0.1 and 4 px std, beside its plain version; K2 (FPN top-down level) at the eval
+   0.1 and 4 px std, beside its plain version; ``bn_train`` (train-mode
+   BatchNorm + ReLU, forward and backward) at every shape of its calls in
+   the B6 V5 train step, beside its plain version, the float32 chain and
+   its autograd backward; K2 (FPN top-down level) at the eval
    forward's, the train step's (its 3 forward launches and the backward's 3
    ``u_only`` launches, N = 30) and, in float32, one pipeline view's; K3
    (warp backward) at the train step's on two sets of hypotheses (the full
@@ -67,7 +70,8 @@
    (``small_train_step_other_width``).
 7. Drives the DTU train recipe (B=6, V=5, 512x640, bf16, recipe loss,
    Adam lr 1e-3 wd 1e-4) on plane scenes: the launches of one step are
-   counted (K4 16, K3 16, K2 6, K6 0, ``norm_act`` 0), then a
+   counted (K4 16, K3 16, K2 6, K6 0, ``norm_act`` 0, ``bn_train`` 324:
+   six launches at each of the 54 train-mode BatchNorms), then a
    warm-up step and three rounds of three timed steps, and a profile of one
    step.
 8. Drives the eval pipeline of the eval CLI at full width
@@ -90,7 +94,8 @@
    counted. The CLI's steps are captured graphs: each
    part's first train step and first validation batch launch every kernel
    twice (the warm-up's and the capture's launches), the later ones replay
-   (per captured train step K4 16, K3 16, K2 6, K6 0; per validation batch
+   (per captured train step K4 16, K3 16, K2 6, K6 0, ``bn_train`` 324; per
+   validation batch
    K1 16, K2 3, K5 4, K6 12, ``norm_act`` 39).
 10. Drives every model variant (``checks.VARIANTS``: the flagship with one
    change, pos-enc sine and learned, reg3d, the CAM/DCAM/PAM/PDAM mid
@@ -101,7 +106,8 @@
    ``_k6_launches``; ``norm_act`` its ``checks.norm_act_modules``;
    ``deform_conv`` 4 with DCN heads, else 0), three rounds of five
    timed forwards and one profiled; the same around one DTU train step
-   (K4 16, K3 16, K2 6, K6, ``norm_act`` and ``deform_conv`` 0) and
+   (K4 16, K3 16, K2 6, K6, ``norm_act`` and ``deform_conv`` 0, ``bn_train``
+   six at each of its train-mode BatchNorms, ``_bn_train_launches``) and
    three timed steps; then the small
    float32 forward and train step against the CPU. K6's rows also hold
    ASFF's ``expand`` convs (sets ``asff_eval``, ``asff_eval_float32``).
@@ -123,7 +129,9 @@
    against the bare step from the same seed, eager
    (``checks.check_ddp_step``) and captured (``checks.check_graph_ddp_step``:
    against eager runs of its form, ``gspmd`` with a one-rank group, and
-   against the bare step); each form eager and captured beside each other
+   against the bare step; the one-rank group's steps take the plain
+   BatchNorm, whose statistics it all-reduces, and launch no ``bn_train``);
+   each form eager and captured beside each other
    (ms a step, busy share, peak memory, the NCCL kernels of one profiled
    step); the launches of each part counted; then ``torchrun --standalone
    --nproc_per_node 1`` running the train CLI for one epoch, its steps
@@ -158,7 +166,7 @@
 Phases 7, 8 and 10 read the eager forms (``utils/graphs.eager``): the
 readings that phase 15 holds the captured forms against; phases 11 and
 12 read their mesh paths both ways. Every phase counts the launches of
-all eight kernels (``ops/_build.KERNELS``) the same way (``_counted``:
+all nine kernels (``ops/_build.KERNELS``) the same way (``_counted``:
 ``_build.launch_counts()`` before and after) and holds them to the same
 tables (``EVAL_LAUNCHES``, ``TRAIN_LAUNCHES``, ``PIPELINE_LAUNCHES_PER_VIEW``,
 ``VAL_LAUNCHES``): a captured function's first call with a new input
@@ -204,18 +212,19 @@ SEED = 0
 # launches of each kernel of ops/_build.KERNELS on each path: an eval
 # forward (B4 V4), a train step (B6 V5), one reference view of the eval
 # pipeline (V4) and one validation batch of the train CLI (B6 V5). K6's
-# follow its route rule (models/layers.band_conv_route, _k6_launches) and
+# follow its route rule (models/layers.band_conv_route, _k6_launches),
 # norm_act's the eval BatchNorms off that route (checks.norm_act_modules,
-# _norm_act_launches): main() fills them in. No flagship path has DCN heads.
+# _norm_act_launches) and bn_train's the train-mode BatchNorms
+# (_bn_train_launches): main() fills them in. No flagship path has DCN heads.
 EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                 "band_conv": None, "norm_act": None, "deform_conv": 0}
+                 "band_conv": None, "norm_act": None, "deform_conv": 0, "bn_train": 0}
 TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0,
-                  "band_conv": 0, "norm_act": 0, "deform_conv": 0}
+                  "band_conv": 0, "norm_act": 0, "deform_conv": 0, "bn_train": None}
 PIPELINE_LAUNCHES_PER_VIEW = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0,
                               "attn_fuse": 4, "band_conv": None, "norm_act": None,
-                              "deform_conv": 0}
+                              "deform_conv": 0, "bn_train": 0}
 VAL_LAUNCHES = {"warp_cor": 16, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                "band_conv": None, "norm_act": None, "deform_conv": 0}
+                "band_conv": None, "norm_act": None, "deform_conv": 0, "bn_train": 0}
 PIPELINE_V = 4
 # the weight seed of the pipeline phase: with random weights the fused cloud's
 # size depends on the draw, and some seeds give an empty cloud; seed 4 gives
@@ -313,6 +322,18 @@ def _norm_act_launches(cfg) -> int:
     from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
 
     return checks.norm_act_modules(MVS4Net(cfg, device="cpu"), cfg.torch_dtype)
+
+
+def _bn_train_launches(cfg) -> int:
+    """``bn_train``'s launches per train step (forward and backward) of a
+    model of ``cfg``: ``bn_train.LAUNCHES_PER_CALL`` at each train-mode
+    BatchNorm (``checks.bn_train_modules``), each called once a step."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import MVS4Net
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import bn_train
+
+    model = MVS4Net(cfg, device="cpu").train()
+    return bn_train.LAUNCHES_PER_CALL * checks.bn_train_modules(model)
 
 
 def _counted(fn):
@@ -866,6 +887,86 @@ def check_norm_act(dev, batch):
     return rows
 
 
+def _bn_train_calls(dev, batch):
+    """``{(shape, groups, relu): calls}`` of ``bn_train`` in one train-mode
+    forward of the flagship (``dtu_model_config``, seeded) on ``batch``,
+    and ``checks.bn_train_modules`` of that model."""
+    from collections import Counter
+    from unittest import mock
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        bn_train as bt,
+    )
+
+    model = checks.seeded_model(dtu_model_config(), SEED, dev).train()
+    calls, real = Counter(), bt.bn_train
+
+    def record(x, *rest):
+        calls[(tuple(x.shape), rest[5], rest[-1])] += 1
+        return real(x, *rest)
+
+    with mock.patch.object(bt, "bn_train", record), torch.no_grad():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    return calls, checks.bn_train_modules(model)
+
+
+def check_bn_train(dev, batch):
+    """``bn_train`` against ``bn_train_ref`` at every shape of its calls in
+    the flagship's B6 V5 512x640 bf16 train step (the shapes read from a
+    train-mode forward on ``batch``; 54 calls), forward and backward, with
+    random BatchNorm parameters and statistics: a row's ``max_abs_diff`` is
+    the largest share of its limit over y, the running statistics, dx,
+    dweight and dbias (``checks.check_bn_train``, at most 1; ``shares``
+    each). Timed: the kernels' six launches (the forward and
+    ``torch.autograd.grad`` through ``BNTrain``) beside the plain version
+    (the float32 chain and autograd's backward of it). The bound counts 16
+    bytes a bf16 element (x read twice and y written; x and dy read twice
+    and dx written) and 24 float32 operations an element on the CUDA
+    cores."""
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        bn_train as bt,
+    )
+
+    calls, modules = _bn_train_calls(dev, batch)
+    if sum(calls.values()) != modules:
+        raise AssertionError(f"bn_train: {sum(calls.values())} calls, {modules} train-mode "
+                             "BatchNorms")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows = []
+    for (shape, groups, relu), n in sorted(calls.items()):
+        C = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.rand(C, generator=gen, device=dev) * 1.5 + 0.5
+        b = torch.randn(C, generator=gen, device=dev) * 0.2
+        rm = torch.randn(C, generator=gen, device=dev) * 0.2
+        rv = torch.rand(C, generator=gen, device=dev) * 1.5 + 0.5
+        shares = checks.check_bn_train(x, dy, w, b, rm, rv, groups, relu)
+        xk = x.clone().requires_grad_(True)
+        wk, bk = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        nbk = torch.zeros((), dtype=torch.long, device=dev)
+
+        def timed(fn, xk=xk, wk=wk, bk=bk, rm=rm.clone(), rv=rv.clone(), nbk=nbk, dy=dy,
+                  groups=groups, relu=relu):
+            def run():
+                y = fn(xk, wk, bk, rm, rv, nbk, groups, 1e-5, 0.9, relu)
+                return torch.autograd.grad(y, (xk, wk, bk), dy)
+            return run
+
+        _record(rows, "bn_train", "train", list(shape), torch.bfloat16, shares["max_share"], 1.0,
+                n, timed(bt.bn_train), timed(bt.bn_train_ref), 16 * x.numel() + 4 * 8 * C,
+                24 * x.numel(), FP32_FLOPS, timed=True, groups=groups, relu=relu,
+                shares=shares)
+    return rows
+
+
 # deform_conv's row sets: (set, std of the offsets in px): the offsets of
 # make_weights' heads (0.07-0.15 px std) and of a trained head (pixels)
 DEFORM_CONV_SETS = (("eval", 0.1), ("eval_offsets_4px", 4.0))
@@ -1316,7 +1417,8 @@ def drive_variants(dev, batch, train_batch):
        the expected shape; three rounds of five timed forwards, the peak
        memory, and the device time of one forward by ``profile_run``;
     2. the DTU train step (B6 V5 512x640 bf16, recipe loss, Adam): the
-       launches of one step, held to ``TRAIN_LAUNCHES``; a finite,
+       launches of one step, held to ``TRAIN_LAUNCHES`` (``bn_train`` by
+       ``_bn_train_launches``); a finite,
        present gradient on every parameter; a warm-up step and three timed
        steps, the peak memory;
     3. the small float32 checks against the CPU: ``checks.check_forward``
@@ -1371,10 +1473,11 @@ def drive_variants(dev, batch, train_batch):
         step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
                                lambda i: 1e-3)
         torch.cuda.reset_peak_memory_stats()
+        want_train = {**TRAIN_LAUNCHES, "bn_train": _bn_train_launches(cfg)}
         scalars, train_counts = counted(lambda: step(train_batch))   # the variant's path
-        if train_counts != TRAIN_LAUNCHES:
+        if train_counts != want_train:
             raise AssertionError(f"{name}: launches per train step {train_counts}, "
-                                 f"want {TRAIN_LAUNCHES}")
+                                 f"want {want_train}")
         per_variant[name] = {"eval": counts, "train": train_counts}
         for pname, p in model.named_parameters():
             if p.grad is None or not torch.isfinite(p.grad).all():
@@ -1851,10 +1954,13 @@ def drive_ddp(dev, batch):
         DDP_WARMUP_STEPS,
     )
 
-    def part(fn, steps_eager, captured_runs, what):
+    def part(fn, steps_eager, captured_runs, what, grouped_eager=0, grouped_captured=0):
+        # the steps of gspmd with a one-rank group (grouped_*) take the
+        # plain BatchNorm, whose statistics the group all-reduces: no bn_train
         out, counts = _counted(fn)
         n = steps_eager + captured_runs * (DDP_WARMUP_STEPS + 1)
-        want = {k: n * v for k, v in TRAIN_LAUNCHES.items()}
+        grouped = grouped_eager + grouped_captured * (DDP_WARMUP_STEPS + 1)
+        want = {k: (n - grouped * (k == "bn_train")) * v for k, v in TRAIN_LAUNCHES.items()}
         if counts != want:
             raise AssertionError(f"ddp {what}: launches {counts}, want {want}")
         return out, counts
@@ -1872,10 +1978,12 @@ def drive_ddp(dev, batch):
             bare_steps + len(DP_IMPLS) * DP_STEPS, 0, "eager check")
         # the captured check: per form GRAPH_EAGER_RUNS eager runs and one
         # captured run, gspmd's second captured run without the group
+        gspmd = "gspmd" in DP_IMPLS
         graph_check, graph_counts = part(
             lambda: checks.check_graph_ddp_step(dev, make_model, batch, DP_STEPS, DP_IMPLS),
             bare_steps + len(DP_IMPLS) * checks.GRAPH_EAGER_RUNS * DP_STEPS,
-            len(DP_IMPLS) + ("gspmd" in DP_IMPLS), "captured check")
+            len(DP_IMPLS) + gspmd, "captured check",
+            grouped_eager=gspmd * checks.GRAPH_EAGER_RUNS * DP_STEPS, grouped_captured=gspmd)
         counts = {k: v + graph_counts[k] for k, v in counts.items()}
         forms = {}
         for dp_impl in DP_IMPLS:
@@ -2269,7 +2377,8 @@ def drive_graphs(dev, eager_pipeline, drivers):
 
 # the kernels line, a row a kernel of ops/_build.KERNELS: (name, the JAX
 # package's Pallas kernel it replaces (None where none stood: XLA fused the
-# eval BatchNorm into its neighbours, the JAX DCN is plain jnp), the JAX
+# eval and train-mode BatchNorm into their neighbours, the JAX DCN is plain
+# jnp), the JAX
 # kernels it also serves, the row set of its main sums (timed per eval
 # forward or train step), the variant of checks.VARIANTS whose counted
 # forward and step give its launches_eval and launches_train (None: the
@@ -2297,6 +2406,7 @@ KERNEL_TABLE = (
      {"float32_forward": "eval_float32", "pipeline_float32_view": "pipeline_float32"}),
     ("deform_conv", None, [], "eval", "dcn", "max_share_of_limit",
      {"offsets_4px": "eval_offsets_4px"}),
+    ("bn_train", None, [], "train", None, "max_share_of_limit", {}),
 )
 
 
@@ -2347,6 +2457,7 @@ def main() -> int:
     EVAL_LAUNCHES["band_conv"] = VAL_LAUNCHES["band_conv"] = _k6_launches(torch.bfloat16)
     PIPELINE_LAUNCHES_PER_VIEW["band_conv"] = _k6_launches(torch.float32)
     EVAL_LAUNCHES["norm_act"] = VAL_LAUNCHES["norm_act"] = _norm_act_launches(dtu_model_config())
+    TRAIN_LAUNCHES["bn_train"] = _bn_train_launches(dtu_model_config())
     PIPELINE_LAUNCHES_PER_VIEW["norm_act"] = _norm_act_launches(checks.eval_dtu_config())
     kernels = _build.KERNELS
     # the eval CLI's device setup (TF32 off), so that every phase runs at
@@ -2371,7 +2482,7 @@ def main() -> int:
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch) + check_warp_cor_pipeline(dev) + check_topdown(dev) \
         + check_band_conv(dev) + check_norm_act(dev, batch) + check_attn_fuse_workspace(dev)
-    rows += check_deform_conv(dev, batch)
+    rows += check_deform_conv(dev, batch) + check_bn_train(dev, train_batch)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows

@@ -20,6 +20,8 @@ both call these, so that each tolerance is stated once. Every check raises
   on a world of one rank, eager or captured, against runs of the bare
   ``TrainStep`` from the same seed, within a multiple of their own
   run-to-run noise (bit for bit where the step is deterministic).
+- ``check_bn_train``: the train-mode BatchNorm kernels, forward, running
+  statistics and backward, against their plain version in float32.
 - ``compare_debug_dumps``: the debug dumps (``utils/debug.py``) of a
   device against the CPU's.
 - ``check_graph_forward``, ``check_graph_eval_step``,
@@ -528,6 +530,71 @@ def norm_act_modules(model, dtype) -> int:
     folded = sum(isinstance(m, (ConvBnReLU, ConvBnReLU3D)) and m.on_band_conv(dtype)
                  for m in mods)
     return norms - folded
+
+
+def bn_train_modules(model) -> int:
+    """The train-mode ``TorchBatchNorm`` modules of ``model``: a train
+    forward of the flagship or of any variant of ``VARIANTS`` calls each of
+    them once (the mono decoder's too), so on the card, in bf16 or float32,
+    ``bn_train.LAUNCHES_PER_CALL`` times this is ``bn_train``'s launches a
+    train step; 0 in eval mode."""
+    from .models.layers import TorchBatchNorm
+
+    return sum(isinstance(m, TorchBatchNorm) and m.training for m in model.modules())
+
+
+def check_bn_train(x, dy, weight, bias, running_mean, running_var, groups: int, relu: bool,
+                   ref_device=None, eps: float = 1e-5, momentum: float = 0.9) -> Dict[str, float]:
+    """The train-mode BatchNorm kernels (``ops/kernels/bn_train.py``, on x's
+    card) against their plain version computed in float32 (on
+    ``ref_device``, by default x's) from the same x, one call and its
+    backward from ``dy``: each output's largest gap over its limit
+    (``bn_train.limit``, ``grad_limits``, ``running_limit``) for ``y``,
+    ``running_mean``, ``running_var``, ``dx``, ``dweight`` and ``dbias``,
+    and ``max_share`` the largest of them. The plain backward takes the
+    kernel's output for the ReLU's mask (autograd of the chain without the
+    ReLU, from ``dy`` where the kernel's ``y > 0``), so that the two meet
+    the same gradient where a float32 output near 0 would round to the
+    other sign. The kernels' ``num_batches_tracked`` must move by
+    ``groups``. The inputs are left as they were."""
+    from .ops.kernels import bn_train as bt
+
+    rd = torch.device(ref_device) if ref_device is not None else x.device
+    xk = x.detach().clone().requires_grad_(True)
+    wk, bk = (t.detach().clone().requires_grad_(True) for t in (weight, bias))
+    rm, rv = running_mean.clone(), running_var.clone()
+    nb = torch.zeros((), dtype=torch.long, device=x.device)
+    y = bt.bn_train(xk, wk, bk, rm, rv, nb, groups, eps, momentum, relu)
+    dx, dw, db = torch.autograd.grad(y, (xk, wk, bk), dy)
+    if nb.item() != groups:
+        raise AssertionError(f"bn_train: num_batches_tracked moved by {nb.item()}, not {groups}")
+    xf = x.detach().to(rd, torch.float32).requires_grad_(True)
+    wf, bf = (t.detach().to(rd).requires_grad_(True) for t in (weight, bias))
+    rm_ref, rv_ref = running_mean.to(rd).clone(), running_var.to(rd).clone()
+    z = bt.bn_train_ref(xf, wf, bf, rm_ref, rv_ref, torch.zeros((), dtype=torch.long, device=rd),
+                        groups, eps, momentum, False)
+    y_ref = torch.relu(z) if relu else z
+    mask = (y > 0).to(rd) if relu else torch.ones_like(z, dtype=torch.bool)
+    dy_ref = dy.to(rd, torch.float32) * mask
+    dx_ref, dw_ref, db_ref = torch.autograd.grad(z, (xf, wf, bf), dy_ref)
+    x_ref = x.detach().to(rd)
+    w_ref, b_ref = weight.detach().to(rd), bias.detach().to(rd)
+    dx_lim, dw_lim, db_lim = bt.grad_limits(dx.to(rd), dx_ref, x_ref, dy_ref, w_ref, groups, eps)
+    rm_lim, rv_lim = bt.running_limit(running_mean.to(rd), running_var.to(rd), x_ref, groups,
+                                      momentum)
+    pairs = {
+        "y": (y, y_ref, bt.limit(y.to(rd), y_ref, x_ref, w_ref, b_ref, groups, eps)),
+        "running_mean": (rm, rm_ref, rm_lim), "running_var": (rv, rv_ref, rv_lim),
+        "dx": (dx, dx_ref, dx_lim), "dweight": (dw, dw_ref, dw_lim),
+        "dbias": (db, db_ref, db_lim),
+    }
+    out = {}
+    for name, (got, want, lim) in pairs.items():
+        # a NaN anywhere fails; a zero gap is no share of a zero limit
+        gap = (got.to(rd).float() - want.float()).abs().nan_to_num(float("inf"))
+        out[name] = torch.where(gap > 0, gap / lim, torch.zeros_like(gap)).max().item()
+    out["max_share"] = max(out.values())
+    return out
 
 
 def run_pipeline(model, dataset, device, cfg: FusionConfig = EVAL_DTU_FUSION,

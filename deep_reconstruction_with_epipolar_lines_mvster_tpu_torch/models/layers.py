@@ -25,9 +25,10 @@ a bias; every other block (GroupNorm, no ReLU, wider, strided), and every
 block in training, is the convolution library's conv followed by its norm
 and ReLU. There, on the card, an eval ``TorchBatchNorm`` and the ReLU after
 it are one pass of kernel ``norm_act`` (``ops/kernels/norm_act.py``) over
-the activations, made contiguous; the CPU takes its plain version. The
-route follows the module's shape, norm and mode and the activations'
-device only.
+the activations, made contiguous, and a train-mode one is the kernels of
+``ops/kernels/bn_train.py`` with their own backward; the CPU takes their
+plain versions. The route follows the module's shape, norm and mode and
+the activations' device, dtype and width only.
 """
 
 from __future__ import annotations
@@ -38,9 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import bn_train as _bn_train
 from ..ops.kernels import norm_act as _norm_act
 from ..ops.kernels.band_conv import band_conv
-from ..parallel.distributed import all_reduce_sum, world_size
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax momentum; torch's 0.1
@@ -113,7 +114,10 @@ class TorchBatchNorm(nn.Module):
       running statistics take the G sequential momentum updates of the
       reference's per-view calls in closed form,
       ``m^G r + (1-m) sum_v m^(G-1-v) s_v`` with flax momentum ``m = 0.9``
-      and the unbiased variance.
+      and the unbiased variance. On the card (bf16 or float32, at most
+      ``bn_train.MAX_CHANNELS`` channels, no ``sync_group``) the kernels of
+      ``ops/kernels/bn_train.py``, forward and backward, over the input
+      made contiguous; everywhere else its plain version ``bn_train_ref``.
 
     ``sync_group`` (set by ``parallel.mesh.data_parallel`` under
     ``dp_impl="gspmd"`` on more than one rank): the train-mode statistics
@@ -121,7 +125,8 @@ class TorchBatchNorm(nn.Module):
     them: the batch sum and then the sum of squared deviations all-reduced
     over the group (differentiable), in float32.
 
-    ``relu``: the ReLU of the output, in eval fused into the same pass."""
+    ``relu``: the ReLU of the output, fused into the same pass in eval and
+    on the card in training."""
 
     sync_group = None
 
@@ -137,30 +142,11 @@ class TorchBatchNorm(nn.Module):
     def forward(self, x, groups: int = 1, relu: bool = False):
         if not self.training:
             return self.eval_norm(x, relu)
-        xf = x.float()
-        G = groups
-        N, C = x.shape[0], x.shape[-1]
-        if N % G:
-            raise ValueError(f"batch {N} not divisible by view groups {G}")
-        xg = xf.reshape(N // G, G, -1, C)
-        n = xg.shape[0] * xg.shape[2]
-        if self.sync_group is None:
-            var, mean = torch.var_mean(xg, dim=(0, 2), correction=0, keepdim=True)
-        else:
-            n *= world_size(self.sync_group)
-            mean = all_reduce_sum(xg.sum(dim=(0, 2), keepdim=True), self.sync_group) / n
-            dev = xg - mean
-            var = all_reduce_sum((dev * dev).sum(dim=(0, 2), keepdim=True), self.sync_group) / n
-        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        with torch.no_grad():
-            m = BN_MOMENTUM
-            w = m ** torch.arange(G - 1, -1, -1, dtype=torch.float32, device=x.device)
-            var_unb = var.reshape(G, C) * (n / max(n - 1, 1))
-            self.running_mean.mul_(m ** G).add_((1 - m) * (w[:, None] * mean.reshape(G, C)).sum(0))
-            self.running_var.mul_(m ** G).add_((1 - m) * (w[:, None] * var_unb).sum(0))
-            self.num_batches_tracked.add_(G)
-        y = (y * self.weight + self.bias).to(x.dtype)
-        return F.relu(y) if relu else y
+        args = (self.weight, self.bias, self.running_mean, self.running_var,
+                self.num_batches_tracked, groups, self.eps, BN_MOMENTUM, relu)
+        if self.sync_group is None and _bn_train.route(x):
+            return _bn_train.bn_train(x.contiguous(), *args)
+        return _bn_train.bn_train_ref(x, *args, sync_group=self.sync_group)
 
     def eval_norm(self, x, relu: bool = False):
         """The eval transform (and ReLU): kernel ``norm_act`` on the card

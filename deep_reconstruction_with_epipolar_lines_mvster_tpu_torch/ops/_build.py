@@ -38,9 +38,10 @@ NVCC_FLAGS = (
 # correlation, K2 top-down level, K3 warp backward, K4 warp forward, K5
 # attention accumulation, K6 conv + folded BatchNorm + ReLU; norm_act the
 # eval BatchNorm + ReLU after a library convolution; deform_conv a DCN head's
-# taps and their contraction
+# taps and their contraction; bn_train the train-mode BatchNorm + ReLU and
+# its backward
 KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv", "norm_act",
-           "deform_conv")
+           "deform_conv", "bn_train")
 
 DTYPES = (torch.float32, torch.bfloat16)       # every kernel's but deform_conv's (bf16)
 

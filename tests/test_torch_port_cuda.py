@@ -42,6 +42,9 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import
     band_conv as k6,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    bn_train as bt,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     deform_conv as dc,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -1683,3 +1686,212 @@ def test_deform_conv_refuses_what_it_does_not_take(dev):
         dc.deform_conv(x, off, torch.zeros((8, 8, 1, 1), device=dev))
     with pytest.raises(RuntimeError, match="autograd"):
         dc.deform_conv(x, off, w.requires_grad_())
+
+
+def _bn_train_case(shape, groups, kind, dtype, dev, seed):
+    """x, dy and the four float32 ``[C]`` tensors (weight, bias,
+    running_mean, running_var) of one ``bn_train`` case, away from
+    identity: x ~ 2 N(0, 1) + 0.5, with channel 1 constant (``constant``:
+    variance 0) or channel 0 at mean 300 over a spread of 3 (``far_mean``:
+    a merge that cancelled would show)."""
+    gen = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    x = torch.randn(shape, generator=gen) * 2 + 0.5
+    if kind == "constant":
+        x[..., 1] = 0.75
+    elif kind == "far_mean":
+        x[..., 0] = 300 + 3 * torch.randn(shape[:-1], generator=gen)
+    dy = torch.randn(shape, generator=gen)
+    params = (torch.rand(C, generator=gen) * 1.5 + 0.5, torch.randn(C, generator=gen) * 0.2,
+              torch.randn(C, generator=gen) * 0.2, torch.rand(C, generator=gen) * 1.5 + 0.5)
+    dt = getattr(torch, dtype)
+    return (x.to(dev, dt), dy.to(dev, dt), *(t.to(dev) for t in params))
+
+
+# (N, H, W, C), view groups, kind: G 1 and 5; C 8, 16, 32, 64 (the
+# flagship's), 12 (bf16 one value a thread, float32's 4-wide vectors), 3
+# (one value a thread in both), 300 (more than 256 lanes a pixel: two
+# passes) and 2056 (257 bf16 vectors: two passes); a ragged 37x53; a
+# constant channel and a channel far above its spread; no ReLU
+BN_TRAIN_CASES = [
+    ((5, 16, 20, 8), 5, "plain"), ((4, 16, 20, 16), 1, "plain"), ((10, 8, 12, 32), 5, "plain"),
+    ((2, 8, 8, 64), 1, "plain"), ((5, 37, 53, 12), 5, "plain"), ((2, 37, 53, 3), 1, "plain"),
+    ((2, 5, 7, 300), 1, "plain"), ((1, 3, 5, 2056), 1, "plain"),
+    ((10, 37, 53, 16), 5, "constant"), ((4, 37, 53, 8), 1, "far_mean"),
+    ((5, 37, 53, 8), 5, "no_relu"), ((3, 16, 24, 32), 1, "no_relu"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,groups,kind", BN_TRAIN_CASES)
+def test_bn_train_kernel_matches_plain(dev, dtype, shape, groups, kind):
+    """The train-mode BatchNorm kernels, one call forward and backward,
+    against ``bn_train_ref`` computed in float32 on the CPU from the same x
+    (``checks.check_bn_train``): the output, ``running_mean``,
+    ``running_var``, dx, dweight and dbias each within its limit
+    (``bn_train.limit``, ``grad_limits``, ``running_limit``: a bf16 ulp of
+    each output plus float32 ulps of its terms and, for the sums, of the
+    sums of their terms' magnitudes), ``num_batches_tracked`` moved by G;
+    six launches."""
+    args = _bn_train_case(shape, groups, kind, dtype, dev, seed=len(shape) + shape[-1])
+    before = _launches("bn_train")
+    shares = checks.check_bn_train(*args, groups, kind != "no_relu", ref_device="cpu")
+    assert _launched(before, "bn_train") == bt.LAUNCHES_PER_CALL
+    assert shares["max_share"] <= 1.0, shares
+
+
+def _bn_train_calls(dev, dtype, B=1, V=5, H=128, W=192):
+    """``{(shape, groups, relu): calls}`` of ``bn_train`` in one train-mode
+    forward of the flagship in ``dtype`` at B V HxW (B1 V5 128x192: the
+    train step's shapes at a reduced resolution), and the model."""
+    from collections import Counter
+    from unittest import mock
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+
+    model = checks.seeded_model(graft_entry.dtu_model_config(dtype), 1, dev).train()
+    batch = graft_entry.example_batch(B=B, V=V, H=H, W=W, device=dev)
+    calls, real = Counter(), bt.bn_train
+
+    def record(x, *rest):
+        calls[(tuple(x.shape), rest[5], rest[-1])] += 1
+        return real(x, *rest)
+
+    with mock.patch.object(bt, "bn_train", record), torch.no_grad():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    return calls, model
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bn_train_kernel_matches_plain_at_the_train_step_shapes(dev, dtype):
+    """Each of the flagship's 54 train-mode BatchNorm calls (B1 V5 128x192:
+    the FPN's 11 with G 5, Reg2D's and the mono decoder's 43 with G 1; C 8
+    to 64, all with ReLU) read from a train-mode forward, one call of each
+    shape against the plain version as ``test_bn_train_kernel_matches_plain``
+    holds it."""
+    calls, model = _bn_train_calls(dev, dtype)
+    assert sum(calls.values()) == checks.bn_train_modules(model) == 54
+    assert sum(n for (_, g, _), n in calls.items() if g == 5) == 11
+    for i, (shape, groups, relu) in enumerate(sorted(calls)):
+        args = _bn_train_case(shape, groups, "plain", dtype, dev, seed=100 + i)
+        shares = checks.check_bn_train(*args, groups, relu, ref_device="cpu")
+        assert shares["max_share"] <= 1.0, (shape, groups, shares)
+
+
+def test_bn_train_launches_six_at_each_train_batchnorm_and_none_in_eval(dev):
+    """An eager float32 train step of the flagship (B2 V3 64x128, recipe
+    loss, Adam) launches ``bn_train`` ``LAUNCHES_PER_CALL`` times at each of
+    its 54 train-mode BatchNorms (three forward, three backward), counted
+    in ``bn_train.launches``; an eval forward launches it at none."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    model = checks.small_step_model().to(dev)
+    batch = checks.small_step_batch(dev)
+    step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
+                           lambda i: 1e-3)
+    before = _launches("bn_train")
+    with graphs.eager():
+        step(batch)
+    torch.cuda.synchronize()
+    assert _launched(before, "bn_train") == bt.LAUNCHES_PER_CALL * 54
+    assert checks.bn_train_modules(model) == 54
+    model.eval()
+    before = _launches("bn_train")
+    with torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    assert _launches("bn_train") == before and checks.bn_train_modules(model) == 0
+
+
+def test_bn_train_captured_call_reads_live_parameters_and_replays_bit_equal(dev):
+    """A captured forward and backward of ``bn_train`` (bf16, G 2, ReLU):
+    two replays from the same running statistics give bit-equal outputs,
+    gradients and running statistics (no atomics: the sums' order is
+    fixed), equal to an eager call's; after ``weight``, ``bias`` and the
+    running statistics change in place, a replay gives the eager call's
+    result on the new values, not the old one's."""
+    x, dy, w, b, rm, rv = _bn_train_case((8, 32, 40, 16), 2, "plain", "bfloat16", dev, seed=9)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    nb = torch.zeros((), dtype=torch.long, device=dev)
+
+    def call():
+        y = bt.bn_train(x, w, b, rm, rv, nb, 2, 1e-5, 0.9, True)
+        return (y, *torch.autograd.grad(y, (x, w, b), dy))
+
+    def run(fn, mean, var):
+        with torch.no_grad():
+            rm.copy_(mean)
+            rv.copy_(var)
+        out = [t.clone() for t in fn()]
+        torch.cuda.synchronize()
+        return out + [rm.clone(), rv.clone()]
+
+    rm0, rv0 = rm.clone(), rv.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()                                                   # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _launches("bn_train")
+    with torch.cuda.graph(graph):
+        static = call()
+    assert _launched(before, "bn_train") == bt.LAUNCHES_PER_CALL
+
+    def replay():
+        graph.replay()
+        return static
+
+    first, second = run(replay, rm0, rv0), run(replay, rm0, rv0)
+    eager = run(call, rm0, rv0)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert all(torch.equal(a, c) for a, c in zip(first, eager))
+    with torch.no_grad():
+        w.mul_(-1.5)
+        b.add_(0.25)
+    moved = run(replay, rm0 + 0.1, rv0 * 2)
+    eager = run(call, rm0 + 0.1, rv0 * 2)
+    assert all(torch.equal(a, c) for a, c in zip(moved, eager))
+    assert not torch.equal(moved[0], first[0]) and not torch.equal(moved[-1], first[-1])
+
+
+def test_bn_train_refuses_what_it_does_not_take(dev):
+    """No fallback on the card: ``bn_train`` raises on a float16 input, a
+    non-contiguous one, more than ``MAX_CHANNELS`` channels, a batch that
+    the view groups do not divide, and parameters that are not float32
+    ``[C]``; ``TorchBatchNorm`` in training routes a float16 input to the
+    plain chain and launches nothing for it."""
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models import layers as tl
+
+    def args(C=8, N=4, dtype=torch.bfloat16, w_dtype=torch.float32):
+        return (torch.zeros((N, 3, 5, C), device=dev, dtype=dtype),
+                torch.ones(C, device=dev, dtype=w_dtype), torch.zeros(C, device=dev),
+                torch.zeros(C, device=dev), torch.ones(C, device=dev),
+                torch.zeros((), dtype=torch.long, device=dev))
+
+    with pytest.raises(ValueError, match="not supported"):
+        bt.bn_train(*args(dtype=torch.float16), 1, 1e-5, 0.9, True)
+    x, *rest = args()
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.bn_train(x.transpose(1, 2), *rest, 1, 1e-5, 0.9, True)
+    with pytest.raises(ValueError, match="not supported"):
+        bt.bn_train(*args(C=bt.MAX_CHANNELS + 1), 1, 1e-5, 0.9, True)
+    with pytest.raises(ValueError, match="divisible"):
+        bt.bn_train(*args(N=4), 3, 1e-5, 0.9, True)
+    with pytest.raises(ValueError, match="float32"):
+        bt.bn_train(*args(w_dtype=torch.bfloat16), 1, 1e-5, 0.9, True)
+    bn = tl.TorchBatchNorm(8).to(dev).train()
+    before = _launches("bn_train")
+    half = bn(torch.randn((4, 3, 5, 8), device=dev, dtype=torch.float16), relu=True)
+    torch.cuda.synchronize()
+    assert half.dtype == torch.float16 and _launches("bn_train") == before
+    bn(torch.randn((4, 3, 5, 8), device=dev, dtype=torch.bfloat16), relu=True)
+    torch.cuda.synchronize()
+    assert _launched(before, "bn_train") == 3
