@@ -171,10 +171,23 @@ class FPN4(_TopDownFPN):
         return self._top_down(*feats, view_groups)
 
 
+def _convnext_pixels(y):
+    """``y [N, h, w, C]``, a ConvNeXt block's output, with ``N h w`` added
+    to the counter ``convnext.pixels``."""
+    trace.count("convnext.pixels", y.shape[0] * y.shape[1] * y.shape[2])
+    return y
+
+
 class ConvNeXtBlock(nn.Module):
     """Downsampling ConvNeXt block (reference ``convnext_block``): 7x7
     stride-2 conv with ``groups=dim`` (dim -> 2 dim), LayerNorm, pointwise
-    MLP with exact GELU, layer scale ``gamma``; no residual."""
+    MLP with exact GELU, layer scale ``gamma``; no residual.
+
+    Each call of a block of either kind is a ``convnext`` span
+    (``utils/trace``: everything from its first conv to its output) and
+    adds ``N h w``, the pixels of its output, to the counter
+    ``convnext.pixels``. Both record as ``NADCN``'s do: at a captured
+    forward's warm-up and recording, not on replay; every eager call."""
 
     def __init__(self, dim: int, layer_scale_init: float = 1e-6):
         super().__init__()
@@ -191,8 +204,9 @@ class ConvNeXtBlock(nn.Module):
         return linear(x, self.pwconv2.weight, self.pwconv2.bias) * self.gamma.to(x.dtype)
 
     def forward(self, x):
-        x = conv2d_nhwc(x, self.dwconv.weight, self.dwconv.bias, 2, 3, groups=self.dim)
-        return self._mlp(x)
+        with trace.span("convnext"):
+            x = conv2d_nhwc(x, self.dwconv.weight, self.dwconv.bias, 2, 3, groups=self.dim)
+            return _convnext_pixels(self._mlp(x))
 
 
 class ConvNeXt4Block(ConvNeXtBlock):
@@ -207,9 +221,10 @@ class ConvNeXt4Block(ConvNeXtBlock):
         self.dwconv = ConvWeight((2 * dim, 2, 7, 7), bias=True)
 
     def forward(self, x):
-        inp = conv2d_nhwc(x, self.sconv.weight, self.sconv.bias, 2)
-        x = conv2d_nhwc(inp, self.dwconv.weight, self.dwconv.bias, 1, 3, groups=self.dim)
-        return inp + self._mlp(x)
+        with trace.span("convnext"):
+            inp = conv2d_nhwc(x, self.sconv.weight, self.sconv.bias, 2)
+            x = conv2d_nhwc(inp, self.dwconv.weight, self.dwconv.bias, 1, 3, groups=self.dim)
+            return _convnext_pixels(inp + self._mlp(x))
 
 
 class FPN4ConvNeXt(_TopDownFPN):

@@ -16,7 +16,9 @@ named integer. The port opens its spans where the work happens:
 - ``kernels.load``, counters ``kernels.built`` and, one a kernel of
   ``KERNELS``, ``<kernel>.launches`` (``ops/_build``);
 - ``fit.step``, ``fit.val_step`` and ``data.wait`` (``train/loop.fit``);
-- ``dcn``, counter ``dcn.samples`` (``models/fpn.NADCN``: each DCN head).
+- ``dcn``, counter ``dcn.samples`` (``models/fpn.NADCN``: each DCN head);
+- ``convnext``, counter ``convnext.pixels`` (``models/fpn.ConvNeXtBlock``
+  and ``ConvNeXt4Block``: each ConvNeXt block of the pyramid).
 
 For each span name the recorder keeps the number of spans closed, their
 total and self time (a span's duration less the part its child spans

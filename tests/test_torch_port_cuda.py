@@ -1895,3 +1895,66 @@ def test_bn_train_refuses_what_it_does_not_take(dev):
     bn(torch.randn((4, 3, 5, 8), device=dev, dtype=torch.bfloat16), relu=True)
     torch.cuda.synchronize()
     assert _launched(before, "bn_train") == 3
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_captured_convnext4_forward_matches_the_reference(dev, dtype, monkeypatch):
+    """The benchmark's ``mvster_convnext4_bf16`` (``eval_convnext4_bf16``), in
+    bf16 and in float32, at B1 V4 128x192: the captured eval forward of a
+    seeded batch against the plain reference with the patchify ConvNeXt
+    pyramid (``benchmark/reference/mvster_convnext.py``, float32, TF32 off)
+    within the cell's limits in bf16 and ``eval_dtu_f32``'s in float32.
+    The first call launches K1 12, K2 3, K5 4 and K6 6 times (``conv0.0``,
+    ``conv0.1`` and the four Reg2D ``conv0``: the pyramid has no FPN4
+    ``conv1``-``conv3`` layers) and ``norm_act`` once a library-route
+    BatchNorm, each twice (warm-up and capture), and opens the
+    ``convnext`` span twice a block; the replay launches and opens
+    nothing, and gives the same maps (in float32 under
+    ``cudnn.deterministic``, as ``checks.check_graph_forward`` holds it)."""
+    from types import SimpleNamespace
+
+    from benchmark import compare, harness, program
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.eval.depthgen import (
+        make_eval_forward,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import trace
+
+    if dtype == "float32":
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cell = {w["name"]: w for w in harness.load_json(harness.ROOT / "BENCHMARK.json")
+            ["workloads"]}["eval_convnext4_bf16"]
+    config = {**harness.load_json(harness.find("configs", cell["config"])), "dtype": dtype}
+    mix = {**harness.load_json(harness.find("traffic", cell["traffic"])),
+           "batch": 1, "views": 4, "height": 128, "width": 192}
+    spec = harness.load_json(harness.find(
+        "workloads", cell["name"] if dtype == "bfloat16" else "eval_dtu_f32"))
+    driver = harness.load_module(harness.find("drivers", "eval_convnext", ".py"))
+    ctx = SimpleNamespace(seed=2 ** 31 + 43, device=dev, traffic=mix)
+    model, weights = program.build_model(config, ctx.seed, dev)
+    batch = program.scenes(ctx, mix["batch"], mix["views"])
+    args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    forward = make_eval_forward(model)
+    names = ("warp_cor", "topdown", "attn_fuse", "band_conv", "norm_act")
+    tdt = getattr(torch, dtype)
+
+    def counts():
+        return [*_launches(*names),
+                trace.snapshot()["spans"].get("convnext", {}).get("count", 0)]
+
+    before = counts()
+    first = forward(*args)
+    torch.cuda.synchronize()
+    mid = counts()
+    again = forward(*args)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, mid)] == [
+        24, 6, 8, 12, 2 * checks.norm_act_modules(model, tdt), 6]
+    assert counts() == mid
+    assert all(torch.equal(a, b) for a, b in zip(first["stage_depths"], again["stage_depths"]))
+    with driver._convnext_reference():
+        ref = compare.reference_depths(weights, config, batch)
+    gap = compare.DepthGap(**spec["sure"])
+    gap.add(again["stage_depths"], again["confidence"], ref)
+    numbers = gap.numbers()
+    assert gap.bad_maps == 0
+    assert all(numbers[k] <= limit for k, limit in spec["limits"].items()), numbers
