@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's nine CUDA kernels from ``csrc/`` (one ``nvcc`` per
+1. Builds the port's ten CUDA kernels from ``csrc/`` (one ``nvcc`` per
    source, all started together) and prints the build seconds and ptxas's
    register and shared-memory report.
 2. Holds each kernel against its plain PyTorch version at every shape the
@@ -27,7 +27,10 @@
    ``F.batch_norm`` + ``relu_``) at the eval forward's shapes;
    ``deform_conv`` (a DCN head's taps and contraction) at each head of the
    flagship with DCN heads (B4 V4 512x640 bf16, C 64 to 8) at offsets of
-   0.1 and 4 px std, beside its plain version; ``bn_train`` (train-mode
+   0.1 and 4 px std, beside its plain version; ``convnext_block`` (a
+   patchify ConvNeXt block) at each block of the ``fpn_convnext4`` model's
+   eval forward (B4 V4 512x640 bf16, dim 8, 16, 32), beside its plain
+   version; ``bn_train`` (train-mode
    BatchNorm + ReLU, forward and backward) at every shape of its calls in
    the B6 V5 train step, beside its plain version, the float32 chain and
    its autograd backward; K2 (FPN top-down level) at the eval
@@ -104,7 +107,8 @@
    launches of one B4 V4 512x640 bf16 eval forward counted and held to its
    own (K1 12, K2 3, K5 4, K6 from the route rule over its layers,
    ``_k6_launches``; ``norm_act`` its ``checks.norm_act_modules``;
-   ``deform_conv`` 4 with DCN heads, else 0), three rounds of five
+   ``deform_conv`` 4 with DCN heads, ``convnext_block`` 3 with the
+   patchify ConvNeXt pyramid, else 0), three rounds of five
    timed forwards and one profiled; the same around one DTU train step
    (K4 16, K3 16, K2 6, K6, ``norm_act`` and ``deform_conv`` 0, ``bn_train``
    six at each of its train-mode BatchNorms, ``_bn_train_launches``) and
@@ -166,7 +170,7 @@
 Phases 7, 8 and 10 read the eager forms (``utils/graphs.eager``): the
 readings that phase 15 holds the captured forms against; phases 11 and
 12 read their mesh paths both ways. Every phase counts the launches of
-all nine kernels (``ops/_build.KERNELS``) the same way (``_counted``:
+all ten kernels (``ops/_build.KERNELS``) the same way (``_counted``:
 ``_build.launch_counts()`` before and after) and holds them to the same
 tables (``EVAL_LAUNCHES``, ``TRAIN_LAUNCHES``, ``PIPELINE_LAUNCHES_PER_VIEW``,
 ``VAL_LAUNCHES``): a captured function's first call with a new input
@@ -215,16 +219,20 @@ SEED = 0
 # follow its route rule (models/layers.band_conv_route, _k6_launches),
 # norm_act's the eval BatchNorms off that route (checks.norm_act_modules,
 # _norm_act_launches) and bn_train's the train-mode BatchNorms
-# (_bn_train_launches): main() fills them in. No flagship path has DCN heads.
+# (_bn_train_launches): main() fills them in. No flagship path has DCN heads
+# or ConvNeXt blocks.
 EVAL_LAUNCHES = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                 "band_conv": None, "norm_act": None, "deform_conv": 0, "bn_train": 0}
+                 "band_conv": None, "norm_act": None, "deform_conv": 0, "bn_train": 0,
+                 "convnext_block": 0}
 TRAIN_LAUNCHES = {"warp_cor": 0, "topdown": 6, "warp_bwd": 16, "warp_fwd": 16, "attn_fuse": 0,
-                  "band_conv": 0, "norm_act": 0, "deform_conv": 0, "bn_train": None}
+                  "band_conv": 0, "norm_act": 0, "deform_conv": 0, "bn_train": None,
+                  "convnext_block": 0}
 PIPELINE_LAUNCHES_PER_VIEW = {"warp_cor": 12, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0,
                               "attn_fuse": 4, "band_conv": None, "norm_act": None,
-                              "deform_conv": 0, "bn_train": 0}
+                              "deform_conv": 0, "bn_train": 0, "convnext_block": 0}
 VAL_LAUNCHES = {"warp_cor": 16, "topdown": 3, "warp_bwd": 0, "warp_fwd": 0, "attn_fuse": 4,
-                "band_conv": None, "norm_act": None, "deform_conv": 0, "bn_train": 0}
+                "band_conv": None, "norm_act": None, "deform_conv": 0, "bn_train": 0,
+                "convnext_block": 0}
 PIPELINE_V = 4
 # the weight seed of the pipeline phase: with random weights the fused cloud's
 # size depends on the draw, and some seeds give an empty cloud; seed 4 gives
@@ -1047,6 +1055,85 @@ def check_deform_conv(dev, batch):
     return rows
 
 
+def _convnext_block_calls(dev, batch):
+    """The shape of ``x`` at each ``convnext_block`` call in one eager eval
+    forward of the flagship with the patchify ConvNeXt pyramid
+    (``fpn_convnext4``, bf16, seeded) on ``batch``, in order (the shapes to
+    time; the launches a forward are counted in ``drive_variants``)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import checks
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        convnext_block as cb,
+    )
+
+    cfg = dataclasses.replace(dtu_model_config(), arch_mode="fpn_convnext4")
+    model = checks.seeded_model(cfg, SEED, dev)
+    calls, real = [], cb.convnext_block
+
+    def record(x, *params, eps):
+        calls.append(tuple(x.shape))
+        return real(x, *params, eps=eps)
+
+    with mock.patch.object(cb, "convnext_block", record), torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_convnext_block(dev, batch):
+    """``convnext_block`` at each block of the ``fpn_convnext4`` model's
+    eval forward (the shapes read from a forward: B4 V4 512x640 bf16, dim
+    8, 16, 32), on a random input and parameters drawn as the benchmark
+    draws them (``gamma`` and the LayerNorm weight N(0, 1)), against its
+    plain version in float32 with the weights rounded as the plain route
+    rounds them (a row's ``max_abs_diff`` is ``convnext_block.limit_share``,
+    at most 1), timed beside the plain version in bf16 (the route it
+    replaced). The bound is ``benchmark/counts/convnext.py``'s for the
+    block: its convolutions at the bf16 tensor cores' rate (``ops`` counts
+    them at the CUDA cores', so that ops / peak is the sum of the two
+    times), the LayerNorm, GELU and scale on the CUDA cores, and its bytes
+    (the first block's input read, each output written and read by the
+    next, the weights)."""
+    import torch
+
+    from benchmark.counts import convnext as convnext_counts
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+        convnext_block as cb,
+    )
+
+    calls = _convnext_block_calls(dev, batch)
+    pieces = convnext_counts.blocks(B, V, H, W, dtu_model_config().fpn_base_channel, "bfloat16")
+    if [c[-1] for c in calls] != [8, 16, 32]:
+        raise AssertionError(f"convnext_block: calls {calls}, want one a block at dim 8, 16, 32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    rows = []
+    for shape, piece in zip(calls, pieces):
+        dim = shape[-1]
+        c2, c4 = 2 * dim, 4 * dim
+        x = draw(*shape).relu_().to(torch.bfloat16)
+        params = (draw(c2, dim, 2, 2, scale=(4 * dim) ** -0.5), draw(c2, scale=0.05),
+                  draw(c2, 2, 7, 7, scale=98 ** -0.5), draw(c2, scale=0.05), draw(c2),
+                  draw(c2, scale=0.05), draw(c4, c2, scale=c2 ** -0.5), draw(c4, scale=0.05),
+                  draw(c2, c4, scale=c4 ** -0.5), draw(c2, scale=0.05), draw(c2))
+        share = cb.limit_share(cb.convnext_block(x, *params), x, params)
+        torch.cuda.empty_cache()
+        ops = piece["conv_flops"] * FP32_FLOPS / BF16_TENSOR_FLOPS + piece["other_flops"]
+        _record(rows, "convnext_block", "eval", list(shape), x.dtype, share, 1.0, 1,
+                lambda a=(x, *params): cb.convnext_block(*a),
+                lambda a=(x, *params): cb.convnext_block_ref(*a), piece["bytes"], ops,
+                FP32_FLOPS, timed=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _path_hypotheses(batch, cfg):
     """The four stages' hypotheses as the train and eval paths make them
     from a depth map (the batch's B): stage 1 the full inverse range
@@ -1413,7 +1500,8 @@ def drive_variants(dev, batch, train_batch):
        statistics from ``checks.seeded_model``): the launches of one
        forward counted, held to the variant's (K1 12, K2 3, K5 4, K6 by
        ``_k6_launches``, ``norm_act`` by ``checks.norm_act_modules``,
-       ``deform_conv`` 4 with DCN heads, else 0); finite depth of
+       ``deform_conv`` 4 with DCN heads, else 0, ``convnext_block`` 3 with
+       the patchify ConvNeXt pyramid, else 0); finite depth of
        the expected shape; three rounds of five timed forwards, the peak
        memory, and the device time of one forward by ``profile_run``;
     2. the DTU train step (B6 V5 512x640 bf16, recipe loss, Adam): the
@@ -1451,7 +1539,8 @@ def drive_variants(dev, batch, train_batch):
         model = checks.seeded_model(cfg, SEED, dev)
         want = {**EVAL_LAUNCHES, "band_conv": _k6_launches(torch.bfloat16, variant),
                 "norm_act": checks.norm_act_modules(model, torch.bfloat16),
-                "deform_conv": 4 if variant.get("dcn") else 0}
+                "deform_conv": 4 if variant.get("dcn") else 0,
+                "convnext_block": 3 if variant.get("arch_mode") == "fpn_convnext4" else 0}
         with torch.inference_mode():
             model(*args)                                       # warm-up
             out, counts = counted(lambda: model(*args))        # the variant's path
@@ -2377,8 +2466,8 @@ def drive_graphs(dev, eager_pipeline, drivers):
 
 # the kernels line, a row a kernel of ops/_build.KERNELS: (name, the JAX
 # package's Pallas kernel it replaces (None where none stood: XLA fused the
-# eval and train-mode BatchNorm into their neighbours, the JAX DCN is plain
-# jnp), the JAX
+# eval and train-mode BatchNorm into their neighbours, the JAX DCN and
+# ConvNeXt blocks are plain jnp and flax), the JAX
 # kernels it also serves, the row set of its main sums (timed per eval
 # forward or train step), the variant of checks.VARIANTS whose counted
 # forward and step give its launches_eval and launches_train (None: the
@@ -2407,6 +2496,7 @@ KERNEL_TABLE = (
     ("deform_conv", None, [], "eval", "dcn", "max_share_of_limit",
      {"offsets_4px": "eval_offsets_4px"}),
     ("bn_train", None, [], "train", None, "max_share_of_limit", {}),
+    ("convnext_block", None, [], "eval", "fpn_convnext4", "max_share_of_limit", {}),
 )
 
 
@@ -2482,7 +2572,8 @@ def main() -> int:
     train_batch = _scene(TRAIN_B, TRAIN_V, H, W, dev)
     rows = check_kernels(dev, batch) + check_warp_cor_pipeline(dev) + check_topdown(dev) \
         + check_band_conv(dev) + check_norm_act(dev, batch) + check_attn_fuse_workspace(dev)
-    rows += check_deform_conv(dev, batch) + check_bn_train(dev, train_batch)
+    rows += check_deform_conv(dev, batch) + check_convnext_block(dev, batch) \
+        + check_bn_train(dev, train_batch)
     k3_rows, bwd_library_diff = check_warp_bwd(dev, train_batch)
     k4_rows, fwd_library_diff = check_warp_fwd(dev, train_batch)
     rows += k3_rows + k4_rows

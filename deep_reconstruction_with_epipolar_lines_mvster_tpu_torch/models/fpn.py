@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``models/fpn.py``:
   base 8);
 - ``FPN4ConvNeXt`` (reference ``FPN4_convnext`` / ``FPN4_convnext4``,
   ``:533-728``): a two-conv stem and three ConvNeXt blocks (``ConvNeXtBlock``
-  or, with ``patchify``, ``ConvNeXt4Block``) in place of the 5x5 stages,
+  or, with ``patchify``, ``ConvNeXt4Block``, in eval on the card one kernel
+  a block, ``ops/kernels/convnext_block.py``) in place of the 5x5 stages,
   then the same top-down pathway;
 - with ``dcn``, each output passes a norm + ReLU + deformable conv head
   (``NADCN``, reference ``NA_DCN``, ``:410-424``; ``DeformConv2d`` is DCN
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.geometry import upsample_nearest_2x
-from ..ops.kernels import deform_conv
+from ..ops.kernels import convnext_block, deform_conv
 from ..ops.topdown_chain import topdown_chain
 from ..utils import trace
 from .layers import (
@@ -213,7 +214,11 @@ class ConvNeXt4Block(ConvNeXtBlock):
     """Patchify ConvNeXt block (reference ``convnext4_block``): a 2x2
     stride-2 conv ``sconv`` (dim -> 2 dim), then the 7x7 conv with
     ``groups=dim`` (two channels in and out per group), LayerNorm, MLP and
-    layer scale, added to the ``sconv`` output."""
+    layer scale, added to the ``sconv`` output. Where
+    ``convnext_block.route`` takes it (eval with no autograd recording, on
+    the card, bf16, dim 8, 16 or 32) the whole block is one kernel
+    (``ops/kernels/convnext_block.py``); elsewhere the plain version
+    ``convnext_block_ref``."""
 
     def __init__(self, dim: int, layer_scale_init: float = 1e-6):
         super().__init__(dim, layer_scale_init)
@@ -222,9 +227,14 @@ class ConvNeXt4Block(ConvNeXtBlock):
 
     def forward(self, x):
         with trace.span("convnext"):
-            inp = conv2d_nhwc(x, self.sconv.weight, self.sconv.bias, 2)
-            x = conv2d_nhwc(inp, self.dwconv.weight, self.dwconv.bias, 1, 3, groups=self.dim)
-            return _convnext_pixels(inp + self._mlp(x))
+            params = tuple(self.get_parameter(name) for name in convnext_block.PARAMS)
+            train = self.training or (torch.is_grad_enabled()
+                                      and any(t.requires_grad for t in (x, *params)))
+            if convnext_block.route(x.device.type, x.dtype, self.dim, train):
+                y = convnext_block.convnext_block(x.contiguous(), *params, eps=self.norm.eps)
+            else:
+                y = convnext_block.convnext_block_ref(x, *params, eps=self.norm.eps)
+            return _convnext_pixels(y)
 
 
 class FPN4ConvNeXt(_TopDownFPN):

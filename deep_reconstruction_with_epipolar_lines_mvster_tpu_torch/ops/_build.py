@@ -39,11 +39,12 @@ NVCC_FLAGS = (
 # attention accumulation, K6 conv + folded BatchNorm + ReLU; norm_act the
 # eval BatchNorm + ReLU after a library convolution; deform_conv a DCN head's
 # taps and their contraction; bn_train the train-mode BatchNorm + ReLU and
-# its backward
+# its backward; convnext_block a patchify ConvNeXt block
 KERNELS = ("warp_cor", "topdown", "warp_bwd", "warp_fwd", "attn_fuse", "band_conv", "norm_act",
-           "deform_conv", "bn_train")
+           "deform_conv", "bn_train", "convnext_block")
 
-DTYPES = (torch.float32, torch.bfloat16)       # every kernel's but deform_conv's (bf16)
+# every kernel's but deform_conv's and convnext_block's (bf16)
+DTYPES = (torch.float32, torch.bfloat16)
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}

@@ -45,6 +45,9 @@ from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import
     bn_train as bt,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
+    convnext_block as cb,
+)
+from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
     deform_conv as dc,
 )
 from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.ops.kernels import (
@@ -1906,8 +1909,9 @@ def test_captured_convnext4_forward_matches_the_reference(dev, dtype, monkeypatc
     within the cell's limits in bf16 and ``eval_dtu_f32``'s in float32.
     The first call launches K1 12, K2 3, K5 4 and K6 6 times (``conv0.0``,
     ``conv0.1`` and the four Reg2D ``conv0``: the pyramid has no FPN4
-    ``conv1``-``conv3`` layers) and ``norm_act`` once a library-route
-    BatchNorm, each twice (warm-up and capture), and opens the
+    ``conv1``-``conv3`` layers), ``norm_act`` once a library-route
+    BatchNorm and ``convnext_block`` once a block in bf16 (none in
+    float32), each twice (warm-up and capture), and opens the
     ``convnext`` span twice a block; the replay launches and opens
     nothing, and gives the same maps (in float32 under
     ``cudnn.deterministic``, as ``checks.check_graph_forward`` holds it)."""
@@ -1934,7 +1938,7 @@ def test_captured_convnext4_forward_matches_the_reference(dev, dtype, monkeypatc
     batch = program.scenes(ctx, mix["batch"], mix["views"])
     args = (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
     forward = make_eval_forward(model)
-    names = ("warp_cor", "topdown", "attn_fuse", "band_conv", "norm_act")
+    names = ("warp_cor", "topdown", "attn_fuse", "band_conv", "norm_act", "convnext_block")
     tdt = getattr(torch, dtype)
 
     def counts():
@@ -1948,7 +1952,8 @@ def test_captured_convnext4_forward_matches_the_reference(dev, dtype, monkeypatc
     again = forward(*args)
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(before, mid)] == [
-        24, 6, 8, 12, 2 * checks.norm_act_modules(model, tdt), 6]
+        24, 6, 8, 12, 2 * checks.norm_act_modules(model, tdt),
+        6 if dtype == "bfloat16" else 0, 6]
     assert counts() == mid
     assert all(torch.equal(a, b) for a, b in zip(first["stage_depths"], again["stage_depths"]))
     with driver._convnext_reference():
@@ -1958,3 +1963,175 @@ def test_captured_convnext4_forward_matches_the_reference(dev, dtype, monkeypatc
     numbers = gap.numbers()
     assert gap.bad_maps == 0
     assert all(numbers[k] <= limit for k, limit in spec["limits"].items()), numbers
+
+
+def _cnx_case(dim, seed, N, H, W, dev):
+    """A ``ConvNeXt4Block`` in eval on the card with the benchmark's seeded
+    weights (``harness.make_weights``: ``gamma`` and the LayerNorm weight
+    N(0, 1), as ``eval_convnext4_bf16`` draws them), its parameters in the
+    order of ``convnext_block.PARAMS``, and a ReLU'd bf16 input."""
+    from benchmark import harness
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.models.fpn import (
+        ConvNeXt4Block,
+    )
+
+    block = ConvNeXt4Block(dim).eval().to(dev)
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in block.state_dict().items()}
+    block.load_state_dict(harness.make_weights(shapes, seed, dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((N, H, W, dim), generator=gen, device=dev).relu_().to(torch.bfloat16)
+    return block, tuple(block.get_parameter(n) for n in cb.PARAMS), x
+
+
+def _cnx_gap_share(got, x, params):
+    """``convnext_block.limit_share`` of a finite bf16 block output."""
+    N, H, W, dim = x.shape
+    assert got.dtype == torch.bfloat16 and got.shape == (N, H // 2, W // 2, 2 * dim)
+    assert torch.isfinite(got).all()
+    return cb.limit_share(got, x, params)
+
+
+@pytest.mark.parametrize("N,H,W,dim", [(2, 37, 53, 8), (1, 9, 7, 16), (3, 20, 70, 32),
+                                       (2, 33, 35, 32), (1, 35, 66, 16), (1, 2, 2, 8)])
+def test_convnext_block_kernel_matches_plain(dev, N, H, W, dim):
+    """``convnext_block`` against its plain version computed in float32 (the
+    weights rounded as the plain route rounds them) within
+    ``convnext_block.limit`` at every output, at dim 8, 16 and 32, on
+    shapes whose H/2 and W/2 are no multiple of a tile (16 x 16, 8 x 16 at
+    dim 32), an odd H or W (the last row or column unread) and a single
+    output pixel; each call one launch, counted."""
+    _, params, x = _cnx_case(dim, N * 1000 + H + dim, N, H, W, dev)
+    before = _launches("convnext_block")
+    with torch.inference_mode():
+        got = cb.convnext_block(x, *params)
+        torch.cuda.synchronize()
+        assert _launches("convnext_block") == before + 1
+        assert _cnx_gap_share(got, x, params) <= 1.0
+
+
+def test_convnext_block_kernel_matches_plain_at_each_block_of_the_cell(dev):
+    """Each block of ``mvster_convnext4_bf16``'s eval forward at its cell's
+    size (B4 V4 512x640: dim 8, 16, 32 at 1/1, 1/2 and 1/4 resolution), on
+    the inputs the model's forward gives it (seeded weights and batch,
+    ``benchmark/program.py``), within ``convnext_block.limit`` of the plain
+    version in float32."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from benchmark import harness, program
+    config = harness.load_json(harness.find("configs", "mvster_convnext4_bf16"))
+    mix = harness.load_json(harness.find("traffic", "dtu_eval_b4v4"))
+    ctx = SimpleNamespace(seed=2 ** 31 + 9, device=dev, traffic=mix)
+    model, _ = program.build_model(config, ctx.seed, dev)
+    batch = program.scenes(ctx, mix["batch"], mix["views"])
+    calls, real = [], cb.convnext_block
+
+    def record(x, *params, eps):
+        out = real(x, *params, eps=eps)
+        calls.append((x.clone(), tuple(p.detach().clone() for p in params), out.clone()))
+        return out
+
+    with mock.patch.object(cb, "convnext_block", record), torch.inference_mode():
+        model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+    torch.cuda.synchronize()
+    assert [tuple(c[0].shape) for c in calls] == [
+        (16, 512 >> i, 640 >> i, 8 << i) for i in range(3)]
+    for x, params, got in calls:
+        assert _cnx_gap_share(got, x, params) <= 1.0, tuple(x.shape)
+        torch.cuda.empty_cache()
+
+
+def test_convnext_block_launches_at_each_eval_block_and_none_in_training(dev):
+    """One eager eval forward of the ``fpn_convnext4`` model in bf16
+    launches the kernel once a block (``convnext_block.launches``); an
+    eager bf16 train step (B2 V3 64x128, recipe loss, Adam) and an eval
+    forward in float32 launch it at none."""
+    import dataclasses
+
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch import graft_entry
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.train.step import (
+        make_optimizer,
+        make_train_step,
+    )
+    from deep_reconstruction_with_epipolar_lines_mvster_tpu_torch.utils import graphs
+
+    bf16 = dataclasses.replace(graft_entry.dtu_model_config("bfloat16"),
+                               arch_mode="fpn_convnext4")
+    batch = graft_entry.example_batch(device=dev, B=1, V=3, H=128, W=192)
+
+    def eval_launches(cfg):
+        model = checks.seeded_model(cfg, 3, dev)
+        model.eval()
+        before = _launches("convnext_block")
+        with torch.inference_mode():
+            model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        torch.cuda.synchronize()
+        return _launched(before, "convnext_block")
+
+    assert eval_launches(bf16) == 3
+    assert eval_launches(dataclasses.replace(bf16, dtype="float32")) == 0
+    model = checks.seeded_model(bf16, 3, dev)
+    model.train()
+    step = make_train_step(model, checks.RECIPE_LOSS, make_optimizer(model, 1e-4),
+                           lambda i: 1e-3)
+    before = _launches("convnext_block")
+    with graphs.eager():
+        step(checks.small_step_batch(dev))
+    torch.cuda.synchronize()
+    assert _launched(before, "convnext_block") == 0
+
+
+def test_convnext_block_reads_the_live_weights_under_graph_replay(dev):
+    """A captured graph of ``convnext_block`` replayed after every parameter
+    changes in place gives the new block: the kernel packs the weights at
+    every launch, so nothing goes stale."""
+    _, params, x = _cnx_case(16, 31, 2, 40, 36, dev)
+    with torch.no_grad():
+        cb.convnext_block(x, *params)                                  # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = cb.convnext_block(x, *params)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = out.clone()
+        assert torch.equal(first, cb.convnext_block(x, *params))
+        for p in params:
+            p.mul_(-0.5).add_(0.01)
+        graph.replay()
+        torch.cuda.synchronize()
+        second = cb.convnext_block(x, *params)
+        assert not torch.equal(first, second)
+        assert torch.equal(out, second)
+
+
+def test_convnext_block_refuses_what_it_does_not_take(dev):
+    """No fallback on the card: ``convnext_block`` raises on a CPU tensor, a
+    float32 or float16 input, a dim outside ``DIMS`` (4, 24, 64), a
+    non-contiguous or misaligned x, a parameter of another shape, dtype or
+    device, and under autograd."""
+    _, params, x = _cnx_case(8, 3, 1, 12, 14, dev)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="device"):
+            cb.convnext_block(x.cpu(), *(p.cpu() for p in params))
+        for dtype in (torch.float32, torch.float16):
+            with pytest.raises(ValueError, match="not supported"):
+                cb.convnext_block(x.to(dtype), *params)
+        for dim in (4, 24, 64):
+            _, other, _ = _cnx_case(dim, 4, 1, 4, 4, dev)
+            with pytest.raises(ValueError, match="not supported"):
+                cb.convnext_block(torch.zeros((1, 4, 4, dim), device=dev,
+                                              dtype=torch.bfloat16), *other)
+        with pytest.raises(ValueError, match="contiguous"):
+            cb.convnext_block(x.transpose(1, 2), *params)
+        flat = torch.zeros(x.numel() + 1, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="aligned"):
+            cb.convnext_block(flat[1:].view(x.shape), *params)
+        with pytest.raises(ValueError, match="shapes"):
+            cb.convnext_block(x, params[0][:, :4].contiguous(), *params[1:])
+        with pytest.raises(ValueError, match="float32"):
+            cb.convnext_block(x, *params[:-1], params[-1].to(torch.bfloat16))
+        with pytest.raises(ValueError, match="on cpu"):
+            cb.convnext_block(x, *params[:-1], params[-1].cpu())
+    with pytest.raises(RuntimeError, match="autograd"):
+        cb.convnext_block(x, *params)
